@@ -1,0 +1,91 @@
+// Python bindings of the port's kernels.  Each kernel file exposes a plain C
+// launcher that returns the cudaError_t of its launch; these functions take
+// the tensors the Python wrappers have already checked, pass their pointers
+// and the current stream, and raise on a failed launch.
+#include <c10/cuda/CUDAStream.h>
+#include <cuda_runtime.h>
+#include <torch/extension.h>
+
+extern "C" {
+int lantern_int8_matmul(const void* x, const void* q, const void* s, void* out,
+                        int M, int K, int N, int out_f32, void* stream);
+int lantern_tree_attention(const void* q, const void* k_new, const void* v_new,
+                           const void* k_cache, const void* v_cache,
+                           const void* k_scale, const void* v_scale,
+                           const void* length, const void* mask,
+                           const void* bias, void* out, void* part, int B,
+                           int T, int G, int S, int nsplit, int quantized,
+                           float scale, void* stream);
+int lantern_kv_write(const void* k_new, const void* v_new, void* k_buf,
+                     void* v_buf, void* k_scale, void* v_scale,
+                     const void* start, int L, int B, int T, int G, int S,
+                     int quantized, void* stream);
+}
+
+namespace {
+
+void check(int rc, const char* kernel) {
+  TORCH_CHECK(rc == 0, "lantern_tpu_torch: ", kernel, " launch failed: ",
+              cudaGetErrorString(static_cast<cudaError_t>(rc)),
+              " (cudaError ", rc, ")");
+}
+
+void* stream_of(const at::Tensor& t) {
+  return c10::cuda::getCurrentCUDAStream(t.get_device()).stream();
+}
+
+void* ptr(const c10::optional<at::Tensor>& t) {
+  return t.has_value() ? t->data_ptr() : nullptr;
+}
+
+// out[M, N] = (x[M, K] @ q[K, N]) * s[N]
+void int8_matmul(const at::Tensor& x, const at::Tensor& q, const at::Tensor& s,
+                 at::Tensor& out) {
+  check(lantern_int8_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                            out.data_ptr(), x.size(0), x.size(1), q.size(1),
+                            out.scalar_type() == at::kFloat, stream_of(x)),
+        "int8_matmul");
+}
+
+// q/k_new/v_new/out [B, T, G, 128]; caches [B, G, S, 128]; part holds the
+// per-split partials when nsplit > 1
+void tree_attention(const at::Tensor& q, const at::Tensor& k_new,
+                    const at::Tensor& v_new, const at::Tensor& k_cache,
+                    const at::Tensor& v_cache,
+                    const c10::optional<at::Tensor>& k_scale,
+                    const c10::optional<at::Tensor>& v_scale,
+                    const at::Tensor& length, const at::Tensor& mask,
+                    const at::Tensor& bias, at::Tensor& out,
+                    const c10::optional<at::Tensor>& part, int64_t nsplit,
+                    double scale) {
+  check(lantern_tree_attention(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
+            ptr(v_scale), length.data_ptr(), mask.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), ptr(part), q.size(0), q.size(1),
+            k_cache.size(1), k_cache.size(2), nsplit, k_scale.has_value(),
+            static_cast<float>(scale), stream_of(q)),
+        "tree_attention");
+}
+
+// k_new/v_new [L, B, T, n_kv, hd]; planes [L, B, G, S, 128]; in place
+void kv_write(const at::Tensor& k_new, const at::Tensor& v_new,
+              at::Tensor& k_buf, at::Tensor& v_buf,
+              const c10::optional<at::Tensor>& k_scale,
+              const c10::optional<at::Tensor>& v_scale,
+              const at::Tensor& start) {
+  check(lantern_kv_write(k_new.data_ptr(), v_new.data_ptr(), k_buf.data_ptr(),
+                         v_buf.data_ptr(), ptr(k_scale), ptr(v_scale),
+                         start.data_ptr(), k_buf.size(0), k_buf.size(1),
+                         k_new.size(2), k_buf.size(2), k_buf.size(3),
+                         k_scale.has_value(), stream_of(k_buf)),
+        "kv_write");
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("int8_matmul", &int8_matmul);
+  m.def("tree_attention", &tree_attention);
+  m.def("kv_write", &kv_write);
+}

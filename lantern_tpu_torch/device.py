@@ -1,0 +1,16 @@
+"""Device resolution for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``.  A CUDA device without a card raises: the port
+    never falls back to the CPU silently; callers ask for it by name."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "lantern_tpu_torch: CUDA device requested but torch.cuda is not "
+            "available; pass device='cpu' to run the plain PyTorch versions")
+    return dev

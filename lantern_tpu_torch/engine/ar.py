@@ -1,0 +1,97 @@
+"""Vanilla CFG autoregressive decode loop over a token prompt — the 1.0x
+baseline the speculative engine is measured against.
+
+Counterpart of ``generate_tokens`` in ``lantern_tpu/engine/ar.py``: the
+cond/uncond rows carry their own position ids, every step samples ONE token
+from the CFG-combined logits and feeds it to both rows.  A plain Python
+loop replaces ``lax.fori_loop``; the only host read per step is the stop
+check when ``stop_ids`` is set.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..configs import ModelConfig
+from ..device import resolve_device
+from ..kv import KVCache
+from ..models import transformer as tfm
+from ..models.chameleon import TokenPrompt
+from ..ops.sampling import LogitsWarp, cfg_combine, sample_token
+
+
+class ARResult(NamedTuple):
+    tokens: torch.Tensor     # [max_new] generated ids
+    kv: KVCache
+    # committed length: max_new, or with stop_ids the index one past the
+    # first stop id; -1 means "no stop tracking requested"
+    n_valid: int = -1
+
+
+def generate_tokens(
+    params: dict,
+    cfg: ModelConfig,
+    token_prompt: TokenPrompt,
+    max_new: int,
+    cfg_scale: float,
+    warp: LogitsWarp,
+    generator: Optional[torch.Generator],
+    logits_mask: Optional[torch.Tensor] = None,
+    logits_fn=None,
+    rope=None,
+    kv_quant: bool = False,
+    stop_ids: tuple = (),
+    device=None,
+) -> ARResult:
+    """Chameleon-family base-mode CFG AR loop.  ``logits_mask`` (bool [V])
+    suppresses tokens; ``logits_fn(logits [T, V], cond_positions)`` applies
+    the Lumina grid FSM; ``stop_ids`` ends the loop after committing one."""
+    dev = resolve_device(device)
+    if rope is None:
+        rope = tfm.make_rope_tables(cfg, dev)
+    tp = token_prompt.to(dev)
+    L = tp.tokens.shape[1]
+
+    def warp_rows(logits, cond_pos):              # [2, 1, V], [1] -> [1, V]
+        logits = cfg_combine(logits, cfg_scale)[0]
+        if logits_mask is not None:
+            logits = torch.where(logits_mask, torch.finfo(torch.float32).min,
+                                 logits)
+        if logits_fn is not None:
+            logits = logits_fn(logits, cond_pos)
+        return logits
+
+    kv = KVCache.create(cfg, 2, quantized=kv_quant, device=dev)
+    valid = tp.valid.bool()
+    block = (torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None]
+             & valid[:, None, :])
+    res = tfm.forward(params, cfg, tfm.token_embed(params, tp.tokens), kv,
+                      positions=tp.positions, rope=rope, block_mask=block)
+    pv = torch.ones((2, kv.max_len), dtype=torch.bool, device=dev)
+    pv[:, :L] = valid
+    logits = tfm.logits_head(params, res.hidden[:, -1:])
+    last_pos = tp.positions[:, -1]                                # [2]
+    tok = sample_token(generator, warp_rows(logits, last_pos[:1]), warp)
+    kv = res.kv
+    out = torch.zeros((max_new,), dtype=torch.int32, device=dev)
+    stops = (torch.tensor(stop_ids, dtype=torch.int32, device=dev)
+             if stop_ids else None)
+    n_valid = -1
+    for i in range(max_new):
+        out[i] = tok[0]
+        emb = tfm.token_embed(params, tok[:, None].expand(2, 1))
+        pos = (last_pos + 1 + i)[:, None]                         # [2, 1]
+        res = tfm.forward(params, cfg, emb, kv, pos, rope, prefix_valid=pv)
+        kv = res.kv
+        logits = tfm.logits_head(params, res.hidden[:, -1:])
+        nxt = sample_token(generator, warp_rows(logits, pos[0]), warp)
+        if stops is not None and bool((tok[0] == stops).any()):
+            n_valid = i + 1
+            break
+        tok = nxt
+    else:
+        if stops is not None:
+            n_valid = max_new
+    return ARResult(tokens=out, kv=kv, n_valid=n_valid)

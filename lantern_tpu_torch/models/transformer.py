@@ -1,0 +1,269 @@
+"""The Chameleon-family decoder as plain functions over parameter dicts.
+
+Counterpart of ``lantern_tpu/models/transformer.py`` for the variant the
+Lumina lane runs: 1-D rope with half pairing, QK-LayerNorm, swin (post-norm)
+or pre-norm ordering, token inputs (no conditioning prefix), MHA.  The
+params dict has the JAX package's layout (stacked ``[L, ...]`` layer
+weights, split or fused, dense or int8), so ``convert.py`` can move a JAX
+pytree over unchanged.
+
+Per layer the three TPU kernels of the path have hand-written CUDA
+counterparts, each reached through a device-dispatching op:
+``quant.mm`` (K1, four W8A16 matmuls), ``tree_attention`` (K2), and after
+the layer loop ``KVCache.write`` (K3, one launch for all layers).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs import ModelConfig
+from ..device import resolve_device
+from ..kv import KVCache
+from ..ops.quant import has_kernel, head_matmul, head_of, mm
+from ..ops.rope import apply_rope_half, rope_table_1d
+from ..ops.tree_attention import NEG_INF, tree_attention
+
+
+def _require_chameleon(cfg: ModelConfig) -> None:
+    if cfg.rope_kind != "1d" or cfg.rope_pairing != "half":
+        raise NotImplementedError(
+            "2-D / interleaved rope belongs to the LlamaGen/XL lane "
+            "(ROADMAP queue 1, item 10)")
+    if cfg.num_kv_heads != cfg.num_heads:
+        raise NotImplementedError("GQA is not ported (every LANTERN family "
+                                  "is MHA)")
+
+
+def make_rope_tables(cfg: ModelConfig, device=None):
+    """Rope (cos, sin) f32 tables on ``device``."""
+    _require_chameleon(cfg)
+    cos, sin = rope_table_1d(cfg.max_seq_len, cfg.head_dim, cfg.rope_base)
+    dev = resolve_device(device)
+    return (torch.from_numpy(np.asarray(cos)).to(dev),
+            torch.from_numpy(np.asarray(sin)).to(dev))
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig, dtype=None,
+                device=None) -> dict:
+    """Random-init parameter dict (N(0, 0.02) weights, unit norms) drawn
+    from ``generator``, which must live on ``device``."""
+    dev = resolve_device(device)
+    dt = dtype or cfg.torch_dtype
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L = cfg.num_layers
+
+    def w(*shape, scale=0.02):
+        x = torch.empty(shape, dtype=torch.float32, device=dev)
+        x.normal_(generator=generator)
+        return (x.mul_(scale)).to(dt)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=dev)
+
+    layers = {
+        "attn_norm": ones(L, H),
+        "wq": w(L, H, nh * hd),
+        "wk": w(L, H, nkv * hd),
+        "wv": w(L, H, nkv * hd),
+        "wo": w(L, nh * hd, H),
+        "ffn_norm": ones(L, H),
+        "w_gate": w(L, H, I),
+        "w_up": w(L, H, I),
+        "w_down": w(L, I, H),
+    }
+    if cfg.qk_norm:
+        layers["q_norm_w"] = ones(L, nh, hd)
+        layers["q_norm_b"] = torch.zeros((L, nh, hd), dtype=dt, device=dev)
+        layers["k_norm_w"] = ones(L, nkv, hd)
+        layers["k_norm_b"] = torch.zeros((L, nkv, hd), dtype=dt, device=dev)
+    return {
+        "embed": w(V, H),
+        "layers": layers,
+        "norm": ones(H),
+        "lm_head": w(H, V),
+    }
+
+
+def fuse_params(params: dict) -> dict:
+    """Fuse per-layer QKV and gate/up projections into single matmuls
+    (``wqkv`` [L, H, 3*nh*hd], ``w_gu`` [L, H, 2I])."""
+    p = dict(params)
+    layers = dict(p["layers"])
+    if "wq" in layers:
+        layers["wqkv"] = torch.cat(
+            [layers.pop("wq"), layers.pop("wk"), layers.pop("wv")], dim=-1)
+    if "w_gate" in layers:
+        layers["w_gu"] = torch.cat(
+            [layers.pop("w_gate"), layers.pop("w_up")], dim=-1)
+    p["layers"] = layers
+    return p
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return w * (xf * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def head_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """Per-head LayerNorm over head_dim (Chameleon QK-norm).
+    x: [B, T, n, hd]; w, b: [n, hd]."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    normed = (xf - mu) * torch.rsqrt(var + eps)
+    return (normed * w + b).to(x.dtype)
+
+
+def token_embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+    return params["embed"][input_ids.long()]
+
+
+def logits_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
+    return head_matmul(hidden, head_of(params))
+
+
+def build_mask(T: int, S: int, cur_len: torch.Tensor,
+               block_mask: Optional[torch.Tensor],
+               prefix_valid: Optional[torch.Tensor], batch: int):
+    """Additive f32 {0, NEG_INF} masks ``(prefix [B, 1, T, S], block
+    [B or 1, 1, T, T])``: key j visible iff j < cur_len and (optionally)
+    prefix_valid[b, j]; the block is ``block_mask`` or causal."""
+    dev = cur_len.device
+    vis = torch.arange(S, device=dev)[None, :] < cur_len          # [1, S]
+    if prefix_valid is not None:
+        vis = vis & prefix_valid.bool()
+    mp = torch.where(vis, 0.0, NEG_INF)
+    mp = mp[:, None, None, :].expand(max(mp.shape[0], batch), 1, T, S)
+    bm = (torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
+          if block_mask is None else block_mask.bool())
+    if bm.ndim == 2:
+        bm = bm[None]
+    mb = torch.where(bm, 0.0, NEG_INF)[:, None]
+    return mp, mb
+
+
+class ForwardResult(NamedTuple):
+    hidden: torch.Tensor          # [B, T, H] final-norm hidden states
+    kv: KVCache                   # cache with the new block written
+    # deferred commit: the block's roped K/V ([L, B, T, n_kv, hd] pair),
+    # returned INSTEAD of being written to the cache
+    block: object = None
+
+
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    embeds: torch.Tensor,            # [B, T, H]
+    kv: KVCache,
+    positions: torch.Tensor,         # [T] or [B, T] position ids
+    rope: tuple[torch.Tensor, torch.Tensor],
+    block_mask: Optional[torch.Tensor] = None,   # [T, T] or [B, T, T]
+    prefix_valid: Optional[torch.Tensor] = None,  # [B or 1, S] padding mask
+    commit: bool = True,
+    extra_kv=None,
+    defer_block: bool = False,
+) -> ForwardResult:
+    """Run the decoder over a new token block against the KV cache.
+
+    ``extra_kv`` ``(k_ex [L, B, A, n_kv, hd], v_ex, n_valid)``: a previous
+    block's accepted rows, committed BEFORE the layer loop (one K3 launch)
+    so this block's attention reads them from the cache prefix.
+    ``defer_block`` skips writing the new block and returns its roped K/V
+    in ``ForwardResult.block``.  ``commit=False`` writes the block without
+    advancing the cache length."""
+    _require_chameleon(cfg)
+    B, T, H = embeds.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L = cfg.num_layers
+    S = kv.max_len
+    cos, sin = rope
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    positions = torch.clamp(positions.long(), 0, cos.shape[0] - 1)
+
+    if extra_kv is not None:
+        kv = kv.write(extra_kv[0], extra_kv[1], advance=False)
+        kv = kv.commit(extra_kv[2])
+
+    dev = embeds.device
+    bm = (torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
+          if block_mask is None else block_mask.bool())
+    if bm.ndim == 2:
+        bm = bm[None]
+    # laid out once per forward: the attention op takes them as they are
+    bm = bm.expand(B, T, T).contiguous()
+    if prefix_valid is None:
+        p_bias = torch.zeros((B, S), dtype=torch.float32, device=dev)
+    else:
+        pv = prefix_valid.bool().expand(B, S)
+        p_bias = torch.where(pv, 0.0, NEG_INF)
+    scale = hd ** -0.5
+    lp = params["layers"]
+    k_all = torch.empty((L, B, T, nkv, hd), dtype=embeds.dtype, device=dev)
+    v_all = torch.empty_like(k_all)
+
+    h = embeds
+    for li in range(L):
+        w = {name: t[li] for name, t in lp.items()}
+        if cfg.swin_norm:
+            x = h
+        else:
+            x = rms_norm(h, w["attn_norm"], cfg.rms_norm_eps)
+            if cfg.first_layer_no_input_norm and li == 0:
+                x = h
+        if has_kernel(w, "wqkv"):
+            y = mm(x, w, "wqkv")
+            q = y[..., : nh * hd].reshape(B, T, nh, hd)
+            k = y[..., nh * hd: (nh + nkv) * hd].reshape(B, T, nkv, hd)
+            v = y[..., (nh + nkv) * hd:].reshape(B, T, nkv, hd)
+        else:
+            q = mm(x, w, "wq").reshape(B, T, nh, hd)
+            k = mm(x, w, "wk").reshape(B, T, nkv, hd)
+            v = mm(x, w, "wv").reshape(B, T, nkv, hd)
+        if cfg.qk_norm:
+            q = head_layer_norm(q, w["q_norm_w"], w["q_norm_b"], cfg.norm_eps)
+            k = head_layer_norm(k, w["k_norm_w"], w["k_norm_b"], cfg.norm_eps)
+        q = apply_rope_half(q, cos, sin, positions)
+        k = apply_rope_half(k, cos, sin, positions)
+        k_all[li] = k
+        v_all[li] = v
+
+        o = tree_attention(
+            q, k, v, kv.k[li], kv.v[li], kv.length, bm, p_bias, scale,
+            k_scale=None if kv.k_scale is None else kv.k_scale[li],
+            v_scale=None if kv.v_scale is None else kv.v_scale[li])
+        attn_out = mm(o.reshape(B, T, nh * hd), w, "wo")
+
+        if cfg.swin_norm:
+            h1 = h + rms_norm(attn_out, w["attn_norm"], cfg.rms_norm_eps)
+            mlp_in = h1
+        else:
+            h1 = h + attn_out
+            mlp_in = rms_norm(h1, w["ffn_norm"], cfg.rms_norm_eps)
+        if has_kernel(w, "w_gu"):
+            gu = mm(mlp_in, w, "w_gu")
+            inter = gu.shape[-1] // 2
+            mlp = mm(F.silu(gu[..., :inter]) * gu[..., inter:], w, "w_down")
+        else:
+            mlp = mm(F.silu(mm(mlp_in, w, "w_gate")) * mm(mlp_in, w, "w_up"),
+                     w, "w_down")
+        if cfg.swin_norm:
+            mlp = rms_norm(mlp, w["ffn_norm"], cfg.rms_norm_eps)
+        h = h1 + mlp
+
+    block = None
+    if defer_block:
+        block = (k_all, v_all)
+    else:
+        kv = kv.write(k_all, v_all, advance=commit)
+    if cfg.final_norm:
+        h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
+    return ForwardResult(hidden=h, kv=kv, block=block)

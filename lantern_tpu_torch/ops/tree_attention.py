@@ -1,0 +1,154 @@
+"""Tree attention of a T-row block over the committed KV prefix plus itself.
+
+Counterpart of ``lantern_tpu/ops/pallas/tree_attention.py:tree_attention``
+(K2).  The function both versions compute is the JAX forward's DENSE-FUSED
+attention (``lantern_tpu/models/transformer.py:427-559``), which produces
+the reference numbers on every path the JAX tests run:
+
+- scores ``(q . k) * scale`` with f32 accumulation over model-dtype
+  operands; for an int8 cache ``(q . k_int8) * scale * k_scale`` — the
+  cache is never dequantized;
+- the in-flight block is quantized exactly as the cache write will store it
+  (``kv.quantize_rows``), so a token sees the same keys during its own
+  verification as every later step reads back;
+- softmax weights are cast to the model dtype (times ``v_scale`` for an
+  int8 cache) before the value contraction, and divided once by the f32 sum
+  of the unrounded weights.
+
+Masks: key ``j`` of the prefix is visible iff ``j < length`` (its additive
+bias row then applies, 0 or ``NEG_INF`` for padding); block key ``u`` is
+visible to row ``t`` iff ``block_mask[b, t, u]``.
+
+``tree_attention`` dispatches by device: the hand-written kernel in
+``csrc/tree_attention.cu`` on CUDA tensors, ``tree_attention_plain`` on CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from ..kv import group_blocks, quantize_rows
+
+NEG_INF = -1e30
+# rows of a block the kernel holds in shared memory
+K2_MAX_T = 64
+# K2 splits the prefix capacity S into chunks of about this many rows, up
+# to K2_MAX_SPLIT, each streamed by its own thread block
+K2_SPLIT_ROWS = 512
+K2_MAX_SPLIT = 8
+K2_PART_FLOATS = K2_MAX_T * (128 + 2)     # per-split partials (max, sum, acc)
+
+
+def tree_attention_plain(q, k_new, v_new, k_cache, v_cache, length,
+                         block_mask, prefix_bias, scale,
+                         k_scale=None, v_scale=None):
+    """K2's plain version (the JAX dense-fused math, any head grouping).
+
+    q/k_new/v_new [B, T, nh, hd]; caches [B, G, S, W] grouped; ``length``
+    int32 scalar tensor; ``block_mask`` [B, T, T] bool; ``prefix_bias``
+    [B, S] f32.  Returns [B, T, nh, hd] in q's dtype."""
+    B, T, nh, hd = q.shape
+    _, Gd, S, W = k_cache.shape
+    pk = W // hd
+    dt = q.dtype
+    quant = k_scale is not None
+    k5 = k_cache.reshape(B, Gd, S, pk, hd)
+    v5 = v_cache.reshape(B, Gd, S, pk, hd)
+    qg = q.reshape(B, T, Gd, pk, hd).permute(0, 2, 3, 1, 4).float()
+    if quant:
+        kq_blk, ks_blk = quantize_rows(group_blocks(k_new))     # [B,G,T,W]
+        vq_blk, vs_blk = quantize_rows(group_blocks(v_new))
+        ku = kq_blk.to(dt).reshape(B, Gd, T, pk, hd).permute(0, 1, 3, 2, 4)
+        vu = vq_blk.to(dt).reshape(B, Gd, T, pk, hd).permute(0, 1, 3, 2, 4)
+        k5 = k5.to(dt)
+    else:
+        ku = k_new.reshape(B, T, Gd, pk, hd).permute(0, 2, 3, 1, 4)
+        vu = v_new.reshape(B, T, Gd, pk, hd).permute(0, 2, 3, 1, 4)
+    j = torch.arange(S, device=q.device)
+    mp = torch.where(j[None, :] < length, prefix_bias.float(),
+                     torch.full_like(prefix_bias, NEG_INF, dtype=torch.float32))
+    mb = torch.where(block_mask.bool(), 0.0, NEG_INF)             # [B,T,T]
+
+    s_pre = torch.einsum("bgptd,bgspd->bgpts", qg, k5.float()) * scale
+    if quant:
+        s_pre = s_pre * k_scale[:, :, None, None, :]
+    s_pre = s_pre + mp[:, None, None, None, :]
+    s_blk = torch.einsum("bgptd,bgpud->bgptu", qg, ku.float()) * scale
+    if quant:
+        s_blk = s_blk * ks_blk[:, :, None, None, :]
+    s_blk = s_blk + mb[:, None, None]
+
+    m = torch.maximum(s_pre.amax(-1), s_blk.amax(-1))[..., None]
+    e_pre = torch.exp(s_pre - m)
+    e_blk = torch.exp(s_blk - m)
+    den = e_pre.sum(-1) + e_blk.sum(-1)                           # [B,G,pk,T]
+    if quant:
+        ep = (e_pre * v_scale[:, :, None, None, :]).to(dt)
+        eb = (e_blk * vs_blk[:, :, None, None, :]).to(dt)
+        vv = v5.to(dt)
+    else:
+        ep, eb, vv = e_pre.to(dt), e_blk.to(dt), v5
+    o = torch.einsum("bgpts,bgspd->bgptd", ep.float(), vv.float())
+    o = o + torch.einsum("bgptu,bgpud->bgptd", eb.float(), vu.float())
+    o = o / torch.clamp(den, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, nh, hd).to(dt)
+
+
+def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
+                        block_mask, prefix_bias, scale,
+                        k_scale=None, v_scale=None):
+    """K2 on the card.  Thread blocks per (batch row, head group, prefix
+    split) stream only the live prefix ``[0, length)`` with an online
+    softmax, the last split also the block rows under the mask; a merge
+    kernel combines the splits.  Needs head_dim == W == 128, MHA, bf16
+    activations and T <= ``K2_MAX_T``."""
+    B, T, nh, hd = q.shape
+    _, G, S, W = k_cache.shape
+    quant = k_scale is not None
+    _cuda.require(hd == 128 and W == 128 and nh == G,
+                  f"tree_attention: needs head_dim 128 and one head per "
+                  f"128-lane group, got nh={nh} hd={hd} cache G={G} W={W}")
+    _cuda.require(T <= K2_MAX_T, f"tree_attention: T={T} > {K2_MAX_T}")
+    for t in (q, k_new, v_new):
+        _cuda.require(t.dtype == torch.bfloat16 and t.shape == q.shape,
+                      "tree_attention: q/k_new/v_new must be bf16 "
+                      "[B, T, nh, hd]")
+    want = torch.int8 if quant else torch.bfloat16
+    for t in (k_cache, v_cache):
+        _cuda.require(t.dtype == want and t.is_contiguous()
+                      and t.shape == (B, G, S, W),
+                      f"tree_attention: caches must be contiguous {want} "
+                      f"[B, G, S, W]")
+    if quant:
+        for t in (k_scale, v_scale):
+            _cuda.require(t.dtype == torch.float32 and t.is_contiguous()
+                          and t.shape == (B, G, S),
+                          "tree_attention: scales must be f32 [B, G, S]")
+    _cuda.require(length.dtype == torch.int32 and length.numel() == 1,
+                  "tree_attention: length must be an int32 scalar tensor")
+    if block_mask.ndim == 2:
+        block_mask = block_mask[None].expand(B, T, T)
+    mask = block_mask.to(torch.bool).contiguous()
+    bias = prefix_bias.to(torch.float32).expand(B, S).contiguous()
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    out = torch.empty_like(q)
+    nsplit = max(1, min(K2_MAX_SPLIT, S // K2_SPLIT_ROWS))
+    part = (torch.empty((B * G * nsplit * K2_PART_FLOATS,),
+                        dtype=torch.float32, device=q.device)
+            if nsplit > 1 else None)
+    _cuda.library().tree_attention(
+        q, k_new, v_new, k_cache, v_cache, k_scale if quant else None,
+        v_scale if quant else None, length, mask, bias, out, part, nsplit,
+        float(scale))
+    _cuda.LAUNCHES["tree_attention"] += 1
+    return out
+
+
+def tree_attention(q, k_new, v_new, k_cache, v_cache, length, block_mask,
+                   prefix_bias, scale, k_scale=None, v_scale=None):
+    """Dispatch by device: K2 on CUDA tensors, the plain version on CPU."""
+    fn = (tree_attention_cuda if _cuda.on_cuda(q, k_cache, length)
+          else tree_attention_plain)
+    return fn(q, k_new, v_new, k_cache, v_cache, length, block_mask,
+              prefix_bias, scale, k_scale=k_scale, v_scale=v_scale)
