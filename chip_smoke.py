@@ -11,24 +11,38 @@ Phases (any failure exits non-zero and prints no result line):
 1. device: the card's name and ``nvidia-smi`` power limit;
 2. build: compiles the CUDA kernels of ``lantern_tpu_torch/csrc`` through
    ``torch.utils.cpp_extension.load``;
-3. kernels: each kernel (K1 W8A16 matmul, K2 tree attention, K3 KV write)
-   against its plain PyTorch version at the Lumina lane's shapes (K2 also
-   at this run's KV capacity, and with known-wrong variants that must fall
-   outside its tolerance), with median times (CUDA events, L2 flushed
-   before every launch), the bound from bytes and operations, and the
-   PyTorch library yardstick;
-4. forward: a tiny head_dim-128 Chameleon forward through the kernels on
-   the card against the plain-PyTorch forward on the CPU;
-5. main path: Lumina-mGPT-7B geometry (32 layers, full width), random int8
-   weights from a seed, int8 KV cache, 48x48-grid FSM vocabulary, 16 text
-   tokens and the calibrated tree ``ckpts/bench_tree_lumina.json``; runs
-   the AR twin and the speculative engine (stale drafting, deferred
-   commit, LANTERN k=10 delta=5, top-2000, cfg 3.0) with the launch
-   counters reset just before each and read just after, then profiles a
-   few steps of each (device time by kernel, device-busy share).
+3. kernels: each kernel (K1 W8A16 matmul, K2 tree attention, K3 KV write,
+   K4 tree-rollback gather) against its plain PyTorch version at the
+   Lumina lane's shapes (K2 also at this run's KV capacity and, for the
+   drafter, with a bf16 one-layer cache and the provisional window of each
+   tree level; K2 and K4 with known-wrong variants that the comparison
+   must catch), with median times (CUDA events, L2 flushed before every
+   launch), the bound from bytes and operations, and the PyTorch library
+   yardstick;
+4. forward: a tiny head_dim-128 Chameleon forward, and a tiny drafter
+   (``extend``, then two tree levels with write offset and window),
+   through the kernels on the card against the plain path on the CPU;
+5. main paths: Lumina-mGPT-7B geometry (32 layers, full width), random
+   int8 weights from a seed, int8 KV cache, 48x48-grid FSM vocabulary, 16
+   text tokens and the calibrated tree ``ckpts/bench_tree_lumina.json``,
+   LANTERN k=10 delta=5, top-2000, cfg 3.0.  Three paths, each with the
+   launch counters reset just before and read just after, and a profile of
+   a few steps (device time by kernel, device-busy share):
+   - the AR twin;
+   - the speculative engine with stale drafting and deferred commit (K1,
+     K2, K3);
+   - the rollback path: the EAGLE drafter (the hidden-passthrough one,
+     int8) proposing the tree, provisional tree write and rollback (K1,
+     K2, K3, K4); its launch counts must equal the counts derived from
+     the tree's levels, K4 exactly once per verify step;
+6. rollback check: with pinned choices (``pin=0.5``) and stale drafting,
+   ``deferred_commit`` False and True must commit the same tokens in the
+   same steps (both modes commit the same bytes; K4 only moves them).
 
-The line before the last two is ``{"kernels": [...]}``; then the
-``nvidia-smi`` name/power-limit line; the last line is the device record.
+The line before the last two is ``{"kernels": [...]}`` (``launches`` are
+the rollback path's, the one path that runs all four kernels; the other
+paths' counts are under ``launches_by_path``); then the ``nvidia-smi``
+name/power-limit line; the last line is the device record.
 """
 
 from __future__ import annotations
@@ -46,7 +60,8 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
 K1_SHAPES = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w_gu": (4096, 22016),
-             "w_down": (11008, 4096), "lm_head": (4096, 65536)}
+             "w_down": (11008, 4096), "lm_head": (4096, 65536),
+             "fc_w": (8192, 4096)}          # the drafter's input fusion
 TEXT = list(range(60000, 60016))          # 16 text tokens, as bench.py
 
 
@@ -106,195 +121,416 @@ def lane_dims(grid: int) -> tuple[int, int]:
     return max_new, len(TEXT) + 3 + max_new + 74
 
 
-def phase_kernels(torch, timer, card: str, grid: int):
-    import torch.nn.functional as F
+class KernelPhase:
+    """The kernel phase: every kernel against its plain version at the
+    lane's shapes, with times.  One method per kernel; each returns the
+    record of its representative shape."""
 
-    from lantern_tpu_torch import trees
-    from lantern_tpu_torch.kv import (group_blocks, quantize_rows,
-                                      write_block_cuda, write_block_plain)
-    from lantern_tpu_torch.ops import _cuda
-    from lantern_tpu_torch.ops.quant import int8_matmul, int8_matmul_cuda
-    from lantern_tpu_torch.ops.tree_attention import (
-        NEG_INF, tree_attention_cuda, tree_attention_plain)
+    B, G, W = 2, 32, 128          # CFG pair, head groups, group width
 
-    gen = torch.Generator(device="cuda").manual_seed(1234)
-    dev = "cuda"
-    records = {}
+    def __init__(self, torch, timer, card: str):
+        from lantern_tpu_torch import trees
 
-    def randn(*shape, dtype=torch.bfloat16):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        self.torch, self.timer, self.card = torch, timer, card
+        self.dev = "cuda"
+        self.gen = torch.Generator(device="cuda").manual_seed(1234)
+        self.tree = trees.get_tree(os.path.join("ckpts",
+                                                "bench_tree_lumina.json"))
+        self.level_rows = [len(lv.child_flat_idx) for lv in self.tree.levels]
 
-    # ---- K1 ----
-    k1_err, k1_rep = 0.0, None
-    for name, (K, N) in K1_SHAPES.items():
-        q = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
-                          dtype=torch.int8)
-        s = (torch.rand((1, N), generator=gen, device=dev) + 0.5) * 2e-4
-        out_dt = torch.float32 if name == "lm_head" else torch.bfloat16
-        for M in (2, 38, 64):
-            x = randn(M, K)
-            got = int8_matmul_cuda(x, q, s, out_dt)
-            ref = int8_matmul(x, q, s, out_dt)
+    def randn(self, *shape):
+        torch = self.torch
+        return torch.randn(shape, generator=self.gen,
+                           device=self.dev).to(torch.bfloat16)
+
+    def planes_of(self, L, S, quant):
+        """Random K/V planes (and scale planes for int8) [L, B, G, S, W]."""
+        torch, B, G, W = self.torch, self.B, self.G, self.W
+        if quant:
+            return [torch.randint(-127, 128, (L, B, G, S, W),
+                                  generator=self.gen, device=self.dev,
+                                  dtype=torch.int8) for _ in range(2)] + [
+                torch.rand((L, B, G, S), generator=self.gen, device=self.dev)
+                for _ in range(2)]
+        return [self.randn(L, B, G, S, W) for _ in range(2)] + [None, None]
+
+    @staticmethod
+    def clones(planes):
+        return [None if t is None else t.clone() for t in planes]
+
+    def same_bytes(self, a, b):
+        torch = self.torch
+        return all(x is None or torch.equal(x.view(torch.uint8),
+                                            y.view(torch.uint8))
+                   for x, y in zip(a, b))
+
+    def k1(self) -> dict:
+        from lantern_tpu_torch.ops.quant import int8_matmul, int8_matmul_cuda
+
+        torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
+        gen, randn = self.gen, self.randn
+        # rows: AR 2, prefill 38, tree verify 64; the drafter's levels and
+        # its extension run 2 x the level's / the path's rows
+        k1_rows = sorted({2, 38, 64, 2 * max(self.level_rows),
+                          2 * self.tree.path_len})
+        k1_err, k1_rep = 0.0, None
+        for name, (K, N) in K1_SHAPES.items():
+            q = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                              dtype=torch.int8)
+            s = (torch.rand((1, N), generator=gen, device=dev) + 0.5) * 2e-4
+            out_dt = torch.float32 if name == "lm_head" else torch.bfloat16
+            for M in k1_rows:
+                x = randn(M, K)
+                got = int8_matmul_cuda(x, q, s, out_dt)
+                ref = int8_matmul(x, q, s, out_dt)
+                torch.cuda.synchronize()
+                scale_ = ref.float().abs().max().item()
+                err = (got.float() - ref.float()).abs().max().item()
+                tol = 1e-2 * scale_ + 1e-6
+                if not (err <= tol and torch.isfinite(got.float()).all()):
+                    fail(f"K1 {name} M={M}: max err {err} > tol {tol}")
+                k1_err = max(k1_err, err)
+                ms = timer(lambda: int8_matmul_cuda(x, q, s, out_dt))
+                plain = timer(lambda: int8_matmul(x, q, s, out_dt), reps=5)
+                lib = timer(lambda: (x @ q.to(torch.bfloat16)) * s, reps=5)
+                nbytes = M * K * 2 + K * N + N * 4 + M * N * (4 if out_dt == torch.float32 else 2)
+                b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
+                log(f"K1 int8_matmul {name} M={M} K={K} N={N}: max_abs_err {err:.3e} "
+                    f"(tol {tol:.3e}) ms {ms:.4f} plain_ms {plain:.4f} "
+                    f"library_ms {lib:.4f} bound_ms {b_ms:.4f} ({b_by}) [{card}]")
+                if name == "w_gu" and M == 64:
+                    k1_rep = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  shape=f"M={M} K={K} N={N} (w_gu, tree verify)")
+        return dict(k1_rep, max_abs_err=k1_err)
+
+
+    def k2(self, grid: int) -> dict:
+        import torch.nn.functional as F
+
+        from lantern_tpu_torch.kv import group_blocks, quantize_rows
+        from lantern_tpu_torch.ops.tree_attention import (
+            NEG_INF, tree_attention_cuda, tree_attention_plain)
+
+        torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
+        tree, level_rows, randn = self.tree, self.level_rows, self.randn
+        B, G, W = self.B, self.G, self.W
+        tmask = torch.as_tensor(tree.attn_mask, device=dev)
+        B, G, W = 2, 32, 128
+        # the bench lane's capacity (5 prefix splits and the merge kernel), then
+        # this run's grid capacity, so each run checks the split count its own
+        # main path uses
+        cases = [(2560, 1, 2371), (2560, 19, 0), (2560, 32, 1237)]
+        max_new, max_seq_len = lane_dims(grid)
+        S_run, prompt = -(-max_seq_len // 128) * 128, len(TEXT) + 3
+        if S_run != 2560:
+            cases += [(S_run, 1, prompt + max_new - 2),
+                      (S_run, 32, (prompt + max_new // 2) | 1)]
+        k2_err, k2_rep = 0.0, None
+        for S, T, length in cases:
+            q, kn, vn = randn(B, T, G, W), randn(B, T, G, W), randn(B, T, G, W)
+            kc, ks = quantize_rows(randn(B, G, S, W))
+            vc, vs = quantize_rows(randn(B, G, S, W))
+            if T == 32:
+                mask = tmask[None].expand(B, T, T).contiguous()
+            else:
+                mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                             device=dev))[None].expand(B, T, T)
+                mask = mask.contiguous()
+            bias = torch.zeros((B, S), device=dev)
+            bias[1, :7] = NEG_INF                      # left-padded uncond row
+            ln = torch.tensor(length, dtype=torch.int32, device=dev)
+            args = (q, kn, vn, kc, vc, ln, mask, bias, W ** -0.5)
+            kw = dict(k_scale=ks, v_scale=vs)
+            got = tree_attention_cuda(*args, **kw)
+            ref = tree_attention_plain(*args, **kw)
             torch.cuda.synchronize()
-            scale_ = ref.float().abs().max().item()
             err = (got.float() - ref.float()).abs().max().item()
-            tol = 1e-2 * scale_ + 1e-6
+            tol = 2e-2 * ref.float().abs().max().item()
             if not (err <= tol and torch.isfinite(got.float()).all()):
-                fail(f"K1 {name} M={M}: max err {err} > tol {tol}")
-            k1_err = max(k1_err, err)
-            ms = timer(lambda: int8_matmul_cuda(x, q, s, out_dt))
-            plain = timer(lambda: int8_matmul(x, q, s, out_dt), reps=5)
-            lib = timer(lambda: (x @ q.to(torch.bfloat16)) * s, reps=5)
-            nbytes = M * K * 2 + K * N + N * 4 + M * N * (4 if out_dt == torch.float32 else 2)
-            b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
-            log(f"K1 int8_matmul {name} M={M} K={K} N={N}: max_abs_err {err:.3e} "
-                f"(tol {tol:.3e}) ms {ms:.4f} plain_ms {plain:.4f} "
-                f"library_ms {lib:.4f} bound_ms {b_ms:.4f} ({b_by}) [{card}]")
-            if name == "w_gu" and M == 64:
-                k1_rep = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=b_ms, bound_by=b_by,
-                              shape=f"M={M} K={K} N={N} (w_gu, tree verify)")
-    records["int8_matmul"] = dict(k1_rep, max_abs_err=k1_err)
+                fail(f"K2 S={S} T={T} length={length}: max err {err} > tol {tol}")
+            k2_err = max(k2_err, err)
+            # known-wrong variants of the function must land outside tol
+            wrong = {}
+            if length:
+                wrong["v_scale dropped"] = dict(v_scale=torch.ones_like(vs))
+                b2 = bias.clone()
+                b2[:, length - 1] = NEG_INF
+                wrong["last prefix key dropped"] = dict(bias=b2)
+            if length >= 64:
+                b2 = bias.clone()
+                j0 = length // 2 // 32 * 32
+                b2[:, j0:j0 + 32] = NEG_INF
+                wrong["a 32-key prefix tile dropped"] = dict(bias=b2)
+            if T > 1:
+                m2 = mask.clone()
+                m2[:, T - 1, 0] = ~m2[:, T - 1, 0]
+                wrong["a mask entry flipped"] = dict(mask=m2)
+            werr = {}
+            for why, over in wrong.items():
+                bad = tree_attention_plain(
+                    q, kn, vn, kc, vc, ln, over.get("mask", mask),
+                    over.get("bias", bias), W ** -0.5, k_scale=ks,
+                    v_scale=over.get("v_scale", vs))
+                werr[why] = (bad.float() - ref.float()).abs().max().item()
+                if werr[why] <= tol:
+                    fail(f"K2 S={S} T={T} length={length}: tol {tol} does not "
+                         f"separate a wrong variant ({why}: err {werr[why]})")
+            ms = timer(lambda: tree_attention_cuda(*args, **kw))
+            plain = timer(lambda: tree_attention_plain(*args, **kw), reps=5)
+            # library yardstick: SDPA over the dequantized prefix + block
+            kd = torch.cat([(kc[:, :, :length].float() * ks[:, :, :length, None]),
+                            quantize_rows(group_blocks(kn))[0].float()
+                            * quantize_rows(group_blocks(kn))[1][..., None]],
+                           dim=2).to(torch.bfloat16)
+            vd = torch.cat([(vc[:, :, :length].float() * vs[:, :, :length, None]),
+                            quantize_rows(group_blocks(vn))[0].float()
+                            * quantize_rows(group_blocks(vn))[1][..., None]],
+                           dim=2).to(torch.bfloat16)
+            am = torch.cat([(bias[:, None, None, :length] == 0).expand(B, 1, T, length),
+                            mask[:, None]], dim=-1)
+            qh = q.transpose(1, 2)
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=am, scale=W ** -0.5))
+            nbytes = (4 * B * T * G * W * 2 + 2 * B * G * length * (W + 4)
+                      + B * T * T + B * length * 4)
+            b_ms, b_by = bound(nbytes, 4.0 * B * G * T * (length + T) * W)
+            log(f"K2 tree_attention S={S} T={T} length={length} int8 KV: "
+                f"max_abs_err {err:.3e} (tol {tol:.3e} = 2e-2 * max|ref|) ms "
+                f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
+                f"{b_ms:.4f} ({b_by}) [{card}]")
+            log("  wrong variants' max err: " + "; ".join(
+                f"{why} {e:.3e}" for why, e in werr.items()))
+            if (S, T) == (2560, 32):
+                k2_rep = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                              bound_by=b_by,
+                              shape=f"B=2 T={T} G=32 length={length} int8 KV")
+        # K2, the drafter's form: a bf16 one-layer cache, and per tree level its
+        # rows, its block mask and the provisional window of the earlier
+        # levels' rows (cache rows [length, length + block_offset))
+        for S, length in sorted({(2560, 1237), (S_run, prompt - 1)}):
+            for lv, T in zip(tree.levels, level_rows):
+                off = int(lv.block_offset)
+                lmask = torch.as_tensor(lv.attn_mask, device=dev)
+                q, kn, vn = randn(B, T, G, W), randn(B, T, G, W), randn(B, T, G, W)
+                kc, vc = randn(B, G, S, W), randn(B, G, S, W)
+                bias = torch.zeros((B, S), device=dev)
+                bias[1, :7] = NEG_INF
+                ln = torch.tensor(length, dtype=torch.int32, device=dev)
+                args = (q, kn, vn, kc, vc, ln,
+                        lmask[None, :, off:].expand(B, T, T).contiguous(), bias,
+                        W ** -0.5)
+                wm = lmask[:, :off].contiguous() if off else None
+                got = tree_attention_cuda(*args, window_mask=wm)
+                ref = tree_attention_plain(*args, window_mask=wm)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                tol = 2e-2 * ref.float().abs().max().item()
+                what = (f"K2 tree_attention S={S} T={T} length={length} "
+                        f"window={off} bf16 KV (drafter level)")
+                if not (err <= tol and torch.isfinite(got.float()).all()):
+                    fail(f"{what}: max err {err} > tol {tol}")
+                k2_err = max(k2_err, err)
+                werr = {}
+                if off:
+                    wrong = {"window mask ignored": None,
+                             "whole window visible": torch.ones_like(wm)}
+                    for why, m2 in wrong.items():
+                        bad = tree_attention_plain(*args, window_mask=m2)
+                        werr[why] = (bad.float() - ref.float()).abs().max().item()
+                        if werr[why] <= tol:
+                            fail(f"{what}: tol {tol} does not separate a wrong "
+                                 f"variant ({why}: err {werr[why]})")
+                ms = timer(lambda: tree_attention_cuda(*args, window_mask=wm))
+                plain = timer(lambda: tree_attention_plain(*args, window_mask=wm),
+                              reps=5)
+                kd = torch.cat([kc[:, :, :length + off],
+                                group_blocks(kn)], dim=2)
+                vd = torch.cat([vc[:, :, :length + off],
+                                group_blocks(vn)], dim=2)
+                am = (bias[:, None, None, :length] == 0).expand(B, 1, T, length)
+                if off:
+                    am = torch.cat([am, wm[None, None].expand(B, 1, T, off)], -1)
+                am = torch.cat([am, args[6][:, None]], dim=-1)
+                qh = q.transpose(1, 2)
+                lib = timer(lambda: F.scaled_dot_product_attention(
+                    qh, kd, vd, attn_mask=am, scale=W ** -0.5))
+                nbytes = (4 * B * T * G * W * 2 + 2 * B * G * (length + off) * W * 2
+                          + B * T * (T + off) + B * length * 4)
+                b_ms, b_by = bound(nbytes, 4.0 * B * G * T * (length + off + T) * W)
+                log(f"{what}: max_abs_err {err:.3e} (tol {tol:.3e} = 2e-2 * "
+                    f"max|ref|) ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+                    f"{lib:.4f} bound_ms {b_ms:.4f} ({b_by}) [{card}]")
+                if werr:
+                    log("  wrong variants' max err: " + "; ".join(
+                        f"{why} {e:.3e}" for why, e in werr.items()))
+        return dict(k2_rep, max_abs_err=k2_err)
 
-    # ---- K2 ----
-    tree = trees.get_tree(os.path.join("ckpts", "bench_tree_lumina.json"))
-    tmask = torch.as_tensor(tree.attn_mask, device=dev)
-    B, G, W = 2, 32, 128
-    # the bench lane's capacity (5 prefix splits and the merge kernel), then
-    # this run's grid capacity, so each run checks the split count its own
-    # main path uses
-    cases = [(2560, 1, 2371), (2560, 19, 0), (2560, 32, 1237)]
-    max_new, max_seq_len = lane_dims(grid)
-    S_run, prompt = -(-max_seq_len // 128) * 128, len(TEXT) + 3
-    if S_run != 2560:
-        cases += [(S_run, 1, prompt + max_new - 2),
-                  (S_run, 32, (prompt + max_new // 2) | 1)]
-    k2_err, k2_rep = 0.0, None
-    for S, T, length in cases:
-        q, kn, vn = randn(B, T, G, W), randn(B, T, G, W), randn(B, T, G, W)
-        kc, ks = quantize_rows(randn(B, G, S, W))
-        vc, vs = quantize_rows(randn(B, G, S, W))
-        if T == 32:
-            mask = tmask[None].expand(B, T, T).contiguous()
-        else:
-            mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                         device=dev))[None].expand(B, T, T)
-            mask = mask.contiguous()
-        bias = torch.zeros((B, S), device=dev)
-        bias[1, :7] = NEG_INF                      # left-padded uncond row
-        ln = torch.tensor(length, dtype=torch.int32, device=dev)
-        args = (q, kn, vn, kc, vc, ln, mask, bias, W ** -0.5)
-        kw = dict(k_scale=ks, v_scale=vs)
-        got = tree_attention_cuda(*args, **kw)
-        ref = tree_attention_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        tol = 2e-2 * ref.float().abs().max().item()
-        if not (err <= tol and torch.isfinite(got.float()).all()):
-            fail(f"K2 S={S} T={T} length={length}: max err {err} > tol {tol}")
-        k2_err = max(k2_err, err)
-        # known-wrong variants of the function must land outside tol
-        wrong = {}
-        if length:
-            wrong["v_scale dropped"] = dict(v_scale=torch.ones_like(vs))
-            b2 = bias.clone()
-            b2[:, length - 1] = NEG_INF
-            wrong["last prefix key dropped"] = dict(bias=b2)
-        if length >= 64:
-            b2 = bias.clone()
-            j0 = length // 2 // 32 * 32
-            b2[:, j0:j0 + 32] = NEG_INF
-            wrong["a 32-key prefix tile dropped"] = dict(bias=b2)
-        if T > 1:
-            m2 = mask.clone()
-            m2[:, T - 1, 0] = ~m2[:, T - 1, 0]
-            wrong["a mask entry flipped"] = dict(mask=m2)
-        werr = {}
-        for why, over in wrong.items():
-            bad = tree_attention_plain(
-                q, kn, vn, kc, vc, ln, over.get("mask", mask),
-                over.get("bias", bias), W ** -0.5, k_scale=ks,
-                v_scale=over.get("v_scale", vs))
-            werr[why] = (bad.float() - ref.float()).abs().max().item()
-            if werr[why] <= tol:
-                fail(f"K2 S={S} T={T} length={length}: tol {tol} does not "
-                     f"separate a wrong variant ({why}: err {werr[why]})")
-        ms = timer(lambda: tree_attention_cuda(*args, **kw))
-        plain = timer(lambda: tree_attention_plain(*args, **kw), reps=5)
-        # library yardstick: SDPA over the dequantized prefix + block
-        kd = torch.cat([(kc[:, :, :length].float() * ks[:, :, :length, None]),
-                        quantize_rows(group_blocks(kn))[0].float()
-                        * quantize_rows(group_blocks(kn))[1][..., None]],
-                       dim=2).to(torch.bfloat16)
-        vd = torch.cat([(vc[:, :, :length].float() * vs[:, :, :length, None]),
-                        quantize_rows(group_blocks(vn))[0].float()
-                        * quantize_rows(group_blocks(vn))[1][..., None]],
-                       dim=2).to(torch.bfloat16)
-        am = torch.cat([(bias[:, None, None, :length] == 0).expand(B, 1, T, length),
-                        mask[:, None]], dim=-1)
-        qh = q.transpose(1, 2)
-        lib = timer(lambda: F.scaled_dot_product_attention(
-            qh, kd, vd, attn_mask=am, scale=W ** -0.5))
-        nbytes = (4 * B * T * G * W * 2 + 2 * B * G * length * (W + 4)
-                  + B * T * T + B * length * 4)
-        b_ms, b_by = bound(nbytes, 4.0 * B * G * T * (length + T) * W)
-        log(f"K2 tree_attention S={S} T={T} length={length} int8 KV: "
-            f"max_abs_err {err:.3e} (tol {tol:.3e} = 2e-2 * max|ref|) ms "
-            f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
-            f"{b_ms:.4f} ({b_by}) [{card}]")
-        log("  wrong variants' max err: " + "; ".join(
-            f"{why} {e:.3e}" for why, e in werr.items()))
-        if (S, T) == (2560, 32):
-            k2_rep = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                          bound_by=b_by,
-                          shape=f"B=2 T={T} G=32 length={length} int8 KV")
-    records["tree_attention"] = dict(k2_rep, max_abs_err=k2_err)
+    def k3(self) -> dict:
+        from lantern_tpu_torch.kv import write_block_cuda, write_block_plain
 
-    # ---- K3 ---- (the bench lane's planes)
-    L, S = 32, 2560
-    k3_err, k3_rep = 0.0, None
-    for T, start in ((1, 1301), (5, 777), (19, 0)):
-        kn, vn = randn(L, B, T, G, W), randn(L, B, T, G, W)
-        planes = []
-        for _ in range(2):
-            kb = torch.randint(-127, 128, (L, B, G, S, W), generator=gen,
-                               device=dev, dtype=torch.int8)
-            vb = torch.randint(-127, 128, (L, B, G, S, W), generator=gen,
-                               device=dev, dtype=torch.int8)
-            ksc = torch.rand((L, B, G, S), generator=gen, device=dev)
-            vsc = torch.rand((L, B, G, S), generator=gen, device=dev)
-            planes.append([kb, vb, ksc, vsc])
-        planes[1] = [t.clone() for t in planes[0]]
-        before = [t.clone() for t in planes[0]]
-        st = torch.tensor(start, dtype=torch.int32, device=dev)
-        write_block_cuda(*planes[0][:2], *planes[0][2:], kn, vn, st)
-        write_block_plain(*planes[1][:2], *planes[1][2:], kn, vn, st)
-        torch.cuda.synchronize()
-        err = max((a.float() - b.float()).abs().max().item()
-                  for a, b in zip(planes[0], planes[1]))
-        outside = torch.ones(S, dtype=torch.bool, device=dev)
-        outside[start:start + T] = False
-        untouched = all(torch.equal(a[..., outside, :] if a.ndim == 5 else a[..., outside],
-                                    b[..., outside, :] if b.ndim == 5 else b[..., outside])
-                        for a, b in zip(planes[0], before))
-        if err != 0 or not untouched:
-            fail(f"K3 T={T} start={start}: max err {err}, rows outside "
-                 f"[start, start+T) untouched: {untouched}")
-        k3_err = max(k3_err, err)
-        kb, vb, ksc, vsc = planes[0]
-        ms = timer(lambda: write_block_cuda(kb, vb, ksc, vsc, kn, vn, st))
-        plain = timer(lambda: write_block_plain(kb, vb, ksc, vsc, kn, vn, st),
-                      reps=5)
-        nbytes = 2 * L * B * T * G * W * 2 + 2 * L * B * T * G * (W + 4)
-        b_ms, b_by = bound(nbytes, 0.0)
-        log(f"K3 kv_write T={T} start={start} int8: max_abs_err {err:.3e} "
-            f"(tol 0, exact) ms {ms:.4f} plain_ms {plain:.4f} library_ms null "
-            f"bound_ms {b_ms:.4f} ({b_by}) [{card}]")
-        if T == 5:
-            k3_rep = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                          bound_by=b_by, shape=f"L=32 B=2 T={T} G=32 int8")
-        del planes, before
-    records["kv_write"] = dict(k3_rep, max_abs_err=k3_err)
+        torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
+        tree, level_rows, randn = self.tree, self.level_rows, self.randn
+        B, G, W = self.B, self.G, self.W
+        planes_of, clones, same_bytes = (self.planes_of, self.clones,
+                                         self.same_bytes)
+        # the bench lane's planes; the rollback path adds the 32-row
+        # provisional tree block, and the drafter's bf16 one-layer cache
+        # written at length + block_offset
+        S = 2560
+        k3_err, k3_rep = 0.0, None
+        off_lv = tree.levels[-1]
+        k3_cases = [(32, 1, 1301, True), (32, 5, 777, True), (32, 19, 0, True),
+                    (32, tree.num_nodes, 1301, True),
+                    (1, tree.path_len, 1237, False),
+                    (1, level_rows[-1], 1237 + int(off_lv.block_offset), False),
+                    (32, level_rows[-1], 1237 + int(off_lv.block_offset), True)]
+        for L, T, start, quant in k3_cases:
+            kn, vn = randn(L, B, T, G, W), randn(L, B, T, G, W)
+            mine = planes_of(L, S, quant)
+            ref, before = clones(mine), clones(mine)
+            st = torch.tensor(start, dtype=torch.int32, device=dev)
+            write_block_cuda(*mine, kn, vn, st)
+            write_block_plain(*ref, kn, vn, st)
+            torch.cuda.synchronize()
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(mine, ref) if a is not None)
+            outside = torch.ones(S, dtype=torch.bool, device=dev)
+            outside[start:start + T] = False
+            untouched = all(torch.equal(a[..., outside, :] if a.ndim == 5 else a[..., outside],
+                                        b[..., outside, :] if b.ndim == 5 else b[..., outside])
+                            for a, b in zip(mine, before) if a is not None)
+            kind = "int8" if quant else "bf16"
+            if err != 0 or not same_bytes(mine, ref) or not untouched:
+                fail(f"K3 L={L} T={T} start={start} {kind}: max err {err}, rows "
+                     f"outside [start, start+T) untouched: {untouched}")
+            k3_err = max(k3_err, err)
+            ms = timer(lambda: write_block_cuda(*mine, kn, vn, st))
+            plain = timer(lambda: write_block_plain(*mine, kn, vn, st), reps=5)
+            nbytes = 2 * L * B * T * G * W * 2 + 2 * L * B * T * G * (
+                W + 4 if quant else 2 * W)
+            b_ms, b_by = bound(nbytes, 0.0)
+            log(f"K3 kv_write L={L} T={T} start={start} {kind}: max_abs_err "
+                f"{err:.3e} (tol 0, exact) ms {ms:.4f} plain_ms {plain:.4f} "
+                f"library_ms null bound_ms {b_ms:.4f} ({b_by}) [{card}]")
+            if (L, T) == (32, 5):
+                k3_rep = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                              bound_by=b_by, shape=f"L=32 B=2 T={T} G=32 int8")
+            del mine, ref, before
+        return dict(k3_rep, max_abs_err=k3_err)
+
+
+    def k4(self) -> dict:
+        from lantern_tpu_torch.kv import (gather_write_block_cuda,
+                                          gather_write_block_plain)
+
+        torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
+        tree = self.tree
+        B, G, W = self.B, self.G, self.W
+        planes_of, clones, same_bytes = (self.planes_of, self.clones,
+                                         self.same_bytes)
+        # the bench lane's planes, the tree's 32-row block and 5-row paths;
+        # byte-exact over the whole buffers
+        S = 2560
+        L, blk, A = 32, tree.num_nodes, tree.path_len
+        deep = [int(i) for i in tree.retrieve_indices[0]]        # a full path
+        short = [max(int(i), 0) for i in tree.retrieve_indices[-1]]
+        k4_cases = [
+            ("identity", True, [1237], [list(range(A))]),
+            ("a tree path", True, [777], [deep]),
+            ("pads past blk, start = S - blk", True, [S - blk],
+             [[0, 2, blk + 8, 99, -3][:A]]),
+            ("pads below their row, start = 0", True, [0], [[0, 3, 7, 1, 2][:A]]),
+            ("R=4 slots", True, [S - blk, 0, 777, 1301],
+             [deep, short, [0, 3, 7, 1, 2][:A], [blk - 1, blk + 8, 0, 0, 0][:A]]),
+            ("a tree path", False, [777], [deep]),
+            ("R=4 slots", False, [S - blk, 0, 777, 1301],
+             [deep, short, [0, 3, 7, 1, 2][:A], [blk - 1, blk + 8, 0, 0, 0][:A]]),
+        ]
+
+        def k4_wrong(planes, rel, start, how):
+            """Known-wrong forms of the rollback on one slot (host indices)."""
+            src = [start + min(max(r, 0), blk - 1) for r in rel]
+            for i, buf in enumerate(planes):
+                if buf is None:
+                    continue
+                if how == "rows stored without staging":
+                    for j, s_ in enumerate(src):
+                        buf[:, :, :, start + j] = buf[:, :, :, s_].clone()
+                else:   # scales taken from the unclamped index
+                    use = src if i < 2 else [min(start + max(r, 0), S - 1)
+                                             for r in rel]
+                    idx = torch.tensor(use, device=dev)
+                    dst = start + torch.arange(len(rel), device=dev)
+                    buf.index_copy_(3, dst, buf.index_select(3, idx))
+
+        k4_rep = None
+        for what, quant, starts, rels in k4_cases:
+            kind = "int8 + scales" if quant else "bf16"
+            mine = planes_of(L, S, quant)
+            ref = clones(mine)
+            st = torch.tensor(starts, dtype=torch.int32, device=dev)
+            rl = torch.tensor(rels, dtype=torch.int32, device=dev)
+            gather_write_block_cuda(*mine, rl, st, blk)
+            gather_write_block_plain(*ref, rl, st, blk)
+            torch.cuda.synchronize()
+            if not same_bytes(mine, ref):
+                fail(f"K4 {what} {kind}: kernel and plain version differ")
+            caught = {}
+            if (what, quant) == ("a tree path", True):
+                for how, rel, s0 in (
+                        ("rows stored without staging", [0, 3, 7, 1, 2][:A], 0),
+                        ("scales from the unclamped index",
+                         [0, 2, blk + 8, 99, -3][:A], 777)):
+                    good, bad = clones(ref), clones(ref)
+                    gather_write_block_plain(
+                        *good, torch.tensor(rel, dtype=torch.int32, device=dev),
+                        torch.tensor(s0, dtype=torch.int32, device=dev), blk)
+                    k4_wrong(bad, rel, s0, how)
+                    caught[how] = not same_bytes(good, bad)
+                    if not caught[how]:
+                        fail(f"K4: the byte comparison does not catch a wrong "
+                             f"variant ({how})")
+                    del good, bad
+            ms = timer(lambda: gather_write_block_cuda(*mine, rl, st, blk))
+            plain = timer(lambda: gather_write_block_plain(*mine, rl, st, blk),
+                          reps=5)
+            # library yardstick: index_select + index_copy_ per plane, indices
+            # ready (one slot's; the R=4 case times slot 0's indices on all)
+            src = (st[0] + torch.clamp(rl[0], 0, blk - 1)).long()
+            dst = (st[0] + torch.arange(A, device=dev)).long()
+
+            def lib_call():
+                for buf in mine:
+                    if buf is not None:
+                        buf.index_copy_(3, dst, buf.index_select(3, src))
+
+            lib = timer(lib_call, reps=5)
+            row = W * mine[0].element_size() + (4 if quant else 0)
+            nbytes = 2 * 2 * L * B * G * A * row + st.numel() * 4 + rl.numel() * 4
+            b_ms, b_by = bound(nbytes, 0.0)
+            log(f"K4 kv_gather L={L} B={B} G={G} S={S} blk={blk} A={A} R="
+                f"{len(starts)} {kind}, {what}: max_abs_err 0 (byte-exact over "
+                f"the whole buffers) ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+                f"{lib:.4f} bound_ms {b_ms:.5f} ({b_by}, {nbytes / 1e6:.2f} MB "
+                f"moved: launch-bound) [{card}]")
+            if caught:
+                log("  wrong variants caught: " + "; ".join(caught))
+            if (what, quant) == ("a tree path", True):
+                k4_rep = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                              bound_by=b_by, max_abs_err=0.0,
+                              shape=f"L=32 B=2 G=32 S={S} blk={blk} A={A} int8 "
+                                    f"+ scales")
+            del mine, ref
+        return k4_rep
+
+
+def phase_kernels(torch, timer, card: str, grid: int):
+    from lantern_tpu_torch.ops import _cuda
+
+    phase = KernelPhase(torch, timer, card)
+    records = {"int8_matmul": phase.k1(), "tree_attention": phase.k2(grid),
+               "kv_write": phase.k3(), "kv_gather": phase.k4()}
     _cuda.reset_launches()
     return records
 
@@ -338,11 +574,100 @@ def phase_forward(torch):
     log(f"forward: tiny bf16 int8-KV tree forward, card kernels vs CPU plain: "
         f"logits max_abs_err {err:.3e} (tol {tol:.3e})")
 
+    # the drafter: extend over a prompt, then two tree levels written at
+    # their block offsets, the second seeing the first through the window
+    from lantern_tpu_torch.models import drafter as drf
+
+    dcfg = configs.drafter_config(cfg)
+    dparams = drf.init_drafter_params(gen, dcfg, params["embed"])
+    dparams["layers"] = {k: (v * 3 if k.startswith("w") else v)
+                         for k, v in dparams["layers"].items()}
+    dparams = quantize_params(tfm.fuse_params(dparams))
+    lv0, lv1 = tree.levels[0], tree.levels[1]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(dev)) for k, v in dparams.items()}
+        head = (params["lm_head_q"].to(dev), params["lm_head_s"].to(dev))
+        rope = tfm.make_rope_tables(dcfg.model, dev)
+        kv = KVCache.create(dcfg.model, 2, device=dev)
+        g2 = torch.Generator().manual_seed(11)
+        ids = torch.randint(0, 512, (2, 19), generator=g2).to(dev)
+        hid = torch.randn((2, 19, 256), generator=g2).bfloat16().to(dev)
+        hidden, kv = drf.extend(p, dcfg, rope, kv, ids, hid, 19)
+        got = [hidden]
+        parent = hidden[:, -1:]
+        for lv in (lv0, lv1):
+            n, off = len(lv.child_flat_idx), int(lv.block_offset)
+            m = torch.as_tensor(lv.attn_mask, device=dev)
+            tok = torch.randint(0, 512, (2, n), generator=g2).to(dev)
+            x = drf.fuse_inputs(p, tok, parent.index_select(
+                1, torch.as_tensor(lv.parent_row, device=dev).long()))
+            res = tfm.forward(p, dcfg.model, x, kv, kv.length.expand(n), rope,
+                              block_mask=m[:, off:].contiguous(),
+                              window_mask=m[:, :off].contiguous() if off
+                              else None, commit=False, write_offset=off)
+            kv, parent = res.kv, res.hidden
+            got += [res.hidden, drf._head_logits(head, res.hidden, 3.0)]
+        outs[dev] = [t.float().cpu() for t in got]
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        err = (a - b).abs().max().item()
+        tol = 5e-2 * a.abs().max().item()
+        if not (err <= tol and torch.isfinite(b).all()):
+            fail(f"forward (drafter) output {i}: card vs CPU max err {err} > "
+                 f"tol {tol}")
+        log(f"forward: tiny bf16 drafter (extend, level 0, level 1 with a "
+            f"{int(lv1.block_offset)}-row window) output {i}: card kernels vs "
+            f"CPU plain max_abs_err {err:.3e} (tol {tol:.3e})")
+
+
+def rollback_launches(tree, layers: int, prompt: int, steps: int):
+    """``(totals, per verify step)``: the kernel launches of one
+    rollback-path run, derived from the tree: a
+    prefill (base forward over the prompt, drafter ``extend`` over it, first
+    draft) and ``steps`` verify steps (base tree forward + lm_head, one
+    rollback, ``extend`` over the path's rows, next draft).  K1 takes at
+    most ``K1_MAX_ROWS`` rows a launch; every forward here is CFG batch 2."""
+    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
+
+    def k1(rows):
+        return -(-2 * rows // K1_MAX_ROWS)
+
+    def forward(T, n_layers):            # 4 matmuls a layer, K2 a layer, K3
+        return {"int8_matmul": 4 * n_layers * k1(T),
+                "tree_attention": n_layers, "kv_write": 1}
+
+    def add(*parts):
+        out = {"int8_matmul": 0, "tree_attention": 0, "kv_write": 0,
+               "kv_gather": 0}
+        for part in parts:
+            for k, n in part.items():
+                out[k] += n
+        return out
+
+    def extend(T):                       # fc_w + a one-layer forward
+        return add({"int8_matmul": k1(T)}, forward(T, 1))
+
+    levels = [len(lv.child_flat_idx) for lv in tree.levels]
+    # root head, then per level: fc_w, a one-layer forward, the base head
+    draft = add({"int8_matmul": k1(1)},
+                *[add({"int8_matmul": 2 * k1(n)}, forward(n, 1))
+                  for n in levels])
+    prefill = add(forward(prompt, layers), {"int8_matmul": k1(1)},
+                  extend(prompt), draft)
+    step = add(forward(tree.num_nodes, layers),
+               {"int8_matmul": k1(tree.num_nodes), "kv_gather": 1},
+               extend(tree.path_len), draft)
+    return {k: prefill[k] + steps * step[k] for k in step}, step
+
 
 def phase_main_path(torch, grid: int, card: str):
+    import dataclasses
+
     from lantern_tpu_torch import configs, trees
     from lantern_tpu_torch.engine import ar, spec
     from lantern_tpu_torch.models import chameleon as cham
+    from lantern_tpu_torch.models import drafter as drf
     from lantern_tpu_torch.models import transformer as tfm
     from lantern_tpu_torch.ops import _cuda
     from lantern_tpu_torch.ops.acceptance import LanternSpec
@@ -359,32 +684,48 @@ def phase_main_path(torch, grid: int, card: str):
     cb = torch.randn((8192, 8), generator=gen, device="cuda")
     near = cham.shift_nearest_table(nearest_latents(cb, k=11), cfg.vocab_size)
     params["nearest_latents"] = torch.as_tensor(near, device="cuda")
+    # the hidden-passthrough drafter (fc_w = [0; I], zeroed layer), fused
+    # and int8-quantized like the base
+    dcfg = configs.drafter_config(cfg, num_layers=1, total_tokens=59, depth=4,
+                                  top_k=10)
+    dparams = drf.init_drafter_params(
+        torch.Generator(device="cuda").manual_seed(101), dcfg, params["embed"])
+    H = cfg.hidden_size
+    fc = torch.zeros((2 * H, H), dtype=cfg.torch_dtype, device="cuda")
+    fc[H:] = torch.eye(H, dtype=cfg.torch_dtype, device="cuda")
+    dparams["fc_w"] = fc
+    dparams["layers"] = {k: v * 0 for k, v in dparams["layers"].items()}
+    dparams = quantize_params(tfm.fuse_params(dparams))
     torch.cuda.synchronize()
-    log(f"main path: Lumina-7B int8 params built on the card in "
-        f"{time.perf_counter() - t0:.1f} s (L={cfg.num_layers} "
-        f"H={cfg.hidden_size} V={cfg.vocab_size})")
+    log(f"main path: Lumina-7B int8 params and the one-layer passthrough "
+        f"drafter built on the card in {time.perf_counter() - t0:.1f} s "
+        f"(L={cfg.num_layers} H={cfg.hidden_size} V={cfg.vocab_size})")
 
     warp = LogitsWarp(temperature=1.0, top_k=2000, top_p=1.0)
     tp = cham.lumina_token_prompt(TEXT, grid=(grid, grid))
     fsm = cham.LuminaGridFSM(w=grid, h=grid, image_start_idx=len(TEXT),
                              vocab_size=cfg.vocab_size)
     tree = trees.get_tree(os.path.join("ckpts", "bench_tree_lumina.json"))
-    ecfg = spec.SpecDecodeConfig(
+    stale = spec.SpecDecodeConfig(
         warp=warp, cfg_scale=3.0, lantern=LanternSpec(k=10, delta=5.0),
         max_new=max_new, kv_quant=True, walk_batch_warp=True,
         stale_draft=True, deferred_commit=True)
+    rollback = dataclasses.replace(stale, stale_draft=False,
+                                   deferred_commit=False)
 
-    def run_spec(seed, max_steps=0):
+    def run_spec(ecfg, seed, max_steps=0):
         g = torch.Generator(device="cuda").manual_seed(seed)
         return spec.generate(params, ecfg, cfg, tree, tp, g,
-                             max_steps=max_steps, logits_fn=fsm)
+                             max_steps=max_steps, logits_fn=fsm,
+                             dparams=dparams, dcfg=dcfg)
 
     def run_ar(seed, n):
         g = torch.Generator(device="cuda").manual_seed(seed)
         return ar.generate_tokens(params, cfg, tp, n, 3.0, warp, g,
                                   logits_fn=fsm, kv_quant=True)
 
-    run_spec(7, max_steps=3)              # warm-up (cuBLAS, allocator)
+    run_spec(stale, 7, max_steps=3)       # warm-up (cuBLAS, allocator)
+    run_spec(rollback, 7, max_steps=3)
     run_ar(7, 4)
     torch.cuda.synchronize()
 
@@ -398,8 +739,11 @@ def phase_main_path(torch, grid: int, card: str):
 
     torch.cuda.reset_peak_memory_stats()
     ar_res, t_ar, ar_launch = timed(lambda: run_ar(8, max_new))
-    sres, t_spec, spec_launch = timed(lambda: run_spec(8))
+    sres, t_spec, spec_launch = timed(lambda: run_spec(stale, 8))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    rres, t_roll, roll_launch = timed(lambda: run_spec(rollback, 8))
+    peak_roll = torch.cuda.max_memory_allocated() / 2 ** 30
 
     def legal(toks):
         toks = [int(t) for t in toks]
@@ -413,31 +757,90 @@ def phase_main_path(torch, grid: int, card: str):
             return f"last token {toks[-1]} is not end-of-image"
         return None
 
-    if sres.n_valid != max_new or ar_res.tokens.shape[0] != max_new:
-        fail(f"spec committed {sres.n_valid}, AR {ar_res.tokens.shape[0]}, "
-             f"want {max_new}")
+    if (sres.n_valid != max_new or rres.n_valid != max_new
+            or ar_res.tokens.shape[0] != max_new):
+        fail(f"spec committed {sres.n_valid}, rollback spec {rres.n_valid}, "
+             f"AR {ar_res.tokens.shape[0]}, want {max_new}")
     for name, toks in (("spec", sres.tokens.tolist()),
+                       ("rollback spec", rres.tokens.tolist()),
                        ("ar", ar_res.tokens.tolist())):
         why = legal(toks)
         if why:
             fail(f"{name} stream breaks the grid FSM: {why}")
-    sc = sres.step_compression
-    if sc < 1.0:
-        fail(f"step compression {sc} < 1")
-    for name, launch in (("spec", spec_launch), ("ar", ar_launch)):
-        missing = [k for k, n in launch.items() if n == 0]
+    for name, res in (("spec", sres), ("rollback spec", rres)):
+        if res.step_compression < 1.0:
+            fail(f"{name}: step compression {res.step_compression} < 1")
+    # deferred commit needs no rollback and the AR loop has no tree: K4
+    # belongs to the rollback path alone
+    for name, launch, path in (
+            ("spec", spec_launch, ("int8_matmul", "tree_attention", "kv_write")),
+            ("ar", ar_launch, ("int8_matmul", "tree_attention", "kv_write")),
+            ("rollback spec", roll_launch, tuple(roll_launch))):
+        missing = [k for k in path if launch[k] == 0]
         if missing:
             fail(f"{name} run launched no {missing} kernel: {launch}")
+    want, per_step = rollback_launches(tree, cfg.num_layers, len(TEXT) + 3,
+                                       rres.steps)
+    if roll_launch != want:
+        fail(f"rollback path launched {roll_launch}, but the tree's levels "
+             f"give {want} for {rres.steps} verify steps")
+    if roll_launch["kv_gather"] != rres.steps:
+        fail(f"K4 ran {roll_launch['kv_gather']} times in {rres.steps} steps")
+    sc = sres.step_compression
     log(f"main path [{card}] grid {grid}x{grid} ({max_new} tokens): "
         f"spec {max_new / t_spec:.2f} tok/s ({t_spec:.2f} s, "
         f"{sres.steps} verify steps, {sres.steps / t_spec:.2f} steps/s, "
         f"step compression {sc:.3f}); AR {max_new / t_ar:.2f} tok/s "
         f"({t_ar:.2f} s); spec/AR {t_ar / t_spec:.3f}; peak memory "
         f"{peak:.2f} GiB")
+    log(f"rollback path [{card}] grid {grid}x{grid} ({max_new} tokens), "
+        f"drafter + provisional write + rollback: {max_new / t_roll:.2f} "
+        f"tok/s ({t_roll:.2f} s, {rres.steps} verify steps, "
+        f"{rres.steps / t_roll:.2f} steps/s, step compression "
+        f"{rres.step_compression:.3f}); rollback/AR {t_ar / t_roll:.3f}; "
+        f"rollback/stale+deferred {t_spec / t_roll:.3f}; peak memory "
+        f"{peak_roll:.2f} GiB")
+    log(f"rollback path vs stale + deferred path, same seed: token streams "
+        f"{'equal' if torch.equal(sres.tokens, rres.tokens) else 'differ'} "
+        f"(informational: the passthrough drafter proposes what stale "
+        f"drafting proposes)")
     log(f"main path launches: spec {spec_launch}; ar {ar_launch}")
-    profile("spec, 6 verify steps", lambda: run_spec(9, max_steps=6), card)
+    log(f"rollback path launches: {roll_launch} = the derived counts; per "
+        f"verify step {per_step}")
+    profile("spec (stale + deferred), 6 verify steps",
+            lambda: run_spec(stale, 9, max_steps=6), card)
+    profile("rollback spec (drafter + rollback), 6 verify steps",
+            lambda: run_spec(rollback, 9, max_steps=6), card)
     profile("ar, 12 tokens", lambda: run_ar(9, 12), card)
-    return spec_launch
+
+    # end-to-end check of K4: pinned choices make both commit modes
+    # deterministic, and both must commit the same bytes
+    n_steps = 36
+    pinned = dataclasses.replace(stale, pin=0.5)
+    runs = {d: run_spec(dataclasses.replace(pinned, deferred_commit=d), 10,
+                        max_steps=n_steps) for d in (False, True)}
+    a, b = runs[False], runs[True]
+    if not (torch.equal(a.tokens, b.tokens) and a.steps == b.steps == n_steps
+            and a.accept_sum == b.accept_sum):
+        fail(f"pinned rollback and deferred runs differ: steps {a.steps} / "
+             f"{b.steps}, accepted {a.accept_sum} / {b.accept_sum}, first "
+             f"difference at token "
+             f"{int((a.tokens != b.tokens).int().argmax())}")
+    log(f"rollback check [{card}]: pinned (pin=0.5) stale runs, "
+        f"deferred_commit False vs True: {n_steps} steps, {a.accept_sum} "
+        f"tokens, token-exact")
+    # the real drafter against stale drafting, pinned: equal in exact
+    # arithmetic; the int8 fc_w may move a hidden by a bf16 ulp
+    c = run_spec(dataclasses.replace(pinned, stale_draft=False,
+                                     deferred_commit=False), 10,
+                 max_steps=n_steps)
+    n = min(a.accept_sum, c.accept_sum)
+    diff = (a.tokens[:n] != c.tokens[:n]).int()
+    lead = int(diff.argmax()) if bool(diff.any()) else n
+    log(f"rollback check [{card}]: pinned drafter run vs pinned stale run: "
+        f"{lead} leading tokens of {n} match (informational)")
+    return {"rollback": roll_launch, "stale_deferred": spec_launch,
+            "ar": ar_launch}
 
 
 def profile(what: str, fn, card: str) -> None:
@@ -524,10 +927,15 @@ def main() -> int:
             ("tree_attention", "lantern_tpu_torch/csrc/tree_attention.cu",
              "lantern_tpu/ops/pallas/tree_attention.py:181"),
             ("kv_write", "lantern_tpu_torch/csrc/kv_write.cu",
-             "lantern_tpu/ops/pallas/kv_update.py:170")):
+             "lantern_tpu/ops/pallas/kv_update.py:170"),
+            ("kv_gather", "lantern_tpu_torch/csrc/kv_gather.cu",
+             "lantern_tpu/ops/pallas/kv_update.py:313")):
         r = records[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
+                        "replaces": rep,
+                        "launches": launches["rollback"][name],
+                        "launches_by_path": {
+                            path: n[name] for path, n in launches.items()},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -4,7 +4,10 @@ The port keeps the JAX package's parameter layout, so the bridge is a
 checked leaf-by-leaf copy.  It accepts the split layout (``wq``/``wk``/
 ``wv``, ``w_gate``/``w_up``), the fused layout (``wqkv``, ``w_gu``), the
 quantized layout (``*_q`` int8 with ``*_s`` f32 scales, ``lm_head_q``/
-``lm_head_s``) and the LANTERN ``nearest_latents`` table.  Leaves arrive as
+``lm_head_s``) and the LANTERN ``nearest_latents`` table;
+``convert_drafter_params`` carries an EAGLE drafter's pytree (``fc_w`` or
+``fc_w_q``/``fc_w_s``, ``fc_b``, the shared ``embed``, no ``norm`` or
+``lm_head``).  Leaves arrive as
 numpy arrays (``np.asarray`` of each JAX leaf); bfloat16 leaves (numpy's
 ``ml_dtypes`` bfloat16) are moved bit for bit.
 """
@@ -19,6 +22,7 @@ from .ops.quant import LAYER_KERNELS
 
 _TOP = {"embed", "norm", "lm_head", "lm_head_q", "lm_head_s",
         "nearest_latents", "layers"}
+_DRAFTER_TOP = {"embed", "fc_w", "fc_w_q", "fc_w_s", "fc_b", "layers"}
 _LAYER = {"attn_norm", "ffn_norm", "q_norm_w", "q_norm_b", "k_norm_w",
           "k_norm_b"}
 _LAYER |= set(LAYER_KERNELS)
@@ -42,30 +46,48 @@ def _check_pairs(names, where: str) -> None:
             raise ValueError(f"{where}: {n} without its int8 weight {n[:-2]}_q")
 
 
-def convert_params(params: dict, device=None) -> dict:
-    """Convert a Chameleon-family ``lantern_tpu`` param pytree (numpy
-    leaves) to the port's dict of tensors on ``device``.  Unknown entries
-    (conditioning adapters, drafter-only weights) raise: they belong to
-    lanes that are not ported yet."""
+def _convert(params: dict, top: set, what: str, device, skip=()) -> dict:
     dev = resolve_device(device)
-    unknown = set(params) - _TOP
+    unknown = set(params) - top
     if unknown:
-        raise ValueError(f"convert_params: entries of unported lanes: "
-                         f"{sorted(unknown)}")
+        raise ValueError(
+            f"{what}: entries {sorted(unknown)} belong to another pytree "
+            f"or to an unported lane (the conditioning adapters `cond`: "
+            f"LlamaGen/XL, ROADMAP queue 1, item 10)")
     layers = params["layers"]
     unknown = set(layers) - _LAYER
     if unknown:
-        raise ValueError(f"convert_params: unknown layer entries "
-                         f"{sorted(unknown)}")
+        raise ValueError(f"{what}: unknown layer entries {sorted(unknown)}")
     _check_pairs(set(layers), "layers")
-    _check_pairs({n for n in params if n.startswith("lm_head")}, "lm_head")
-    out = {k: to_tensor(v, dev) for k, v in params.items() if k != "layers"}
+    _check_pairs({n for n in params if n.endswith(("_q", "_s"))}, what)
+    out = {k: to_tensor(v, dev) for k, v in params.items()
+           if k != "layers" and k not in skip}
     out["layers"] = {k: to_tensor(v, dev) for k, v in layers.items()}
     for n in list(out["layers"]) + list(out):
         if n.endswith("_q"):
             src = out["layers"] if n in out["layers"] else out
             if src[n].dtype != torch.int8:
-                raise ValueError(f"convert_params: {n} must be int8")
+                raise ValueError(f"{what}: {n} must be int8")
+    return out
+
+
+def convert_params(params: dict, device=None) -> dict:
+    """Convert a Chameleon-family ``lantern_tpu`` base-model pytree (numpy
+    leaves) to the port's dict of tensors on ``device``.  Unknown entries
+    raise (a drafter's pytree goes through ``convert_drafter_params``)."""
+    out = _convert(params, _TOP, "convert_params", device)
     if "nearest_latents" in out:
         out["nearest_latents"] = out["nearest_latents"].to(torch.int32)
+    return out
+
+
+def convert_drafter_params(dparams: dict, device=None,
+                           embed: torch.Tensor = None) -> dict:
+    """Convert a ``lantern_tpu`` EAGLE-drafter pytree (``init_drafter_params``,
+    optionally fused and quantized).  ``embed``: the converted base model's
+    embedding tensor, shared instead of copied a second time."""
+    out = _convert(dparams, _DRAFTER_TOP, "convert_drafter_params", device,
+                   skip=("embed",) if embed is not None else ())
+    if embed is not None:
+        out["embed"] = embed
     return out

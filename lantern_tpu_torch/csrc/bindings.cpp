@@ -13,13 +13,18 @@ int lantern_tree_attention(const void* q, const void* k_new, const void* v_new,
                            const void* k_cache, const void* v_cache,
                            const void* k_scale, const void* v_scale,
                            const void* length, const void* mask,
-                           const void* bias, void* out, void* part, int B,
-                           int T, int G, int S, int nsplit, int quantized,
-                           float scale, void* stream);
+                           const void* wmask, const void* bias, void* out,
+                           void* part, int B, int T, int G, int S, int window,
+                           int nsplit, int quantized, float scale,
+                           void* stream);
 int lantern_kv_write(const void* k_new, const void* v_new, void* k_buf,
                      void* v_buf, void* k_scale, void* v_scale,
                      const void* start, int L, int B, int T, int G, int S,
                      int quantized, void* stream);
+int lantern_kv_gather(void* k_buf, void* v_buf, void* k_scale, void* v_scale,
+                      const void* starts, const void* rels, int planes, int B,
+                      int G, int S, int R, int A, int blk, int row_bytes,
+                      void* stream);
 }
 
 namespace {
@@ -48,22 +53,26 @@ void int8_matmul(const at::Tensor& x, const at::Tensor& q, const at::Tensor& s,
 }
 
 // q/k_new/v_new/out [B, T, G, 128]; caches [B, G, S, 128]; part holds the
-// per-split partials when nsplit > 1
+// per-split partials when nsplit > 1; wmask [B, T, window] (or none) is the
+// visibility of cache rows [length, length + window)
 void tree_attention(const at::Tensor& q, const at::Tensor& k_new,
                     const at::Tensor& v_new, const at::Tensor& k_cache,
                     const at::Tensor& v_cache,
                     const c10::optional<at::Tensor>& k_scale,
                     const c10::optional<at::Tensor>& v_scale,
                     const at::Tensor& length, const at::Tensor& mask,
+                    const c10::optional<at::Tensor>& wmask,
                     const at::Tensor& bias, at::Tensor& out,
                     const c10::optional<at::Tensor>& part, int64_t nsplit,
                     double scale) {
   check(lantern_tree_attention(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
-            ptr(v_scale), length.data_ptr(), mask.data_ptr(),
+            ptr(v_scale), length.data_ptr(), mask.data_ptr(), ptr(wmask),
             bias.data_ptr(), out.data_ptr(), ptr(part), q.size(0), q.size(1),
-            k_cache.size(1), k_cache.size(2), nsplit, k_scale.has_value(),
+            k_cache.size(1), k_cache.size(2),
+            wmask.has_value() ? wmask->size(2) : 0, nsplit,
+            k_scale.has_value(),
             static_cast<float>(scale), stream_of(q)),
         "tree_attention");
 }
@@ -82,10 +91,25 @@ void kv_write(const at::Tensor& k_new, const at::Tensor& v_new,
         "kv_write");
 }
 
+// planes [L, B, G, S, W] (any of int8, bf16, f32); starts int32 [R]; rels
+// int32 [R, A]; in place
+void kv_gather(at::Tensor& k_buf, at::Tensor& v_buf,
+               const c10::optional<at::Tensor>& k_scale,
+               const c10::optional<at::Tensor>& v_scale,
+               const at::Tensor& starts, const at::Tensor& rels, int64_t blk) {
+  check(lantern_kv_gather(
+            k_buf.data_ptr(), v_buf.data_ptr(), ptr(k_scale), ptr(v_scale),
+            starts.data_ptr(), rels.data_ptr(), k_buf.size(0), k_buf.size(1),
+            k_buf.size(2), k_buf.size(3), starts.size(0), rels.size(1), blk,
+            k_buf.size(4) * k_buf.element_size(), stream_of(k_buf)),
+        "kv_gather");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("int8_matmul", &int8_matmul);
   m.def("tree_attention", &tree_attention);
   m.def("kv_write", &kv_write);
+  m.def("kv_gather", &kv_gather);
 }

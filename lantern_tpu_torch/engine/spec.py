@@ -1,12 +1,19 @@
-"""Speculative decode engine, static EAGLE-1 mode with stale-distribution
-drafting and deferred KV commit.
+"""Speculative decode engine, static EAGLE-1 mode.
 
 Counterpart of ``lantern_tpu/engine/spec.py`` for the Lumina lane:
-draft (``drafter.draft_stale``, no drafter forwards) -> one tree-verify
-forward -> acceptance (greedy or LANTERN rejection-sampling walk) -> commit.
-With deferred commit the tree block's K/V never hit the cache: the state
-carries them and the NEXT verify forward commits only the accepted rows
-(``forward(extra_kv=...)``), so no rollback kernel runs.
+draft -> one tree-verify forward -> acceptance (greedy or LANTERN
+rejection-sampling walk) -> commit -> next draft.
+
+Drafting is either the EAGLE drafter (``drafter.extend`` over the accepted
+rows, then ``drafter.draft_static``: one drafter forward per tree level) or,
+with ``stale_draft``, ``drafter.draft_stale`` (no drafter forwards).
+
+Commit is either provisional write + rollback (the verify forward writes
+all N+1 tree rows at ``length`` and ``KVCache.accept_path`` compacts the
+accepted ones: kernel K4) or, with ``deferred_commit``, deferred: the tree
+block's K/V never hit the cache, the state carries them and the NEXT verify
+forward commits only the accepted rows (``forward(extra_kv=...)``).  Both
+commit the same bytes.
 
 A plain Python loop replaces ``lax.while_loop``; its condition reads three
 scalars back per step.  Everything else stays on the device.
@@ -19,22 +26,23 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..configs import ModelConfig
+from ..configs import DrafterConfig, ModelConfig
 from ..device import resolve_device
 from ..kv import KVCache
 from ..models import drafter as drf
 from ..models import transformer as tfm
 from ..models.chameleon import TokenPrompt
 from ..ops import acceptance as acc
+from ..ops.quant import head_of
 from ..ops.sampling import LogitsWarp, categorical, cfg_combine, sample_token
 from ..trees import TreeSpec
 
 __all__ = ["SpecDecodeConfig", "SpecState", "SpecResult", "TokenPrompt",
            "make_static_step", "prefill_request", "generate"]
 
-_NOT_PORTED = ("not ported yet: only static mode with stale_draft=True and "
-               "deferred_commit=True runs in lantern_tpu_torch; see ROADMAP "
-               "queue 1, item {item}")
+_NOT_PORTED = ("not ported yet: lantern_tpu_torch runs static (EAGLE-1) "
+               "mode only; dynamic (EAGLE-2) mode is ROADMAP queue 1, "
+               "item 13")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,15 +70,12 @@ class SpecDecodeConfig:
 
     def check_ported(self) -> None:
         if self.mode != "static":
-            raise NotImplementedError(_NOT_PORTED.format(item=13))
-        if not self.stale_draft:
-            raise NotImplementedError(_NOT_PORTED.format(item=10))
-        if not self.deferred_commit:
-            raise NotImplementedError(_NOT_PORTED.format(item=12))
+            raise NotImplementedError(_NOT_PORTED)
 
 
 class SpecState(NamedTuple):
     base_kv: KVCache
+    draft_kv: Optional[KVCache]     # the drafter's cache (None when stale)
     draft: drf.StaticDraft
     root_token: torch.Tensor        # [] sampled-but-unverified next token
     tokens: torch.Tensor            # [max_new + pad] committed ids
@@ -78,12 +83,12 @@ class SpecState(NamedTuple):
     steps: torch.Tensor             # [] verify steps taken
     accept_sum: torch.Tensor        # [] total accepted tokens (incl. roots)
     stopped: torch.Tensor           # [] a stop id was committed
-    # deferred-commit carry.  INVARIANT: between steps base_kv lags the
-    # committed token stream by ``pn`` rows; they live in blk[psel[:pn]]
-    # and the NEXT verify forward commits them.
-    blk: tuple                      # (k, v) [L, B, N+1, n_kv, hd]
-    psel: torch.Tensor              # [D] accepted slots into blk
-    pn: torch.Tensor                # [] accepted count (rows to commit)
+    # deferred-commit carry (None otherwise).  INVARIANT: between steps
+    # base_kv lags the committed token stream by ``pn`` rows; they live in
+    # blk[psel[:pn]] and the NEXT verify forward commits them.
+    blk: Optional[tuple] = None             # (k, v) [L, B, N+1, n_kv, hd]
+    psel: Optional[torch.Tensor] = None     # [D] accepted slots into blk
+    pn: Optional[torch.Tensor] = None       # [] accepted count
 
 
 class SpecResult(NamedTuple):
@@ -106,6 +111,13 @@ class _Ctx(NamedTuple):
     logits_mask: Optional[torch.Tensor]
     logits_fn: object
     generator: Optional[torch.Generator]
+    # the EAGLE drafter (None with stale drafting)
+    dparams: Optional[dict] = None
+    dcfg: Optional[DrafterConfig] = None
+    drope: Optional[tuple] = None
+    # pad mask threaded into the drafter's forwards (token prompts)
+    drafter_pv: Optional[torch.Tensor] = None
+    levels: tuple = ()                  # drafter.device_levels of the tree
 
 
 def bind_logits_fn(logits_fn, pos_offsets):
@@ -129,29 +141,35 @@ def _verify_and_update(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx,
                        state: SpecState, candidates, node_q, level_probs,
                        children, inlevel_rank, tree_tokens, tree_mask,
                        tree_pos, retrieve, max_depth: int):
-    """Tree-verify forward, acceptance and commit.  Returns
-    ``(state', root_logits)``: the raw cfg-combined logits row at the last
+    """Tree-verify forward, acceptance, commit and (with the real drafter)
+    the drafter's extension over the accepted rows.  Returns ``(state',
+    root_out)``: the next draft's root hidden [2, 1, H], or with
+    ``ecfg.stale_draft`` the raw cfg-combined logits row [V] at the last
     accepted node, from which the next stale draft proposes."""
     N1 = tree_tokens.shape[0]
     D = candidates.shape[1]
     dev = tree_tokens.device
     tok2 = tree_tokens[None, :].expand(2, N1)
-    # committed length as seen by this forward: the previous step's
-    # accepted rows ride in as extra_kv and are committed by this call
-    eff_len = state.base_kv.length + state.pn
+    deferred = ecfg.deferred_commit
+    # committed length as seen by this forward: with deferred commit the
+    # previous step's accepted rows ride in as extra_kv and are committed
+    # by this call
+    eff_len = state.base_kv.length + (state.pn if deferred else 0)
     positions = tree_pos + eff_len
     positions = torch.clamp(positions[None, :] - ctx.pos_offsets[:, None],
                             min=0)
-    # rows past pn land above the committed frontier and are overwritten
-    # by the next commit before any read
-    sel_prev = torch.clamp(state.psel, 0, N1 - 1).long()
-    ex = (state.blk[0][:, :, sel_prev], state.blk[1][:, :, sel_prev],
-          state.pn)
+    ex = None
+    if deferred:
+        # rows past pn land above the committed frontier and are
+        # overwritten by the next commit before any read
+        sel_prev = torch.clamp(state.psel, 0, N1 - 1).long()
+        ex = (state.blk[0][:, :, sel_prev], state.blk[1][:, :, sel_prev],
+              state.pn)
     res = tfm.forward(
         ctx.params, cfg, tfm.token_embed(ctx.params, tok2), state.base_kv,
         positions=positions, rope=ctx.rope, block_mask=tree_mask,
         prefix_valid=ctx.prefix_valid, commit=False, extra_kv=ex,
-        defer_block=True)
+        defer_block=deferred)
     logits_raw = cfg_combine(tfm.logits_head(ctx.params, res.hidden),
                              ecfg.cfg_scale)[0]
     logits_all = _mask_logits(logits_raw, ctx.logits_mask)
@@ -184,7 +202,15 @@ def _verify_and_update(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx,
         sel_slots[: walk_path.shape[0]] = walk_path.long()
 
     n_acc = (alen + 1).to(torch.int32)
+    # pads of the slot path are 0, but a gather asserts on the device where
+    # the JAX one clamps: keep every data-dependent index in range
+    sel_slots = torch.clamp(sel_slots, 0, N1 - 1)
     sel_tokens = tree_tokens[sel_slots]
+    if deferred:
+        base_kv = res.kv             # the previous accepted rows, committed
+    else:
+        # rollback: compact the accepted rows of the provisional tree block
+        base_kv = res.kv.accept_path(sel_slots, n_acc, block_size=N1)
     ar_d = torch.arange(D, device=dev)
     cand_row = torch.where(ar_d < n_acc, sel_tokens,
                            torch.zeros_like(sel_tokens)).to(torch.int32)
@@ -196,18 +222,35 @@ def _verify_and_update(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx,
         stops = torch.tensor(ecfg.stop_ids, dtype=torch.int32, device=dev)
         hit = (cand_row[:, None] == stops[None, :]).any(-1) & (ar_d < n_acc)
         stopped = stopped | hit.any()
-    root_logits = acc.take1(logits_raw, acc.take1(sel_slots, alen))
+    draft_kv = state.draft_kv
+    if ecfg.stale_draft:
+        root_out = acc.take1(logits_raw, acc.take1(sel_slots, alen))
+    else:
+        # drafter extension over the accepted rows: (next token, base
+        # hidden) pairs; the last valid pair carries the bonus token
+        next_tok = torch.where(
+            ar_d < alen, sel_tokens[torch.clamp(ar_d + 1, max=D - 1)],
+            bonus).to(torch.int32)
+        out_hidden, draft_kv = drf.extend(
+            ctx.dparams, ctx.dcfg, ctx.drope, draft_kv,
+            next_tok[None, :].expand(2, D),
+            res.hidden.index_select(1, sel_slots), n_acc,
+            prefix_valid=ctx.drafter_pv, pos_offsets=ctx.pos_offsets)
+        root_out = out_hidden.index_select(
+            1, torch.clamp(alen, 0, D - 1).long().reshape(1))
     state = state._replace(
-        base_kv=res.kv, root_token=bonus, tokens=tokens,
+        base_kv=base_kv, draft_kv=draft_kv, root_token=bonus, tokens=tokens,
         n_new=state.n_new + n_acc, steps=state.steps + 1,
-        accept_sum=state.accept_sum + n_acc, stopped=stopped,
-        blk=res.block, psel=sel_slots.to(torch.int32), pn=n_acc)
-    return state, root_logits
+        accept_sum=state.accept_sum + n_acc, stopped=stopped)
+    if deferred:
+        state = state._replace(blk=res.block, psel=sel_slots.to(torch.int32),
+                               pn=n_acc)
+    return state, root_out
 
 
 def make_static_step(ecfg: SpecDecodeConfig, cfg: ModelConfig,
                      spec: TreeSpec, ctx: _Ctx):
-    """One EAGLE-1 static-tree speculative step (stale drafting)."""
+    """One EAGLE-1 static-tree speculative step."""
     dev = ctx.prefix_valid.device
 
     def t(a, dtype=torch.long):
@@ -235,28 +278,49 @@ def make_static_step(ecfg: SpecDecodeConfig, cfg: ModelConfig,
             level_probs = d.level_probs
         else:
             node_q, level_probs = None, None
-        state, root_logits = _verify_and_update(
+        state, root_out = _verify_and_update(
             ecfg, cfg, ctx, state, candidates, node_q, level_probs,
             children, inlevel if sampling else None, tree_tokens, attn_mask,
             depth_arr, retrieve, spec.max_depth)
-        committed = state.base_kv.length + state.pn
-        new_draft = drf.draft_stale(
-            spec, root_logits, committed, ecfg.dwarp, ctx.generator,
-            logits_mask=ctx.logits_mask, logits_fn=ctx.logits_fn,
-            pin=ecfg.pin)
-        return state._replace(draft=new_draft)
+        if ecfg.stale_draft:
+            committed = state.base_kv.length + (
+                state.pn if ecfg.deferred_commit else 0)
+            new_draft = drf.draft_stale(
+                spec, root_out, committed, ecfg.dwarp, ctx.generator,
+                logits_mask=ctx.logits_mask, logits_fn=ctx.logits_fn,
+                pin=ecfg.pin)
+            return state._replace(draft=new_draft)
+        new_draft, dkv = _draft_static(ecfg, spec, ctx, state.draft_kv,
+                                       root_out)
+        return state._replace(draft=new_draft, draft_kv=dkv)
 
     return step
+
+
+def _draft_static(ecfg: SpecDecodeConfig, spec: TreeSpec, ctx: _Ctx,
+                  draft_kv: KVCache, root_hidden: torch.Tensor):
+    return drf.draft_static(
+        ctx.dparams, ctx.dcfg, spec, ctx.drope, draft_kv, root_hidden,
+        head_of(ctx.params), ecfg.cfg_scale, ecfg.dwarp, ctx.generator,
+        pos_offsets=ctx.pos_offsets, logits_mask=ctx.logits_mask,
+        logits_fn=ctx.logits_fn, prefix_valid=ctx.drafter_pv, pin=ecfg.pin,
+        levels=ctx.levels)
 
 
 def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
                     spec: TreeSpec, token_prompt: TokenPrompt,
                     generator: Optional[torch.Generator],
                     logits_mask: Optional[torch.Tensor] = None,
-                    logits_fn=None, device=None):
-    """Prefill one token-prompt request: base prefix, first token, first
-    draft tree.  Returns ``(SpecState, ctx)``."""
+                    logits_fn=None, device=None,
+                    dparams: Optional[dict] = None,
+                    dcfg: Optional[DrafterConfig] = None):
+    """Prefill one token-prompt request: base (and drafter) prefix, first
+    token, first draft tree.  Returns ``(SpecState, ctx)``.  ``dparams``
+    and ``dcfg`` are the EAGLE drafter; stale drafting needs neither."""
     ecfg.check_ported()
+    if not ecfg.stale_draft and (dparams is None or dcfg is None):
+        raise ValueError("stale_draft=False drafts with the EAGLE drafter: "
+                         "pass dparams and dcfg")
     dev = resolve_device(device)
     rope = tfm.make_rope_tables(cfg, dev)
     nearest = params.get("nearest_latents")
@@ -273,6 +337,11 @@ def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
     ctx = _Ctx(params=params, rope=rope, nearest=nearest, prefix_valid=pv,
                pos_offsets=offs, logits_mask=logits_mask,
                logits_fn=bind_logits_fn(logits_fn, offs), generator=generator)
+    if not ecfg.stale_draft:
+        ctx = ctx._replace(
+            dparams=dparams, dcfg=dcfg, drafter_pv=pv,
+            drope=tfm.make_rope_tables(dcfg.model, dev),
+            levels=drf.device_levels(spec, dev))
     block = (torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None]
              & tp.valid.bool()[:, None, :])
     res = tfm.forward(params, cfg, tfm.token_embed(params, tp.tokens),
@@ -286,24 +355,45 @@ def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
             (1,), L - 1, dtype=torch.int32, device=dev))[0]
     t0 = (torch.argmax(first) if ecfg.pin is not None
           else sample_token(generator, first, ecfg.warp)).to(torch.int32)
-    draft = drf.draft_stale(spec, logits0[0, -1], base_kv.length, ecfg.dwarp,
-                            generator, logits_mask=logits_mask,
-                            logits_fn=ctx.logits_fn, pin=ecfg.pin)
-    N1 = int(spec.tree_indices.shape[0])
-    D = int(spec.retrieve_indices.shape[1])
-    zblk = torch.zeros((cfg.num_layers, 2, N1, cfg.num_kv_heads, cfg.head_dim),
-                       dtype=cfg.torch_dtype, device=dev)
+    if ecfg.stale_draft:
+        draft_kv = None
+        draft = drf.draft_stale(spec, logits0[0, -1], base_kv.length,
+                                ecfg.dwarp, generator, logits_mask=logits_mask,
+                                logits_fn=ctx.logits_fn, pin=ecfg.pin)
+    else:
+        # drafter prefill: the prompt's tokens shifted left one (the first
+        # generated token closes the stream), the base hiddens aligned; pad
+        # rows are masked inside the prompt block too
+        dtok = torch.cat([tp.tokens[:, 1:],
+                          t0.reshape(1, 1).expand(2, 1).to(tp.tokens.dtype)],
+                         dim=1)
+        dpos = torch.clamp(torch.arange(L, device=dev)[None, :]
+                           - offs[:, None], min=0)
+        out_hidden, dk = drf.extend(
+            dparams, dcfg, ctx.drope,
+            KVCache.create(dcfg.model, 2, device=dev), dtok, res.hidden, L,
+            prefix_valid=pv, positions=dpos, block_valid=tp.valid)
+        draft, draft_kv = _draft_static(ecfg, spec, ctx, dk,
+                                        out_hidden[:, -1:])
 
     def zero(dtype=torch.int32):
         return torch.zeros((), dtype=dtype, device=dev)
 
     state = SpecState(
-        base_kv=base_kv, draft=draft, root_token=t0,
+        base_kv=base_kv, draft_kv=draft_kv, draft=draft, root_token=t0,
         tokens=torch.zeros((ecfg.max_new + spec.path_len + 1,),
                            dtype=torch.int32, device=dev),
         n_new=zero(), steps=zero(), accept_sum=zero(),
-        stopped=zero(torch.bool), blk=(zblk, zblk),
-        psel=torch.zeros((D,), dtype=torch.int32, device=dev), pn=zero())
+        stopped=zero(torch.bool))
+    if ecfg.deferred_commit:
+        N1 = int(spec.tree_indices.shape[0])
+        D = int(spec.retrieve_indices.shape[1])
+        zblk = torch.zeros(
+            (cfg.num_layers, 2, N1, cfg.num_kv_heads, cfg.head_dim),
+            dtype=cfg.torch_dtype, device=dev)
+        state = state._replace(
+            blk=(zblk, zblk),
+            psel=torch.zeros((D,), dtype=torch.int32, device=dev), pn=zero())
     return state, ctx
 
 
@@ -311,13 +401,16 @@ def generate(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
              spec: TreeSpec, token_prompt: TokenPrompt,
              generator: Optional[torch.Generator], max_steps: int = 0,
              logits_mask: Optional[torch.Tensor] = None, logits_fn=None,
-             device=None) -> SpecResult:
+             device=None, dparams: Optional[dict] = None,
+             dcfg: Optional[DrafterConfig] = None) -> SpecResult:
     """Full speculative generation for one token-prompt request (CFG
-    cond/uncond as the batch pair)."""
+    cond/uncond as the batch pair).  ``dparams``/``dcfg``: the EAGLE
+    drafter, needed unless ``ecfg.stale_draft``."""
     max_steps = max_steps or ecfg.max_new
     state, ctx = prefill_request(params, ecfg, cfg, spec, token_prompt,
                                  generator, logits_mask=logits_mask,
-                                 logits_fn=logits_fn, device=device)
+                                 logits_fn=logits_fn, device=device,
+                                 dparams=dparams, dcfg=dcfg)
     step = make_static_step(ecfg, cfg, spec, ctx)
     n_new = steps = 0
     stopped = False

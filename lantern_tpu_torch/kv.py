@@ -11,8 +11,12 @@ of the hand-written kernel in ``csrc/kv_write.cu`` (replacing
 ``write_block``, ``lantern_tpu/ops/pallas/kv_update.py:170``) quantizes the
 new rows and writes the K/V planes and the scale planes for every layer;
 on CPU tensors ``write_block_plain`` does the same with plain PyTorch.
-Unlike the JAX cache, ``write`` updates the buffers in place (the engines
-never read a cache after writing past it).
+``KVCache.accept_path`` (the tree rollback) goes through
+``gather_write_block`` in the same way: ``csrc/kv_gather.cu`` (replacing
+``gather_write_block``, ``lantern_tpu/ops/pallas/kv_update.py:313``) on
+CUDA tensors, ``gather_write_block_plain`` on CPU tensors.
+Unlike the JAX cache, ``write`` and ``accept_path`` update the buffers in
+place (the engines never read a cache after writing past it).
 """
 
 from __future__ import annotations
@@ -133,6 +137,103 @@ def write_block(k_buf, v_buf, k_scale, v_scale, k_new, v_new, start):
         write_block_plain(k_buf, v_buf, k_scale, v_scale, k_new, v_new, start)
 
 
+def _starts_rels(start, rel, planes: int, blk: int, S: int):
+    """Normalize K4's index arguments: ``start`` [] or [R] -> int32 [R],
+    ``rel`` [A] or [R, A] -> int32 [R, A]; checks what the host can see."""
+    _cuda.require(1 <= blk <= S, f"kv_gather: blk={blk} outside [1, S={S}]")
+    starts = start.reshape(-1)
+    R = starts.shape[0]
+    _cuda.require(R >= 1 and planes % R == 0,
+                  f"kv_gather: {R} starts do not tile {planes} planes")
+    rels = rel if rel.ndim == 2 else rel[None]
+    _cuda.require(rels.ndim == 2 and rels.shape[0] in (1, R),
+                  f"kv_gather: rel must be [A] or [{R}, A], got "
+                  f"{tuple(rel.shape)}")
+    A = rels.shape[1]
+    _cuda.require(1 <= A <= blk, f"kv_gather: {A} rows > blk={blk}")
+    return (starts.to(torch.int32).contiguous(),
+            rels.expand(R, A).to(torch.int32).contiguous())
+
+
+def gather_write_block_plain(k_buf, v_buf, k_scale, v_scale, rel, start,
+                             blk: int):
+    """K4's plain version: the tree-rollback compaction
+    ``buf[..., start + j, :] = buf[..., start + rel[j], :]`` for ``j < A``
+    on the ``[L, B, G, S, W]`` planes, and the same rows of the
+    ``[L, B, G, S]`` scale planes of an int8 cache.  Every source row is
+    read before any row is written.  ``start`` [] or [R] (``L = R *
+    layers``: slot ``r`` owns planes ``[r * layers, (r+1) * layers)``),
+    ``rel`` [A] or [R, A].  ``rel`` is clamped to ``[0, blk-1]`` and
+    ``start`` to ``[0, S-blk]``, once, for rows and scales alike.  In place;
+    no host sync."""
+    L, S = k_buf.shape[0], k_buf.shape[3]
+    starts, rels = _starts_rels(start, rel, L, blk, S)
+    R, A = rels.shape
+    per = L // R
+    j = torch.arange(A, device=k_buf.device)
+    for r in range(R):
+        s0 = torch.clamp(starts[r].long(), 0, S - blk)
+        src = s0 + torch.clamp(rels[r].long(), 0, blk - 1)
+        for buf in (k_buf, v_buf, k_scale, v_scale):
+            if buf is not None:
+                mine = buf[r * per:(r + 1) * per]
+                mine.index_copy_(3, s0 + j, mine.index_select(3, src))
+
+
+def gather_write_block_cuda(k_buf, v_buf, k_scale, v_scale, rel, start,
+                            blk: int):
+    """K4 on the card: one launch compacts the accepted rows of every
+    layer plane, K and V, and (int8 cache) both scale planes.  One thread
+    block owns one ``(plane, batch, group)`` window: it stages the ``A``
+    source rows in shared memory, waits at a barrier, then stores them, so
+    overlapping sources and destinations read the original rows.  ``start``
+    and ``rel`` stay on the device; the kernel clamps ``rel`` to
+    ``[0, blk-1]`` and ``start`` to ``[0, S-blk]`` exactly as the plain
+    version does, so a ``start`` outside the contract (``start + blk <=
+    S``) moves rows of the last window and never touches memory outside the
+    planes."""
+    L, B, G, S, W = k_buf.shape
+    quantized = k_scale is not None
+    row_bytes = W * k_buf.element_size()
+    for t in (k_buf, v_buf):
+        _cuda.require(t.dtype == k_buf.dtype and t.shape == k_buf.shape
+                      and t.is_contiguous() and _cuda.aligned(t),
+                      "kv_gather: K and V planes must be contiguous, "
+                      "16-byte aligned and alike")
+    _cuda.require(k_buf.dtype in (torch.int8, torch.bfloat16, torch.float32)
+                  and row_bytes % 16 == 0,
+                  f"kv_gather: planes must be int8, bf16 or f32 with rows of "
+                  f"a multiple of 16 bytes, got {k_buf.dtype} W={W}")
+    _cuda.require(quantized == (k_buf.dtype == torch.int8)
+                  and (v_scale is not None) == quantized,
+                  "kv_gather: scale planes go with int8 planes, and only "
+                  "with them")
+    if quantized:
+        for t in (k_scale, v_scale):
+            _cuda.require(t.dtype == torch.float32 and t.is_contiguous()
+                          and t.shape == (L, B, G, S),
+                          "kv_gather: scale planes must be f32 [L, B, G, S]")
+    for t in (rel, start):
+        _cuda.require(t.dtype in (torch.int32, torch.int64),
+                      "kv_gather: start and rel must be integer tensors")
+    starts, rels = _starts_rels(start, rel, L, blk, S)
+    _cuda.require(rels.shape[1] * (row_bytes + 4) <= 48 * 1024,
+                  f"kv_gather: {rels.shape[1]} rows of {row_bytes} bytes "
+                  f"exceed the 48 KB staging buffer")
+    _cuda.library().kv_gather(k_buf, v_buf, k_scale if quantized else None,
+                              v_scale if quantized else None, starts, rels,
+                              blk)
+    _cuda.LAUNCHES["kv_gather"] += 1
+
+
+def gather_write_block(k_buf, v_buf, k_scale, v_scale, rel, start, blk: int):
+    """Dispatch by device: K4 on CUDA tensors, the plain version on CPU."""
+    fn = (gather_write_block_cuda
+          if _cuda.on_cuda(k_buf, v_buf, k_scale, v_scale, rel, start)
+          else gather_write_block_plain)
+    fn(k_buf, v_buf, k_scale, v_scale, rel, start, blk)
+
+
 @dataclasses.dataclass
 class KVCache:
     k: torch.Tensor        # [L, B, G, S, W]  (model dtype, or int8)
@@ -194,3 +295,18 @@ class KVCache:
         """Advance length by ``n`` (a tensor or int); rows must be in place."""
         return dataclasses.replace(
             self, length=(self.length + n).to(torch.int32))
+
+    def accept_path(self, rel_indices: torch.Tensor, accept_count,
+                    block_size: int) -> "KVCache":
+        """Tree rollback: compact the accepted draft path into the prefix.
+
+        ``rel_indices`` [A]: slots of the accepted path's nodes inside the
+        ``block_size``-row provisional tree block written at ``length``,
+        padded arbitrarily past ``accept_count`` (pads are clamped to
+        ``[0, block_size-1]``, for rows and scales alike).  Moves those
+        rows to ``length, length+1, ...`` (one K4 launch on the card) and
+        advances by ``accept_count``; rows past the new length are garbage
+        that attention masks and later writes cover."""
+        gather_write_block(self.k, self.v, self.k_scale, self.v_scale,
+                           rel_indices, self.length, block_size)
+        return self.commit(accept_count)

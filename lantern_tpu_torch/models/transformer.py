@@ -7,10 +7,12 @@ params dict has the JAX package's layout (stacked ``[L, ...]`` layer
 weights, split or fused, dense or int8), so ``convert.py`` can move a JAX
 pytree over unchanged.
 
-Per layer the three TPU kernels of the path have hand-written CUDA
+Per layer the TPU kernels of the path have hand-written CUDA
 counterparts, each reached through a device-dispatching op:
 ``quant.mm`` (K1, four W8A16 matmuls), ``tree_attention`` (K2), and after
-the layer loop ``KVCache.write`` (K3, one launch for all layers).
+the layer loop ``KVCache.write`` (K3, one launch for all layers).  The
+EAGLE drafter runs the same ``forward`` with its own config (pre-norm, no
+final norm) and a bf16 cache.
 """
 
 from __future__ import annotations
@@ -170,6 +172,8 @@ def forward(
     commit: bool = True,
     extra_kv=None,
     defer_block: bool = False,
+    window_mask: Optional[torch.Tensor] = None,  # [B or 1, T, window] bool
+    write_offset: int = 0,
 ) -> ForwardResult:
     """Run the decoder over a new token block against the KV cache.
 
@@ -178,7 +182,14 @@ def forward(
     so this block's attention reads them from the cache prefix.
     ``defer_block`` skips writing the new block and returns its roped K/V
     in ``ForwardResult.block``.  ``commit=False`` writes the block without
-    advancing the cache length."""
+    advancing the cache length; ``write_offset`` then places it at
+    ``length + write_offset``, past earlier provisional rows (the levels of
+    a draft tree).  ``window_mask`` shows those rows to this block: cache
+    row ``length + u`` is visible to block row ``t`` iff
+    ``window_mask[b, t, u]`` (the JAX forward's ``prefix_override``,
+    restricted to the rows it ever exposes)."""
+    if commit and write_offset != 0:
+        raise ValueError("forward(commit=True) requires write_offset == 0")
     _require_chameleon(cfg)
     B, T, H = embeds.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -239,7 +250,8 @@ def forward(
         o = tree_attention(
             q, k, v, kv.k[li], kv.v[li], kv.length, bm, p_bias, scale,
             k_scale=None if kv.k_scale is None else kv.k_scale[li],
-            v_scale=None if kv.v_scale is None else kv.v_scale[li])
+            v_scale=None if kv.v_scale is None else kv.v_scale[li],
+            window_mask=window_mask)
         attn_out = mm(o.reshape(B, T, nh * hd), w, "wo")
 
         if cfg.swin_norm:
@@ -263,7 +275,7 @@ def forward(
     if defer_block:
         block = (k_all, v_all)
     else:
-        kv = kv.write(k_all, v_all, advance=commit)
+        kv = kv.write(k_all, v_all, advance=commit, offset=write_offset)
     if cfg.final_norm:
         h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
     return ForwardResult(hidden=h, kv=kv, block=block)

@@ -124,8 +124,9 @@ def _quantize_stacked(w: torch.Tensor):
 
 
 def quantize_params(params: dict) -> dict:
-    """Quantize the decoder's matmul kernels and the lm_head; embeddings and
-    norms keep their dtype.  Either layer layout."""
+    """Quantize the decoder's matmul kernels, the lm_head and a drafter's
+    input-fusion projection ``fc_w``; embeddings, norms and biases keep
+    their dtype.  Either layer layout."""
     p = dict(params)
     layers = dict(p["layers"])
     for name in LAYER_KERNELS:
@@ -134,6 +135,8 @@ def quantize_params(params: dict) -> dict:
             layers[name + "_q"] = q
             layers[name + "_s"] = s
     p["layers"] = layers
+    if "fc_w" in p:
+        p["fc_w_q"], p["fc_w_s"] = quantize_weight(p.pop("fc_w"))
     if "lm_head" in p:
         p["lm_head_q"], p["lm_head_s"] = quantize_weight(p.pop("lm_head"))
     return p

@@ -111,6 +111,18 @@ def sample_token(generator: torch.Generator, logits: torch.Tensor,
     return categorical(generator, warp_logits(logits, warp))
 
 
+def sample_without_replacement(generator: torch.Generator,
+                               probs: torch.Tensor, k: int):
+    """Draw ``k`` tokens without replacement from each row of ``probs``
+    [.., V] by the Gumbel top-k trick.  Returns ``(indices int32 [.., k],
+    q [.., k])`` with the residual acceptance probabilities of
+    ``residual_q``."""
+    logp = torch.log(torch.clamp(probs, min=1e-30))
+    u = uniform(generator, probs.shape, probs.device, 1e-20, 1.0)
+    idx = torch.topk(logp - torch.log(-torch.log(u)), k, dim=-1).indices
+    return idx.to(torch.int32), residual_q(torch.gather(probs, -1, idx))
+
+
 def residual_q(p_sel: torch.Tensor) -> torch.Tensor:
     """The reference drafter's residual acceptance probabilities of the
     top-k draws ``p_sel`` [.., k]: ``q[i] = p(x_i) / (1 - sum_{j<i}

@@ -17,7 +17,14 @@ the reference numbers on every path the JAX tests run:
 
 Masks: key ``j`` of the prefix is visible iff ``j < length`` (its additive
 bias row then applies, 0 or ``NEG_INF`` for padding); block key ``u`` is
-visible to row ``t`` iff ``block_mask[b, t, u]``.
+visible to row ``t`` iff ``block_mask[b, t, u]``.  An optional provisional
+window (``window_mask`` [B or 1, T, window] bool) also shows cache rows
+``[length, length + window)``: rows written past the committed prefix but
+not committed (the earlier levels of a draft tree); row ``length + u`` is
+visible to block row ``t`` iff ``window_mask[b, t, u]`` (and its bias
+applies).  The JAX forward builds the same visibility as a dense
+``prefix_override`` mask (``lantern_tpu/models/drafter.py:132``).  The
+caller keeps ``length + window <= S``.
 
 ``tree_attention`` dispatches by device: the hand-written kernel in
 ``csrc/tree_attention.cu`` on CUDA tensors, ``tree_attention_plain`` on CPU.
@@ -40,14 +47,26 @@ K2_MAX_SPLIT = 8
 K2_PART_FLOATS = K2_MAX_T * (128 + 2)     # per-split partials (max, sum, acc)
 
 
+def _window_of(window_mask, B: int, T: int):
+    """``window_mask`` as a contiguous bool [B, T, window], or None when
+    there is no window."""
+    if window_mask is None or window_mask.shape[-1] == 0:
+        return None
+    if window_mask.ndim == 2:
+        window_mask = window_mask[None]
+    return window_mask.to(torch.bool).expand(
+        B, T, window_mask.shape[-1]).contiguous()
+
+
 def tree_attention_plain(q, k_new, v_new, k_cache, v_cache, length,
                          block_mask, prefix_bias, scale,
-                         k_scale=None, v_scale=None):
+                         k_scale=None, v_scale=None, window_mask=None):
     """K2's plain version (the JAX dense-fused math, any head grouping).
 
     q/k_new/v_new [B, T, nh, hd]; caches [B, G, S, W] grouped; ``length``
     int32 scalar tensor; ``block_mask`` [B, T, T] bool; ``prefix_bias``
-    [B, S] f32.  Returns [B, T, nh, hd] in q's dtype."""
+    [B, S] f32; ``window_mask`` [B or 1, T, window] bool or None.  Returns
+    [B, T, nh, hd] in q's dtype."""
     B, T, nh, hd = q.shape
     _, Gd, S, W = k_cache.shape
     pk = W // hd
@@ -66,14 +85,21 @@ def tree_attention_plain(q, k_new, v_new, k_cache, v_cache, length,
         ku = k_new.reshape(B, T, Gd, pk, hd).permute(0, 2, 3, 1, 4)
         vu = v_new.reshape(B, T, Gd, pk, hd).permute(0, 2, 3, 1, 4)
     j = torch.arange(S, device=q.device)
-    mp = torch.where(j[None, :] < length, prefix_bias.float(),
-                     torch.full_like(prefix_bias, NEG_INF, dtype=torch.float32))
-    mb = torch.where(block_mask.bool(), 0.0, NEG_INF)             # [B,T,T]
+    vis = (j < length)[None, None, :]                             # [1,1,S]
+    wm = _window_of(window_mask, B, T)
+    if wm is not None:
+        rows = torch.clamp(length + torch.arange(wm.shape[-1],
+                                                 device=q.device), max=S - 1)
+        vis = vis.expand(B, T, S).clone().index_copy_(2, rows.long(), wm)
+    mp = torch.where(vis, prefix_bias.float()[:, None, :], NEG_INF)  # [B,T|1,S]
+    if block_mask.ndim == 2:
+        block_mask = block_mask[None]
+    mb = torch.where(block_mask.bool(), 0.0, NEG_INF)        # [B or 1,T,T]
 
     s_pre = torch.einsum("bgptd,bgspd->bgpts", qg, k5.float()) * scale
     if quant:
         s_pre = s_pre * k_scale[:, :, None, None, :]
-    s_pre = s_pre + mp[:, None, None, None, :]
+    s_pre = s_pre + mp[:, None, None]
     s_blk = torch.einsum("bgptd,bgpud->bgptu", qg, ku.float()) * scale
     if quant:
         s_blk = s_blk * ks_blk[:, :, None, None, :]
@@ -97,12 +123,13 @@ def tree_attention_plain(q, k_new, v_new, k_cache, v_cache, length,
 
 def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
                         block_mask, prefix_bias, scale,
-                        k_scale=None, v_scale=None):
+                        k_scale=None, v_scale=None, window_mask=None):
     """K2 on the card.  Thread blocks per (batch row, head group, prefix
     split) stream only the live prefix ``[0, length)`` with an online
-    softmax, the last split also the block rows under the mask; a merge
-    kernel combines the splits.  Needs head_dim == W == 128, MHA, bf16
-    activations and T <= ``K2_MAX_T``."""
+    softmax, the last split also the provisional window's cache rows and
+    the block rows under their masks; a merge kernel combines the splits.
+    Needs head_dim == W == 128, MHA, bf16 activations, T <= ``K2_MAX_T``
+    and a window of at most ``K2_MAX_T`` rows."""
     B, T, nh, hd = q.shape
     _, G, S, W = k_cache.shape
     quant = k_scale is not None
@@ -130,6 +157,10 @@ def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
     if block_mask.ndim == 2:
         block_mask = block_mask[None].expand(B, T, T)
     mask = block_mask.to(torch.bool).contiguous()
+    wmask = _window_of(window_mask, B, T)
+    window = 0 if wmask is None else wmask.shape[-1]
+    _cuda.require(window <= K2_MAX_T,
+                  f"tree_attention: window of {window} rows > {K2_MAX_T}")
     bias = prefix_bias.to(torch.float32).expand(B, S).contiguous()
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     out = torch.empty_like(q)
@@ -139,16 +170,18 @@ def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
             if nsplit > 1 else None)
     _cuda.library().tree_attention(
         q, k_new, v_new, k_cache, v_cache, k_scale if quant else None,
-        v_scale if quant else None, length, mask, bias, out, part, nsplit,
-        float(scale))
+        v_scale if quant else None, length, mask, wmask, bias, out, part,
+        nsplit, float(scale))
     _cuda.LAUNCHES["tree_attention"] += 1
     return out
 
 
 def tree_attention(q, k_new, v_new, k_cache, v_cache, length, block_mask,
-                   prefix_bias, scale, k_scale=None, v_scale=None):
+                   prefix_bias, scale, k_scale=None, v_scale=None,
+                   window_mask=None):
     """Dispatch by device: K2 on CUDA tensors, the plain version on CPU."""
     fn = (tree_attention_cuda if _cuda.on_cuda(q, k_cache, length)
           else tree_attention_plain)
     return fn(q, k_new, v_new, k_cache, v_cache, length, block_mask,
-              prefix_bias, scale, k_scale=k_scale, v_scale=v_scale)
+              prefix_bias, scale, k_scale=k_scale, v_scale=v_scale,
+              window_mask=window_mask)

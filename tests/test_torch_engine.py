@@ -12,7 +12,8 @@ Lumina tree.  Both packages run the same weights (bridged with
 
 These are the cross-package forms of ``tests/test_deferred_commit.py`` and
 ``tests/test_stale_draft.py``: the JAX engine runs in the same static mode
-with stale drafting and deferred commit.  Unpinned sampling draws from a
+with stale drafting and deferred commit (the EAGLE drafter and the
+rollback commit are held in ``tests/test_torch_drafter_engine.py``).  Unpinned sampling draws from a
 ``torch.Generator`` and is checked by the grammar and by distribution.
 """
 
@@ -219,13 +220,16 @@ def test_spec_first_token_distribution(models):
     np.testing.assert_allclose(freq, probs, atol=0.06)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mode="dynamic"), "item 13"),
-                                     (dict(stale_draft=False), "item 10"),
-                                     (dict(deferred_commit=False), "item 12")])
-def test_spec_unported_modes_raise(models, kw, item):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(mode="dynamic"), NotImplementedError, "item 13"),
+    (dict(mode="dynamic", stale_draft=False, deferred_commit=False),
+     NotImplementedError, "item 13"),
+    # the real drafter needs its weights
+    (dict(stale_draft=False), ValueError, "dparams")])
+def test_spec_unported_modes_raise(models, kw, exc, match):
     base = dict(stale_draft=True, deferred_commit=True, max_new=MAX_NEW)
     base.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         tspec.generate(models["params"]["fused"][1],
                        tspec.SpecDecodeConfig(**base), models["cfg"][1],
                        ttr.get_tree(TREE), models["tp"][1], None,
