@@ -5,6 +5,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # 16x16 image grid (273 tokens)
     python3 chip_smoke.py --grid 48  # the bench lane's 48x48 grid (2353 tokens)
+    python3 chip_smoke.py --kernels-only   # phases 1-4: a changed kernel's
+                                           # short first run, no result line
+    python3 chip_smoke.py --sweep-splits   # K1 and K2 timed over split
+                                           # counts, no result line
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -13,21 +17,25 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.utils.cpp_extension.load``;
 3. kernels: each kernel (K1 W8A16 matmul, K2 tree attention, K3 KV write,
    K4 tree-rollback gather) against its plain PyTorch version at the
-   Lumina lane's shapes (K2 also at this run's KV capacity and, for the
+   Lumina lane's shapes, with known-wrong variants that the comparison
+   must catch, median times (CUDA events, L2 flushed before every launch),
+   the bound from bytes and operations, and the PyTorch library yardstick.
+   K1 at all six weight shapes and every width of its instruction, with
+   the rows of 1-, 10- and 22-row launches equal to those of the 64-row
+   launch bit for bit; K2 at the decode shapes, at this run's KV
+   capacity, at blocks of 96 to 512 rows (a prompt's prefill) and, for the
    drafter, with a bf16 one-layer cache and the provisional window of each
-   tree level; K2 and K4 with known-wrong variants that the comparison
-   must catch), with median times (CUDA events, L2 flushed before every
-   launch), the bound from bytes and operations, and the PyTorch library
-   yardstick;
+   tree level;
 4. forward: a tiny head_dim-128 Chameleon forward, and a tiny drafter
    (``extend``, then two tree levels with write offset and window),
    through the kernels on the card against the plain path on the CPU;
 5. main paths: Lumina-mGPT-7B geometry (32 layers, full width), random
    int8 weights from a seed, int8 KV cache, 48x48-grid FSM vocabulary, 16
    text tokens and the calibrated tree ``ckpts/bench_tree_lumina.json``,
-   LANTERN k=10 delta=5, top-2000, cfg 3.0.  Three paths, each with the
-   launch counters reset just before and read just after, and a profile of
-   a few steps (device time by kernel, device-busy share):
+   LANTERN k=10 delta=5, top-2000, cfg 3.0.  Four paths, each with the
+   launch counters reset just before and read just after, and (for the
+   first three) a profile of a few steps (device time by kernel,
+   device-busy share):
    - the AR twin;
    - the speculative engine with stale drafting and deferred commit (K1,
      K2, K3);
@@ -35,6 +43,10 @@ Phases (any failure exits non-zero and prints no result line):
      int8) proposing the tree, provisional tree write and rollback (K1,
      K2, K3, K4); its launch counts must equal the counts derived from
      the tree's levels, K4 exactly once per verify step;
+   - the long-prompt path: 200 text tokens (203 prompt rows: one K2 launch
+     a layer at T = 203) prefilled through ``forward``, then 8 AR tokens;
+     the tokens must be legal under the FSM and the launch counts equal
+     the derived ones (32 K2 launches for the prefill);
 6. rollback check: with pinned choices (``pin=0.5``) and stale drafting,
    ``deferred_commit`` False and True must commit the same tokens in the
    same steps (both modes commit the same bytes; K4 only moves them).
@@ -63,6 +75,7 @@ K1_SHAPES = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w_gu": (4096, 22016),
              "w_down": (11008, 4096), "lm_head": (4096, 65536),
              "fc_w": (8192, 4096)}          # the drafter's input fusion
 TEXT = list(range(60000, 60016))          # 16 text tokens, as bench.py
+LONG_TEXT = list(range(60000, 60200))     # 200 text tokens: a long prompt
 
 
 def log(msg: str) -> None:
@@ -97,7 +110,11 @@ class Timer:
             fn()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            # the last fill leaves the L2 cold; the ones before it keep the
+            # card busy while the host launches fn, so that a slow host does
+            # not show up between the two events
+            for _ in range(3):
+                self.flush.zero_()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -165,20 +182,36 @@ class KernelPhase:
                    for x, y in zip(a, b))
 
     def k1(self) -> dict:
-        from lantern_tpu_torch.ops.quant import int8_matmul, int8_matmul_cuda
+        from lantern_tpu_torch.ops.quant import (K1_MAX_ROWS, K1_STAGE_ROWS,
+                                                 int8_matmul,
+                                                 int8_matmul_cuda,
+                                                 k1_split_stages, k1_splits)
+        from lantern_tpu_torch.ops._cuda import sm_count
 
         torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
         gen, randn = self.gen, self.randn
         # rows: AR 2, prefill 38, tree verify 64; the drafter's levels and
-        # its extension run 2 x the level's / the path's rows
+        # its extension run 2 x the level's / the path's rows; the long
+        # prompt's prefill ends on a launch of 22 rows.  Together they take
+        # every width of the kernel's instruction (8, 16, 32, 64 rows)
         k1_rows = sorted({2, 38, 64, 2 * max(self.level_rows),
-                          2 * self.tree.path_len})
+                          2 * self.tree.path_len,
+                          2 * (len(LONG_TEXT) + 3) % K1_MAX_ROWS})
+        if {min(w for w in (8, 16, 32, 64) if M <= w)
+                for M in k1_rows} != {8, 16, 32, 64}:
+            fail(f"K1: the row counts {k1_rows} miss a width of the kernel")
         k1_err, k1_rep = 0.0, None
         for name, (K, N) in K1_SHAPES.items():
             q = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
                               dtype=torch.int8)
             s = (torch.rand((1, N), generator=gen, device=dev) + 0.5) * 2e-4
             out_dt = torch.float32 if name == "lm_head" else torch.bfloat16
+            nsplit = k1_splits(K, N, sm_count(torch.device(dev, 0)))
+            # known-wrong variant: one k split's rows dropped (with one
+            # split, one stage's)
+            a, b = k1_split_stages(K, nsplit)[nsplit // 2]
+            if nsplit == 1:
+                b = a + 1
             for M in k1_rows:
                 x = randn(M, K)
                 got = int8_matmul_cuda(x, q, s, out_dt)
@@ -190,20 +223,42 @@ class KernelPhase:
                 if not (err <= tol and torch.isfinite(got.float()).all()):
                     fail(f"K1 {name} M={M}: max err {err} > tol {tol}")
                 k1_err = max(k1_err, err)
+                x2 = x.clone()
+                x2[:, a * K1_STAGE_ROWS:b * K1_STAGE_ROWS] = 0
+                werr = (int8_matmul(x2, q, s, out_dt).float()
+                        - ref.float()).abs().max().item()
+                if werr <= tol:
+                    fail(f"K1 {name} M={M}: tol {tol} does not separate a wrong "
+                         f"variant (k rows of stages [{a}, {b}) dropped: err "
+                         f"{werr})")
                 ms = timer(lambda: int8_matmul_cuda(x, q, s, out_dt))
                 plain = timer(lambda: int8_matmul(x, q, s, out_dt), reps=5)
                 lib = timer(lambda: (x @ q.to(torch.bfloat16)) * s, reps=5)
                 nbytes = M * K * 2 + K * N + N * 4 + M * N * (4 if out_dt == torch.float32 else 2)
                 b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
-                log(f"K1 int8_matmul {name} M={M} K={K} N={N}: max_abs_err {err:.3e} "
-                    f"(tol {tol:.3e}) ms {ms:.4f} plain_ms {plain:.4f} "
+                log(f"K1 int8_matmul {name} M={M} K={K} N={N} splits={nsplit}: "
+                    f"max_abs_err {err:.3e} (tol {tol:.3e}; a dropped k split "
+                    f"errs {werr:.3e}) ms {ms:.4f} plain_ms {plain:.4f} "
                     f"library_ms {lib:.4f} bound_ms {b_ms:.4f} ({b_by}) [{card}]")
                 if name == "w_gu" and M == 64:
                     k1_rep = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                   bound_ms=b_ms, bound_by=b_by,
                                   shape=f"M={M} K={K} N={N} (w_gu, tree verify)")
+            # a row's result depends on neither M nor the other rows: every
+            # row of a launch of 1, 10 and 22 rows (the instruction's 8-, 16-
+            # and 32-row widths) equals its row of the 64-row launch
+            x = randn(64, K)
+            full = int8_matmul_cuda(x, q, s, torch.float32)
+            for M in (1, 10, 22):
+                few = int8_matmul_cuda(x[:M], q, s, torch.float32)
+                torch.cuda.synchronize()
+                if not torch.equal(few, full[:M]):
+                    fail(f"K1 {name}: the rows of an M={M} launch differ from "
+                         f"those of the M=64 launch (max diff "
+                         f"{(few - full[:M]).abs().max().item():.3e})")
+            log(f"K1 int8_matmul {name} K={K} N={N}: row 0 at M=64 equals the "
+                f"M=1 launch bit for bit, and so do all rows of M=10 and M=22")
         return dict(k1_rep, max_abs_err=k1_err)
-
 
     def k2(self, grid: int) -> dict:
         import torch.nn.functional as F
@@ -216,8 +271,7 @@ class KernelPhase:
         tree, level_rows, randn = self.tree, self.level_rows, self.randn
         B, G, W = self.B, self.G, self.W
         tmask = torch.as_tensor(tree.attn_mask, device=dev)
-        B, G, W = 2, 32, 128
-        # the bench lane's capacity (5 prefix splits and the merge kernel), then
+        # the bench lane's capacity (4 prefix splits merged in the launch), then
         # this run's grid capacity, so each run checks the split count its own
         # main path uses
         cases = [(2560, 1, 2371), (2560, 19, 0), (2560, 32, 1237)]
@@ -226,6 +280,10 @@ class KernelPhase:
         if S_run != 2560:
             cases += [(S_run, 1, prompt + max_new - 2),
                       (S_run, 32, (prompt + max_new // 2) | 1)]
+        # long blocks: a prompt's prefill (causal mask, rows tiled over the
+        # grid), alone and after a prefix; T = 203 is the long-prompt path's
+        cases += [(2560, 96, 0), (2560, 200, 0), (2560, 512, 0),
+                  (2560, 96, 300), (S_run, len(LONG_TEXT) + 3, 0)]
         k2_err, k2_rep = 0.0, None
         for S, T, length in cases:
             q, kn, vn = randn(B, T, G, W), randn(B, T, G, W), randn(B, T, G, W)
@@ -264,8 +322,19 @@ class KernelPhase:
                 wrong["a 32-key prefix tile dropped"] = dict(bias=b2)
             if T > 1:
                 m2 = mask.clone()
-                m2[:, T - 1, 0] = ~m2[:, T - 1, 0]
+                row = T - 1 if T <= 32 else 1      # a row with few keys
+                m2[:, row, 0] = ~m2[:, row, 0]
                 wrong["a mask entry flipped"] = dict(mask=m2)
+            # one warp's keys dropped: keys 16..31 of every 64-key tile
+            warp1 = (torch.arange(max(S, T), device=dev) % 64) // 16 == 1
+            if length >= 32:
+                b2 = bias.clone()
+                b2[:, :length] = torch.where(warp1[:length], NEG_INF,
+                                             bias[:, :length])
+                wrong["one warp's prefix keys dropped"] = dict(bias=b2)
+            if T >= 32:
+                wrong["one warp's block keys dropped"] = dict(
+                    mask=mask & ~warp1[None, None, :T])
             werr = {}
             for why, over in wrong.items():
                 bad = tree_attention_plain(
@@ -305,6 +374,27 @@ class KernelPhase:
                 k2_rep = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                               bound_by=b_by,
                               shape=f"B=2 T={T} G=32 length={length} int8 KV")
+        # the kernel's own quantization of the block's rows: with nothing but
+        # itself visible to a row, its output is bf16(v_scale) * v_int8, one
+        # term with no sum to reorder, so kernel and plain version must
+        # agree bit for bit
+        for T in (32, 200):
+            q, kn, vn = randn(B, T, G, W), randn(B, T, G, W), randn(B, T, G, W)
+            kc, ks = quantize_rows(randn(B, G, 384, W))
+            eye = torch.eye(T, dtype=torch.bool, device=dev)[None].expand(
+                B, T, T).contiguous()
+            args = (q, kn, vn, kc, kc, torch.zeros((), dtype=torch.int32,
+                                                  device=dev), eye,
+                    torch.zeros((B, 384), device=dev), W ** -0.5)
+            got = tree_attention_cuda(*args, k_scale=ks, v_scale=ks)
+            ref = tree_attention_plain(*args, k_scale=ks, v_scale=ks)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                fail(f"K2 T={T}: the block's rows are not quantized as "
+                     f"kv.quantize_rows stores them (max diff "
+                     f"{(got.float() - ref.float()).abs().max().item():.3e})")
+            log(f"K2 tree_attention T={T} length=0, identity mask: equals the "
+                f"plain version bit for bit (in-kernel row quantization)")
         # K2, the drafter's form: a bf16 one-layer cache, and per tree level its
         # rows, its block mask and the provisional window of the earlier
         # levels' rows (cache rows [length, length + block_offset))
@@ -535,6 +625,62 @@ def phase_kernels(torch, timer, card: str, grid: int):
     return records
 
 
+def phase_sweep_splits(torch, timer, card: str) -> None:
+    """Times K2 and K1 at split counts other than the ones ``k2_splits`` and
+    ``k1_splits`` choose (marked ``*``), at the decode lane's shapes, to hold
+    those rules against a card."""
+    from lantern_tpu_torch.kv import quantize_rows
+    from lantern_tpu_torch.ops import _cuda, quant, tree_attention as tta
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sms = _cuda.sm_count(torch.device("cuda", 0))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    def line(what, chosen, counts, run):
+        times = [f"{n}{'*' if n == chosen else ''}: {timer(lambda: run(n)):.4f}"
+                 for n in counts]
+        log(f"{what}, ms by splits (* = the rule's): " + "; ".join(times)
+            + f" [{card}]")
+
+    B, G, W = KernelPhase.B, KernelPhase.G, KernelPhase.W
+    for S, T, length, quantized in [(2560, 1, 2371, True), (2560, 32, 1237, True),
+                                    (2560, 5, 1237, False), (384, 1, 290, True),
+                                    (384, 32, 155, True)]:
+        q, kn, vn = randn(B, T, G, W), randn(B, T, G, W), randn(B, T, G, W)
+        kc, vc = randn(B, G, S, W), randn(B, G, S, W)
+        kw = {}
+        if quantized:
+            (kc, ks), (vc, vs) = quantize_rows(kc), quantize_rows(vc)
+            kw = dict(k_scale=ks, v_scale=vs)
+        mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device="cuda"))
+        args = (q, kn, vn, kc, vc,
+                torch.tensor(length, dtype=torch.int32, device="cuda"),
+                mask[None].expand(B, T, T).contiguous(),
+                torch.zeros((B, S), device="cuda"), W ** -0.5)
+        line(f"K2 S={S} T={T} length={length} "
+             f"{'int8' if quantized else 'bf16'} KV",
+             tta.k2_splits(B, G, S, T, sms),
+             [n for n in (1, 2, 3, 4, 5, 6, 7, 8, 12)
+              if n <= S // tta.K2_TILE_KEYS],
+             lambda n: tta.tree_attention_launch(*args, n, **kw))
+    for name, (K, N) in K1_SHAPES.items():
+        q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+        chosen = quant.k1_splits(K, N, sms)
+        # the split count that fills the card when the k range does not cap it
+        full = -(-quant.K1_BLOCKS_PER_SM * sms // -(-N // quant.K1_TILE_COLS))
+        counts = sorted({1, max(1, chosen // 2), chosen, full, 2 * full})
+        for M in (2, 64):
+            x = randn(M, K)
+            line(f"K1 {name} K={K} N={N} M={M}", chosen,
+                 [n for n in counts if n <= K // quant.K1_STAGE_ROWS],
+                 lambda n: quant.int8_matmul_launch(x, q, s, n))
+    _cuda.reset_launches()
+
+
 def phase_forward(torch):
     """Tiny head_dim-128 Chameleon forward: kernels on the card vs the
     plain path on the CPU, bf16, int8 KV, a tree block after a prefix."""
@@ -671,7 +817,7 @@ def phase_main_path(torch, grid: int, card: str):
     from lantern_tpu_torch.models import transformer as tfm
     from lantern_tpu_torch.ops import _cuda
     from lantern_tpu_torch.ops.acceptance import LanternSpec
-    from lantern_tpu_torch.ops.quant import quantize_params
+    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS, quantize_params
     from lantern_tpu_torch.ops.sampling import LogitsWarp
     from lantern_tpu_torch.ops.vq_distance import nearest_latents
 
@@ -807,6 +953,43 @@ def phase_main_path(torch, grid: int, card: str):
     log(f"main path launches: spec {spec_launch}; ar {ar_launch}")
     log(f"rollback path launches: {roll_launch} = the derived counts; per "
         f"verify step {per_step}")
+    # the long-prompt path: 200 text tokens (203 prompt rows, one K2 launch
+    # a layer at T = 203, K1 in launches of 64 rows), then 8 AR tokens
+    long_tp = cham.lumina_token_prompt(LONG_TEXT, grid=(grid, grid))
+    long_fsm = fsm._replace(image_start_idx=len(LONG_TEXT))
+    rows = long_tp.tokens.shape[1]
+    n_long = 8
+
+    def run_long(n):
+        g = torch.Generator(device="cuda").manual_seed(8)
+        return ar.generate_tokens(params, cfg, long_tp, n, 3.0, warp, g,
+                                  logits_fn=long_fsm, kv_quant=True)
+
+    _, _, pre_launch = timed(lambda: run_long(0))
+    lres, t_long, long_launch = timed(lambda: run_long(n_long))
+    k1_pre = 4 * cfg.num_layers * -(-2 * rows // K1_MAX_ROWS) + 1
+    want_pre = {"int8_matmul": k1_pre, "tree_attention": cfg.num_layers,
+                "kv_write": 1, "kv_gather": 0}
+    if pre_launch != want_pre:
+        fail(f"long-prompt prefill ({rows} rows) launched {pre_launch}, want "
+             f"{want_pre}")
+    want_long = {"int8_matmul": k1_pre + n_long * (4 * cfg.num_layers + 1),
+                 "tree_attention": (1 + n_long) * cfg.num_layers,
+                 "kv_write": 1 + n_long, "kv_gather": 0}
+    if long_launch != want_long:
+        fail(f"long-prompt path launched {long_launch}, want {want_long}")
+    toks = [int(t) for t in lres.tokens.tolist()]
+    for i, t in enumerate(toks):
+        if i % (grid + 1) == grid:
+            ok = t == cham.LUMINA_NEWLINE_ID
+        else:
+            ok = cham.IMAGE_TOKEN_START <= t <= cham.IMAGE_TOKEN_END
+        if not ok:
+            fail(f"long-prompt stream breaks the grid FSM at position {i}: {t}")
+    log(f"long-prompt path [{card}]: {rows} prompt rows through forward on "
+        f"the card, then {n_long} AR tokens in {t_long:.2f} s, legal under "
+        f"the FSM; prefill launches {pre_launch}; whole path {long_launch}")
+
     profile("spec (stale + deferred), 6 verify steps",
             lambda: run_spec(stale, 9, max_steps=6), card)
     profile("rollback spec (drafter + rollback), 6 verify steps",
@@ -840,7 +1023,7 @@ def phase_main_path(torch, grid: int, card: str):
     log(f"rollback check [{card}]: pinned drafter run vs pinned stale run: "
         f"{lead} leading tokens of {n} match (informational)")
     return {"rollback": roll_launch, "stale_deferred": spec_launch,
-            "ar": ar_launch}
+            "ar": ar_launch, "long_prompt": long_launch}
 
 
 def profile(what: str, fn, card: str) -> None:
@@ -889,6 +1072,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--grid", type=int, default=16,
                     help="image latent grid (48 = the bench lane)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the build, kernel and forward phases: "
+                         "the short first run of a changed kernel (prints "
+                         "no result line)")
+    ap.add_argument("--sweep-splits", action="store_true",
+                    help="after the build, time K1 and K2 over split counts "
+                         "and stop (prints no result line)")
     args = ap.parse_args()
 
     import torch
@@ -916,8 +1106,14 @@ def main() -> int:
         f"in {time.perf_counter() - t:.1f} s")
 
     timer = Timer(torch)
+    if args.sweep_splits:
+        phase_sweep_splits(torch, timer, f"{card}, {smi}")
+        return 0
     records = phase_kernels(torch, timer, f"{card}, {smi}", args.grid)
     phase_forward(torch)
+    if args.kernels_only:
+        log("kernels-only run: build, kernel and forward phases passed")
+        return 0
     launches = phase_main_path(torch, args.grid, f"{card}, {smi}")
 
     kernels = []

@@ -8,15 +8,16 @@
 
 extern "C" {
 int lantern_int8_matmul(const void* x, const void* q, const void* s, void* out,
-                        int M, int K, int N, int out_f32, void* stream);
+                        void* part, void* tickets, int M, int K, int N,
+                        int nsplit, int out_f32, void* stream);
 int lantern_tree_attention(const void* q, const void* k_new, const void* v_new,
                            const void* k_cache, const void* v_cache,
                            const void* k_scale, const void* v_scale,
                            const void* length, const void* mask,
                            const void* wmask, const void* bias, void* out,
-                           void* part, int B, int T, int G, int S, int window,
-                           int nsplit, int quantized, float scale,
-                           void* stream);
+                           void* part, void* tickets, int B, int T, int G,
+                           int S, int window, int rows, int nsplit,
+                           int quantized, float scale, void* stream);
 int lantern_kv_write(const void* k_new, const void* v_new, void* k_buf,
                      void* v_buf, void* k_scale, void* v_scale,
                      const void* start, int L, int B, int T, int G, int S,
@@ -43,18 +44,24 @@ void* ptr(const c10::optional<at::Tensor>& t) {
   return t.has_value() ? t->data_ptr() : nullptr;
 }
 
-// out[M, N] = (x[M, K] @ q[K, N]) * s[N]
+// out[M, N] = (x[M, K] @ q[K, N]) * s[N]; when nsplit > 1 part holds the k
+// splits' f32 partials [nsplit, M, N] and tickets (int32, zero between
+// launches) one counter per 128-column tile
 void int8_matmul(const at::Tensor& x, const at::Tensor& q, const at::Tensor& s,
-                 at::Tensor& out) {
+                 at::Tensor& out, const c10::optional<at::Tensor>& part,
+                 const c10::optional<at::Tensor>& tickets, int64_t nsplit) {
   check(lantern_int8_matmul(x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                            out.data_ptr(), x.size(0), x.size(1), q.size(1),
+                            out.data_ptr(), ptr(part), ptr(tickets), x.size(0),
+                            x.size(1), q.size(1), nsplit,
                             out.scalar_type() == at::kFloat, stream_of(x)),
         "int8_matmul");
 }
 
-// q/k_new/v_new/out [B, T, G, 128]; caches [B, G, S, 128]; part holds the
-// per-split partials when nsplit > 1; wmask [B, T, window] (or none) is the
-// visibility of cache rows [length, length + window)
+// q/k_new/v_new/out [B, T, G, 128]; caches [B, G, S, 128]; when nsplit > 1
+// part holds the per-split partials and tickets (int32, zero between
+// launches) one counter per (b, g, row tile of `rows` query rows); wmask
+// [B, T, window] (or none) is the visibility of cache rows [length, length
+// + window)
 void tree_attention(const at::Tensor& q, const at::Tensor& k_new,
                     const at::Tensor& v_new, const at::Tensor& k_cache,
                     const at::Tensor& v_cache,
@@ -63,15 +70,17 @@ void tree_attention(const at::Tensor& q, const at::Tensor& k_new,
                     const at::Tensor& length, const at::Tensor& mask,
                     const c10::optional<at::Tensor>& wmask,
                     const at::Tensor& bias, at::Tensor& out,
-                    const c10::optional<at::Tensor>& part, int64_t nsplit,
-                    double scale) {
+                    const c10::optional<at::Tensor>& part,
+                    const c10::optional<at::Tensor>& tickets, int64_t rows,
+                    int64_t nsplit, double scale) {
   check(lantern_tree_attention(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale),
             ptr(v_scale), length.data_ptr(), mask.data_ptr(), ptr(wmask),
-            bias.data_ptr(), out.data_ptr(), ptr(part), q.size(0), q.size(1),
+            bias.data_ptr(), out.data_ptr(), ptr(part), ptr(tickets),
+            q.size(0), q.size(1),
             k_cache.size(1), k_cache.size(2),
-            wmask.has_value() ? wmask->size(2) : 0, nsplit,
+            wmask.has_value() ? wmask->size(2) : 0, rows, nsplit,
             k_scale.has_value(),
             static_cast<float>(scale), stream_of(q)),
         "tree_attention");

@@ -5,167 +5,360 @@
 // accumulation, the scale applied once at the end.
 //
 // Bound: decode forwards have M <= 64 rows (2 for AR, 2 x tree rows for
-// verification), so the product streams K*N weight bytes for at most 128
-// operations per byte: at M = 2 it is bound by HBM bytes, at M = 64 the
-// work per byte nears what CUDA cores can do, hence the tensor cores.
+// verification), at most 128 operations for every weight byte against the
+// ~295 the card needs before its tensor cores are the limit: every shape is
+// bound by the K * N weight bytes, and the design is about moving them.
 //
-// Design (simple first): each thread block owns BN = 32 output columns for
-// all M rows.  It walks K in stages of KC = 128 rows: the x stage (M rows,
-// zero-padded to 16-row tiles) and the int8 weight stage are read with
-// 16-byte coalesced loads into registers one stage ahead, and the weights
-// are converted to bf16 (exact for int8) on their way into shared memory.
-// Four warps split each stage's k16 chunks and run bf16 wmma 16x16x16
-// products into f32 fragments; the warps' partial sums are added in a
-// fixed order at the end.  A row's
-// result therefore depends on neither M nor the other rows, so a token
-// computed inside a 64-row tree forward equals its AR computation.
-#include <mma.h>
-
+// Design.
+// - A thread block (one warpgroup of 4 warps) owns BN = 128 output columns,
+//   so every weight row it reads is a full 128-byte line, and one split of
+//   the k range.
+// - The weights go raw, as int8, through a ring of 4 shared-memory stages
+//   of KC = 64 k rows (8 KB each) filled by 16-byte cp.async copies three
+//   stages ahead, together with the stage's slice of the x rows (bf16, 128
+//   bytes a row in the 128-byte swizzle, zero rows up to the instruction's
+//   width).  Nothing is written back to shared memory as bf16.
+// - The product is wgmma.m64nNk16 (bf16, f32 accumulation) with the 64-row
+//   side on the weight's columns and the activation rows on its N side
+//   (8, 16, 32 or 64 wide): out^T = q^T x^T.  The A operand, q^T, comes
+//   from registers: each thread reads four 4-byte words (4 adjacent columns
+//   of k rows 2c, 2c+1, 2c+8, 2c+9), turns them into bf16 by byte permutes
+//   (exact) and so holds the A fragments of two instructions; the B operand,
+//   x^T, is read by the tensor cores straight from the swizzled stage.  The
+//   64 rows of an instruction are free to permute, so a thread ends up
+//   owning 4 adjacent output columns of every activation row it holds.  The
+//   conversion of the next k step overlaps the running instruction (two
+//   fragment buffers, wgmma.wait_group 1).
+// - Split-K for the thin shapes: the wrapper (ops/quant.k1_splits, from K
+//   and N alone) divides the stages of the k range over gridDim.y blocks so
+//   that a launch has two blocks an SM, as far as every split still streams
+//   1024 k rows (under that its partials cost more than it saves: at
+//   K = N = 4096, M = 64 nine splits took 0.040 ms, four 0.029 ms; NVIDIA
+//   H100 80GB HBM3, 700.00 W).  Each split writes
+//   its f32 partials and takes a ticket of its column tile; the last to
+//   arrive adds the partials in split order, scales and stores, then resets
+//   the ticket.  No float atomics.
+// - A row's result depends on neither M nor the other rows, bit for bit:
+//   the k stages, the split count and the order of every sum are functions
+//   of K and N; M only sets the instruction's width.  So a token computed
+//   inside a 64-row tree forward equals its AR computation.
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BN = 32;        // output columns per block
-constexpr int KC = 128;       // contraction rows per shared-memory stage
+constexpr int BN = 128;       // output columns per block
+constexpr int KC = 64;        // contraction rows per stage
+constexpr int STAGES = 4;
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int XLD = KC + 8;   // padded leading dims (elements, multiples of 8)
-constexpr int WLD = BN + 8;
+constexpr int WROW = BN + 16;        // padded weight row (bytes)
+constexpr int XROW = KC * 2;         // x row: 128 bytes, swizzled
 constexpr int MAX_ROWS = 64;
-constexpr int SMEM_BYTES = WARPS * MAX_ROWS * BN * 4;   // >= xs + ws stages
-static_assert(MAX_ROWS * XLD * 2 + KC * WLD * 2 <= SMEM_BYTES,
-              "stages must fit under the reduction buffer");
+static_assert(KC * WROW % 1024 == 0, "x stages must stay 1024-byte aligned");
 
-template <int MT>   // 16-row tiles: ceil(M / 16)
+template <int NP>   // activation rows of the instruction: 8, 16, 32 or 64
+struct Stage {
+  static constexpr int BYTES = KC * WROW + (NP < 8 ? 8 : NP) * XROW;
+  static_assert(BYTES % 1024 == 0, "stages must stay 1024-byte aligned");
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = live ? 16 : 0;     // 0 source bytes: the 16 are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+}
+
+// out^T[64, N] += A[64, 16] (registers) * B[16, N] (shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps registers an asynchronous instruction still reads (or writes) from
+// being reused or read before its wait
+__device__ __forceinline__ void keep(uint32_t (&r)[4]) {
+  asm volatile("" : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3])::"memory");
+}
+template <int ND>
+__device__ __forceinline__ void keep(float (&d)[ND]) {
+#pragma unroll
+  for (int i = 0; i < ND; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// B operand: 16 k of NP rows, K-major, 128-byte swizzle; groups of 8 rows
+// are 1024 bytes apart
+__device__ __forceinline__ uint64_t b_desc(const void* p) {
+  const uint64_t addr = (uint64_t)__cvta_generic_to_shared(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// byte I of a word of int8 values that were xor-ed with 0x80 -> its f32
+// value: 0x4B0000uu is 2^23 + u, and u = value + 128
+template <int I>
+__device__ __forceinline__ float int8_f32(uint32_t w) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | I)) - 8388736.f;
+}
+
+// two f32 holding small integers -> packed bf16 (lo in the low half)
+__device__ __forceinline__ uint32_t pack_hi(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// the A fragments of the two instructions of a k step from four weight words
+// (k rows 2c, 2c+1, 2c+8, 2c+9; 4 adjacent columns each): instruction P takes
+// column 2P as the fragment's row g and column 2P + 1 as its row g + 8
+template <int P>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const uint32_t (&w)[4]) {
+  a[0] = pack_hi(int8_f32<2 * P>(w[0]), int8_f32<2 * P>(w[1]));
+  a[1] = pack_hi(int8_f32<2 * P + 1>(w[0]), int8_f32<2 * P + 1>(w[1]));
+  a[2] = pack_hi(int8_f32<2 * P>(w[2]), int8_f32<2 * P>(w[3]));
+  a[3] = pack_hi(int8_f32<2 * P + 1>(w[2]), int8_f32<2 * P + 1>(w[3]));
+}
+
+template <int NP>
 __global__ void __launch_bounds__(THREADS)
 int8_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                    const int8_t* __restrict__ q, const float* __restrict__ s,
-                   void* __restrict__ out, int M, int K, int N, int out_f32) {
-  constexpr int MP = MT * 16;
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + MP * XLD * 2);
-  float* red = reinterpret_cast<float*>(smem);
+                   void* __restrict__ out, float* __restrict__ part,
+                   int* __restrict__ tickets, int M, int K, int N,
+                   int out_f32) {
+  constexpr int SB = Stage<NP>::BYTES;
+  constexpr int ND = NP / 2;       // accumulators a thread, an instruction
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle is a function of the address: stages start at 1024 bytes
+  unsigned char* smem = smem_raw +
+      ((1024 - ((unsigned)__cvta_generic_to_shared(smem_raw) & 1023)) & 1023);
 
   const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int z = blockIdx.y, nsplit = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gi = lane >> 2, c = lane & 3;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT][BN / 16];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < BN / 16; ++nt) wmma::fill_fragment(acc[mt][nt], 0.f);
+  // this split's stages of the k range (a function of K and the grid)
+  const int nst = (K + KC - 1) / KC;
+  const int st0 = (int)((long long)z * nst / nsplit);
+  const int st1 = (int)((long long)(z + 1) * nst / nsplit);
+  const int ntot = st1 - st0;
 
-  // stage loads go through registers so that the next stage's global
-  // loads are in flight while the tensor cores work on the current one
-  constexpr int XCH = MP * (KC / 8) / THREADS;   // 16-byte x chunks / thread
-  constexpr int WCH = KC * (BN / 16) / THREADS;  // 16-byte weight chunks
-  uint4 xr[XCH];
-  int4 wr[WCH];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < XCH; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (KC / 8), kk = (c % (KC / 8)) * 8;
-      xr[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (r < M && k0 + kk < K)
-        xr[i] = *reinterpret_cast<const uint4*>(x + (size_t)r * K + k0 + kk);
-    }
-#pragma unroll
-    for (int i = 0; i < WCH; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (BN / 16), nn = (c % (BN / 16)) * 16;
-      wr[i] = make_int4(0, 0, 0, 0);
-      if (k0 + r < K && n0 + nn < N)
-        wr[i] = *reinterpret_cast<const int4*>(q + (size_t)(k0 + r) * N + n0 + nn);
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int i = 0; i < XCH; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (KC / 8), kk = (c % (KC / 8)) * 8;
-      *reinterpret_cast<uint4*>(xs + r * XLD + kk) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < WCH; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / (BN / 16), nn = (c % (BN / 16)) * 16;
-      const int8_t* b8 = reinterpret_cast<const int8_t*>(&wr[i]);
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(ws + r * WLD + nn);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        dst[j] = __floats2bfloat162_rn((float)b8[2 * j], (float)b8[2 * j + 1]);
-    }
-  };
-
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    stash();          // x rows (pad rows 0) and bf16-converted weights
-    __syncthreads();
-    if (k0 + KC < K) fetch(k0 + KC);
-    for (int kc = warp; kc < KC / 16; kc += WARPS) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-          bf[BN / 16];
-#pragma unroll
-      for (int nt = 0; nt < BN / 16; ++nt)
-        wmma::load_matrix_sync(bf[nt], ws + kc * 16 * WLD + nt * 16, WLD);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af;
-        wmma::load_matrix_sync(af, xs + mt * 16 * XLD + kc * 16, XLD);
-#pragma unroll
-        for (int nt = 0; nt < BN / 16; ++nt)
-          wmma::mma_sync(acc[mt][nt], af, bf[nt], acc[mt][nt]);
+  auto fill = [&](int i) {
+    if (i < ntot) {
+      unsigned char* xs = smem + (size_t)(i % STAGES) * SB;
+      unsigned char* ws = xs + NP * XROW;
+      const int k0 = (st0 + i) * KC;
+      for (int ch = tid; ch < KC * (BN / 16); ch += THREADS) {
+        const int r = ch / (BN / 16), col = (ch % (BN / 16)) * 16;
+        const bool live = k0 + r < K && n0 + col < N;
+        const size_t off = live ? (size_t)(k0 + r) * N + n0 + col : 0;
+        cp_async16(ws + r * WROW + col, q + off, live);
+      }
+      for (int ch = tid; ch < NP * (KC / 8); ch += THREADS) {
+        const int r = ch / (KC / 8), kk = ch % (KC / 8);
+        const bool live = r < M && k0 + kk * 8 < K;
+        const size_t off = live ? (size_t)r * K + k0 + kk * 8 : 0;
+        cp_async16(xs + r * XROW + ((kk ^ (r & 7)) << 4), x + off, live);
       }
     }
-    __syncthreads();
-  }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
 
-  // per-warp partial sums -> shared memory (aliases the stages)
+  float acc[2][ND];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int p = 0; p < 2; ++p)
 #pragma unroll
-    for (int nt = 0; nt < BN / 16; ++nt)
-      wmma::store_matrix_sync(red + (warp * MP + mt * 16) * BN + nt * 16,
-                              acc[mt][nt], BN, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < M * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN, n = n0 + c;
-    if (n >= N) continue;
-    float v = red[r * BN + c];
+    for (int i = 0; i < ND; ++i) acc[p][i] = 0.f;
+  uint32_t abuf[2][2][4] = {};     // [k step parity][instruction][fragment]
+
+  // one loop fills and consumes: the first STAGES - 1 rounds only fill
+  for (int i = 1 - STAGES; i < ntot; ++i) {
+    if (i >= 0) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+      // the copies land through the generic proxy, the tensor cores read
+      // through the async one
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();             // stage i has landed; stage i-1 is consumed
+    }
+    fill(i + STAGES - 1);
+    if (i < 0) continue;
+    const unsigned char* xs = smem + (size_t)(i % STAGES) * SB;
+    const unsigned char* ws = xs + NP * XROW;
 #pragma unroll
-    for (int w = 1; w < WARPS; ++w) v += red[(w * MP + r) * BN + c];
-    v *= s[n];
-    if (out_f32)
-      reinterpret_cast<float*>(out)[(size_t)r * N + n] = v;
-    else
-      reinterpret_cast<__nv_bfloat16*>(out)[(size_t)r * N + n] =
-          __float2bfloat16(v);
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      // weight words: columns 32 warp + 4 gi .. + 3 of k rows
+      // 16 ks + {2c, 2c+1, 2c+8, 2c+9}
+      uint32_t w[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int k = 16 * ks + 2 * c + (r & 1) + 8 * (r >> 1);
+        w[r] = *reinterpret_cast<const uint32_t*>(ws + k * WROW + 32 * warp +
+                                                  4 * gi) ^ 0x80808080u;
+      }
+      a_frag<0>(abuf[ks & 1][0], w);
+      a_frag<1>(abuf[ks & 1][1], w);
+      wgmma_fence();
+      const uint64_t desc = b_desc(xs + 32 * ks);
+      wgmma_rs(acc[0], abuf[ks & 1][0], desc);
+      wgmma_rs(acc[1], abuf[ks & 1][1], desc);
+      wgmma_commit();
+      wgmma_wait<1>();             // the previous k step's pair is done
+      keep(abuf[(ks & 1) ^ 1][0]);
+      keep(abuf[(ks & 1) ^ 1][1]);
+    }
+    wgmma_wait<0>();               // the stage may be refilled after this
+    keep(abuf[1][0]);
+    keep(abuf[1][1]);
   }
+  keep(acc[0]);
+  keep(acc[1]);
+
+  // acc[p][4j + 2h + e] is activation row 8j + 2c + e, column
+  // n0 + 32 warp + 4 gi + 2p + h: 4 adjacent columns a thread and row
+  const bool single = nsplit == 1;
+  float* mine = part + (size_t)z * M * N;
+  const int n = n0 + 32 * warp + 4 * gi;
+  auto store = [&](int r, float4 v) {
+    const float4 sc = *reinterpret_cast<const float4*>(s + n);
+    v.x *= sc.x; v.y *= sc.y; v.z *= sc.z; v.w *= sc.w;
+    if (out_f32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + (size_t)r * N + n) = v;
+    } else {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 pk;
+      pk.x = *reinterpret_cast<uint32_t*>(&lo);
+      pk.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) +
+                                (size_t)r * N + n) = pk;
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * j + 2 * c + e;
+      if (r >= M || n >= N) continue;
+      const float4 v = make_float4(acc[0][4 * j + e], acc[0][4 * j + 2 + e],
+                                   acc[1][4 * j + e], acc[1][4 * j + 2 + e]);
+      if (single)
+        store(r, v);
+      else
+        *reinterpret_cast<float4*>(mine + (size_t)r * N + n) = v;
+    }
+  if (single) return;
+
+  // the last split of this column tile to arrive adds all partials in
+  // split order (the same order whatever M is and whoever arrives last)
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int got = atomicAdd(tickets + blockIdx.x, 1);
+    is_last = got == nsplit - 1;
+    if (is_last) tickets[blockIdx.x] = 0;    // ready for the next launch
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * j + 2 * c + e;
+      if (r >= M || n >= N) continue;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int zz = 0; zz < nsplit; ++zz) {
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(
+            part + ((size_t)zz * M + r) * N + n));
+        v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+      }
+      store(r, v);
+    }
+}
+
+template <int NP>
+int launch(const __nv_bfloat16* x, const int8_t* q, const float* s, void* out,
+           float* part, int* tickets, int M, int K, int N, int nsplit,
+           int out_f32, cudaStream_t st) {
+  constexpr int SMEM = STAGES * Stage<NP>::BYTES + 1024;   // alignment slack
+  const cudaError_t e = cudaFuncSetAttribute(
+      int8_matmul_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + BN - 1) / BN, nsplit);
+  int8_matmul_kernel<NP><<<grid, THREADS, SMEM, st>>>(x, q, s, out, part,
+                                                     tickets, M, K, N, out_f32);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 LANTERN_EXPORT int lantern_int8_matmul(const void* x, const void* q,
-                                       const void* s, void* out, int M, int K,
-                                       int N, int out_f32, void* stream) {
-  if (M < 1 || M > MAX_ROWS || K < 1 || N < 1 || K % 8 || N % 16)
+                                       const void* s, void* out, void* part,
+                                       void* tickets, int M, int K, int N,
+                                       int nsplit, int out_f32, void* stream) {
+  if (M < 1 || M > MAX_ROWS || K < 1 || N < 1 || K % 8 || N % 16 ||
+      nsplit < 1 || nsplit > 65535 ||
+      (nsplit > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* qb = static_cast<const int8_t*>(q);
   const auto* sb = static_cast<const float*>(s);
-  switch ((M + 15) / 16) {
-    case 1: int8_matmul_kernel<1><<<grid, THREADS, 0, st>>>(xb, qb, sb, out, M, K, N, out_f32); break;
-    case 2: int8_matmul_kernel<2><<<grid, THREADS, 0, st>>>(xb, qb, sb, out, M, K, N, out_f32); break;
-    case 3: int8_matmul_kernel<3><<<grid, THREADS, 0, st>>>(xb, qb, sb, out, M, K, N, out_f32); break;
-    default: int8_matmul_kernel<4><<<grid, THREADS, 0, st>>>(xb, qb, sb, out, M, K, N, out_f32); break;
-  }
-  return (int)cudaGetLastError();
+  auto* pb = static_cast<float*>(part);
+  auto* tb = static_cast<int*>(tickets);
+  if (M <= 8) return launch<8>(xb, qb, sb, out, pb, tb, M, K, N, nsplit, out_f32, st);
+  if (M <= 16) return launch<16>(xb, qb, sb, out, pb, tb, M, K, N, nsplit, out_f32, st);
+  if (M <= 32) return launch<32>(xb, qb, sb, out, pb, tb, M, K, N, nsplit, out_f32, st);
+  return launch<64>(xb, qb, sb, out, pb, tb, M, K, N, nsplit, out_f32, st);
 }

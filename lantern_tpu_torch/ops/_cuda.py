@@ -36,6 +36,8 @@ LAUNCHES = {"int8_matmul": 0, "tree_attention": 0, "kv_write": 0,
 
 _lock = threading.Lock()
 _state: dict = {}
+_sms: dict = {}
+_tickets: dict = {}
 
 
 def reset_launches() -> None:
@@ -59,6 +61,28 @@ def library(verbose: bool = False):
                        build_directory=str(BUILD_DIR), verbose=verbose)
             _state["ext"] = ext
         return ext
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def tickets(device, kernel: str, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters for ``kernel`` on ``device``,
+    zero between launches: a kernel whose thread blocks elect the last to
+    finish counts on them and resets them itself, so they are zeroed only
+    when (re)allocated.  Launches that share them must follow one another
+    on one stream, as the port's do."""
+    t = _tickets.get((device, kernel))
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
+        _tickets[(device, kernel)] = t
+    return t
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -21,9 +21,35 @@ from ..kv import _127
 LAYER_KERNELS = ("wqkv", "w_gu", "wq", "wk", "wv", "wo",
                  "w_gate", "w_up", "w_down")
 
-# rows per K1 launch: the kernel keeps all rows of its N-tile in shared
-# memory as 16-row mma tiles
+# rows per K1 launch: the widest its tensor-core instruction takes on the
+# activation side (wgmma n64)
 K1_MAX_ROWS = 64
+# K1's geometry on the card: output columns a thread block owns, k rows of
+# a shared-memory stage, the thread blocks a launch should give every SM,
+# and the fewest k rows worth a split of their own (its f32 partials, up to
+# 64 rows of them, then stay under a quarter of the weight bytes it streams)
+K1_TILE_COLS = 128
+K1_STAGE_ROWS = 64
+K1_BLOCKS_PER_SM = 2
+K1_SPLIT_MIN_ROWS = 1024
+
+
+def k1_splits(K: int, N: int, sms: int) -> int:
+    """Split-K count of a K1 launch on a card of ``sms`` SMs, from ``(K, N)``
+    alone (never from the row count: a row's sums must not depend on it):
+    the fewest splits that give the grid ``K1_BLOCKS_PER_SM`` blocks an SM,
+    at most one per ``K1_SPLIT_MIN_ROWS`` rows of the k range."""
+    tiles = -(-N // K1_TILE_COLS)
+    return max(1, min(K // K1_SPLIT_MIN_ROWS,
+                      -(-K1_BLOCKS_PER_SM * sms // tiles)))
+
+
+def k1_split_stages(K: int, nsplit: int) -> list:
+    """``(first, end)`` stage of every split, as the kernel computes them:
+    shares of the stages that differ by at most one."""
+    stages = -(-K // K1_STAGE_ROWS)
+    return [(z * stages // nsplit, (z + 1) * stages // nsplit)
+            for z in range(nsplit)]
 
 
 def quantize_weight(w: torch.Tensor, axis: int = -2):
@@ -50,7 +76,18 @@ def int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                      out_dtype=None) -> torch.Tensor:
     """K1 on the card: ``x [..., K]`` bf16, ``q [K, N]`` int8, ``s`` [1, N]
     f32 -> ``[..., N]`` bf16 (or f32).  Rows go in launches of at most
-    ``K1_MAX_ROWS``; a row's result does not depend on the row count."""
+    ``K1_MAX_ROWS``; a row's result does not depend on the row count.  Thin
+    shapes split the k range over ``k1_splits(K, N, sms)`` thread blocks,
+    whose f32 partials the last block to finish adds in split order."""
+    return int8_matmul_launch(
+        x, q, s, k1_splits(x.shape[-1], q.shape[-1], _cuda.sm_count(x.device)),
+        out_dtype)
+
+
+def int8_matmul_launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                       nsplit: int, out_dtype=None) -> torch.Tensor:
+    """``int8_matmul_cuda`` at a given split-K count, which
+    ``int8_matmul_cuda`` takes from ``k1_splits``."""
     out_dtype = out_dtype or x.dtype
     *lead, K = x.shape
     N = q.shape[-1]
@@ -63,6 +100,9 @@ def int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                   "int8_matmul: s must be f32 with N elements")
     _cuda.require(out_dtype in (torch.bfloat16, torch.float32),
                   f"int8_matmul: out dtype {out_dtype} unsupported")
+    _cuda.require(1 <= nsplit <= max(1, K // K1_STAGE_ROWS),
+                  f"int8_matmul: {nsplit} splits of K={K}: needs 1 to one "
+                  f"per {K1_STAGE_ROWS} k rows")
     _cuda.require(K % 8 == 0 and N % 16 == 0,
                   f"int8_matmul: needs K % 8 == 0 and N % 16 == 0, got "
                   f"K={K} N={N}")
@@ -74,9 +114,15 @@ def int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     ext = _cuda.library()
+    part = tickets = None
+    if nsplit > 1:
+        part = torch.empty((nsplit, min(M, K1_MAX_ROWS), N),
+                           dtype=torch.float32, device=x.device)
+        tickets = _cuda.tickets(x.device, "int8_matmul",
+                                -(-N // K1_TILE_COLS))
     for m0 in range(0, M, K1_MAX_ROWS):
         rows = slice(m0, m0 + K1_MAX_ROWS)
-        ext.int8_matmul(x2[rows], q, s, out[rows])
+        ext.int8_matmul(x2[rows], q, s, out[rows], part, tickets, nsplit)
         _cuda.LAUNCHES["int8_matmul"] += 1
     return out.reshape(*lead, N)
 

@@ -28,6 +28,8 @@ caller keeps ``length + window <= S``.
 
 ``tree_attention`` dispatches by device: the hand-written kernel in
 ``csrc/tree_attention.cu`` on CUDA tensors, ``tree_attention_plain`` on CPU.
+Neither bounds ``T`` or the window.  ``k2_rows``, ``k2_splits`` and
+``k2_split_tiles`` are the kernel's grid arithmetic as plain functions.
 """
 
 from __future__ import annotations
@@ -38,13 +40,41 @@ from . import _cuda
 from ..kv import group_blocks, quantize_rows
 
 NEG_INF = -1e30
-# rows of a block the kernel holds in shared memory
-K2_MAX_T = 64
-# K2 splits the prefix capacity S into chunks of about this many rows, up
-# to K2_MAX_SPLIT, each streamed by its own thread block
-K2_SPLIT_ROWS = 512
-K2_MAX_SPLIT = 8
-K2_PART_FLOATS = K2_MAX_T * (128 + 2)     # per-split partials (max, sum, acc)
+# K2's geometry on the card: keys per tile; the thread blocks an SM holds
+# at once (230-255 registers a thread, 81-115 KB of shared memory a block);
+# and the least capacity a split is worth (under four tiles the merge costs
+# more than the split saves); the most splits the kernel's merge takes
+# (``MAX_SPLIT`` in the source)
+K2_TILE_KEYS = 64
+K2_BLOCKS_PER_SM = 2
+K2_SPLIT_MIN_ROWS = 256
+K2_MAX_SPLIT = 32
+
+
+def k2_rows(T: int) -> int:
+    """Query rows one K2 thread block owns (one or two 16-row mma tiles)."""
+    return 16 if T <= 16 else 32
+
+
+def k2_splits(B: int, G: int, S: int, T: int, sms: int) -> int:
+    """Prefix splits of a K2 launch on a card of ``sms`` SMs, from the shapes
+    alone (``length`` stays on the device): as many as keep the ``B * G * row tiles * splits``
+    thread blocks within one wave of ``K2_BLOCKS_PER_SM`` an SM, at most one
+    per ``K2_SPLIT_MIN_ROWS`` rows of the capacity ``S`` and
+    ``K2_MAX_SPLIT``."""
+    blocks = B * G * -(-T // k2_rows(T))
+    return max(1, min(K2_BLOCKS_PER_SM * sms // blocks,
+                      S // K2_SPLIT_MIN_ROWS, K2_MAX_SPLIT))
+
+
+def k2_split_tiles(length: int, nsplit: int) -> list:
+    """``(first, end)`` prefix tile of every split at a live ``length``, as
+    the kernel computes them: shares of the ``ceil(length / K2_TILE_KEYS)``
+    tiles that differ by at most one (empty where there are fewer tiles
+    than splits)."""
+    ntiles = -(-length // K2_TILE_KEYS)
+    return [(z * ntiles // nsplit, (z + 1) * ntiles // nsplit)
+            for z in range(nsplit)]
 
 
 def _window_of(window_mask, B: int, T: int):
@@ -124,19 +154,32 @@ def tree_attention_plain(q, k_new, v_new, k_cache, v_cache, length,
 def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
                         block_mask, prefix_bias, scale,
                         k_scale=None, v_scale=None, window_mask=None):
-    """K2 on the card.  Thread blocks per (batch row, head group, prefix
-    split) stream only the live prefix ``[0, length)`` with an online
-    softmax, the last split also the provisional window's cache rows and
-    the block rows under their masks; a merge kernel combines the splits.
-    Needs head_dim == W == 128, MHA, bf16 activations, T <= ``K2_MAX_T``
-    and a window of at most ``K2_MAX_T`` rows."""
+    """K2 on the card, one launch.  Thread blocks per (batch row, head
+    group, row tile, prefix split) stream only the live prefix ``[0,
+    length)`` through the tensor cores with an online softmax, the last
+    split also the provisional window's cache rows and the block rows under
+    their masks; the last split to finish merges all of them.  Needs
+    head_dim == W == 128, MHA and bf16 activations; any T, any window."""
+    B, T = q.shape[:2]
+    _, G, S, _ = k_cache.shape
+    return tree_attention_launch(
+        q, k_new, v_new, k_cache, v_cache, length, block_mask, prefix_bias,
+        scale, k2_splits(B, G, S, T, _cuda.sm_count(q.device)),
+        k_scale=k_scale, v_scale=v_scale, window_mask=window_mask)
+
+
+def tree_attention_launch(q, k_new, v_new, k_cache, v_cache, length,
+                          block_mask, prefix_bias, scale, nsplit,
+                          k_scale=None, v_scale=None, window_mask=None):
+    """``tree_attention_cuda`` at a given count of prefix splits (1 to
+    ``K2_MAX_SPLIT``), which ``tree_attention_cuda`` takes from
+    ``k2_splits``."""
     B, T, nh, hd = q.shape
     _, G, S, W = k_cache.shape
     quant = k_scale is not None
     _cuda.require(hd == 128 and W == 128 and nh == G,
                   f"tree_attention: needs head_dim 128 and one head per "
                   f"128-lane group, got nh={nh} hd={hd} cache G={G} W={W}")
-    _cuda.require(T <= K2_MAX_T, f"tree_attention: T={T} > {K2_MAX_T}")
     for t in (q, k_new, v_new):
         _cuda.require(t.dtype == torch.bfloat16 and t.shape == q.shape,
                       "tree_attention: q/k_new/v_new must be bf16 "
@@ -144,9 +187,9 @@ def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
     want = torch.int8 if quant else torch.bfloat16
     for t in (k_cache, v_cache):
         _cuda.require(t.dtype == want and t.is_contiguous()
-                      and t.shape == (B, G, S, W),
-                      f"tree_attention: caches must be contiguous {want} "
-                      f"[B, G, S, W]")
+                      and t.shape == (B, G, S, W) and _cuda.aligned(t),
+                      f"tree_attention: caches must be contiguous, 16-byte "
+                      f"aligned {want} [B, G, S, W]")
     if quant:
         for t in (k_scale, v_scale):
             _cuda.require(t.dtype == torch.float32 and t.is_contiguous()
@@ -158,20 +201,22 @@ def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
         block_mask = block_mask[None].expand(B, T, T)
     mask = block_mask.to(torch.bool).contiguous()
     wmask = _window_of(window_mask, B, T)
-    window = 0 if wmask is None else wmask.shape[-1]
-    _cuda.require(window <= K2_MAX_T,
-                  f"tree_attention: window of {window} rows > {K2_MAX_T}")
     bias = prefix_bias.to(torch.float32).expand(B, S).contiguous()
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     out = torch.empty_like(q)
-    nsplit = max(1, min(K2_MAX_SPLIT, S // K2_SPLIT_ROWS))
-    part = (torch.empty((B * G * nsplit * K2_PART_FLOATS,),
-                        dtype=torch.float32, device=q.device)
-            if nsplit > 1 else None)
+    _cuda.require(1 <= nsplit <= K2_MAX_SPLIT, f"tree_attention: takes 1 to "
+                  f"{K2_MAX_SPLIT} prefix splits, got {nsplit}")
+    rows = k2_rows(T)
+    part = tickets = None
+    if nsplit > 1:
+        units = B * G * -(-T // rows)
+        part = torch.empty((units * nsplit * rows * (128 + 2),),
+                           dtype=torch.float32, device=q.device)
+        tickets = _cuda.tickets(q.device, "tree_attention", units)
     _cuda.library().tree_attention(
         q, k_new, v_new, k_cache, v_cache, k_scale if quant else None,
         v_scale if quant else None, length, mask, wmask, bias, out, part,
-        nsplit, float(scale))
+        tickets, rows, nsplit, float(scale))
     _cuda.LAUNCHES["tree_attention"] += 1
     return out
 

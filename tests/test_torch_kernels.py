@@ -268,7 +268,7 @@ def test_ops_reject_mixed_devices():
 # ------------------------------------------------- CUDA kernels (card only)
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [2, 38, 64, 130])
+@pytest.mark.parametrize("M", [2, 22, 38, 64, 130])
 def test_int8_matmul_cuda_matches_plain(cuda, M):
     g = torch.Generator(device=cuda).manual_seed(M)
     x = torch.randn((M, 4096), generator=g, device=cuda).bfloat16()
@@ -290,7 +290,7 @@ def test_int8_matmul_cuda_matches_plain(cuda, M):
 @pytest.mark.parametrize("S,T,length,quant", [
     (1408, 1, 1300, True), (1408, 19, 0, True), (1408, 32, 777, True),
     (1408, 32, 500, False),
-    # S < 1024: one prefix split, no merge kernel
+    # a short capacity: one prefix split, no merge between blocks
     (384, 1, 290, True), (384, 32, 155, True)])
 def test_tree_attention_cuda_matches_plain(cuda, S, T, length, quant):
     g = torch.Generator(device=cuda).manual_seed(T + length)
