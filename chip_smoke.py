@@ -19,13 +19,17 @@ Phases (any failure exits non-zero and prints no result line):
    K4 tree-rollback gather) against its plain PyTorch version at the
    Lumina lane's shapes, with known-wrong variants that the comparison
    must catch, median times (CUDA events, L2 flushed before every launch),
-   the bound from bytes and operations, and the PyTorch library yardstick.
+   the bound from bytes and operations, and the PyTorch library yardstick;
+   first ``launch_floor_ms``, the time of a trivial launch, against which
+   K3's and K4's lines state their share of the bound, rate and multiple.
    K1 at all six weight shapes and every width of its instruction, with
    the rows of 1-, 10- and 22-row launches equal to those of the 64-row
    launch bit for bit; K2 at the decode shapes, at this run's KV
    capacity, at blocks of 96 to 512 rows (a prompt's prefill) and, for the
    drafter, with a bf16 one-layer cache and the provisional window of each
-   tree level;
+   tree level; K3 and K4 byte-exact at the lane's shapes and at their edge
+   cases (T = 7 and 33, the last and a clamped start, zero rows and rounding
+   ties; A = 1, A = blk in registers and in shared memory);
 4. forward: a tiny head_dim-128 Chameleon forward, and a tiny drafter
    (``extend``, then two tree levels with write offset and window),
    through the kernels on the card against the plain path on the CPU;
@@ -34,8 +38,8 @@ Phases (any failure exits non-zero and prints no result line):
    text tokens and the calibrated tree ``ckpts/bench_tree_lumina.json``,
    LANTERN k=10 delta=5, top-2000, cfg 3.0.  Four paths, each with the
    launch counters reset just before and read just after, and (for the
-   first three) a profile of a few steps (device time by kernel,
-   device-busy share):
+   first three) a profile of a few steps (device time by kernel, the four
+   port kernels' rows always among them, device-busy share):
    - the AR twin;
    - the speculative engine with stale drafting and deferred commit (K1,
      K2, K3);
@@ -74,6 +78,10 @@ BF16_FLOPS = 989e12
 K1_SHAPES = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w_gu": (4096, 22016),
              "w_down": (11008, 4096), "lm_head": (4096, 65536),
              "fc_w": (8192, 4096)}          # the drafter's input fusion
+# the port's kernels, and the part of their device names the profile finds
+PORT_KERNELS = (("int8_matmul", "int8_matmul_kernel"),
+                ("tree_attention", "tree_attention_kernel"),
+                ("kv_write", "kv_write_kernel"), ("kv_gather", "kv_gather"))
 TEXT = list(range(60000, 60016))          # 16 text tokens, as bench.py
 LONG_TEXT = list(range(60000, 60200))     # 200 text tokens: a long prompt
 
@@ -154,6 +162,13 @@ class KernelPhase:
         self.tree = trees.get_tree(os.path.join("ckpts",
                                                 "bench_tree_lumina.json"))
         self.level_rows = [len(lv.child_flat_idx) for lv in self.tree.levels]
+        # the launch floor: a trivial launch, a fill of a one-element CUDA
+        # tensor, timed as the kernels are; K3 and K4 lines state their
+        # multiple of it
+        one = torch.zeros((1,), device="cuda")
+        self.floor = timer(lambda: one.fill_(1.0))
+        log(f"launch_floor_ms {self.floor:.4f} (a fill of a one-element CUDA "
+            f"tensor, median of 15 as every kernel time) [{card}]")
 
     def randn(self, *shape):
         torch = self.torch
@@ -456,6 +471,15 @@ class KernelPhase:
                         f"{why} {e:.3e}" for why, e in werr.items()))
         return dict(k2_rep, max_abs_err=k2_err)
 
+    def judge(self, ms: float, b_ms: float, nbytes: float) -> str:
+        """A K3 or K4 time against its bound, its rate and the launch floor;
+        a bound under the floor is said, and the floor judges the time."""
+        out = (f"{100 * b_ms / ms:.1f}% of bound, {nbytes / ms / 1e9:.3f} "
+               f"TB/s, {ms / self.floor:.2f}x launch floor")
+        if b_ms < self.floor:
+            out += " (bound under the launch floor: judged against the floor)"
+        return out
+
     def k3(self) -> dict:
         from lantern_tpu_torch.kv import write_block_cuda, write_block_plain
 
@@ -464,19 +488,36 @@ class KernelPhase:
         B, G, W = self.B, self.G, self.W
         planes_of, clones, same_bytes = (self.planes_of, self.clones,
                                          self.same_bytes)
-        # the bench lane's planes; the rollback path adds the 32-row
-        # provisional tree block, and the drafter's bf16 one-layer cache
-        # written at length + block_offset
+        # the bench lane's planes: the AR twin's row, the deferred commit's
+        # accepted path, a prefill, the rollback path's 32-row provisional
+        # tree block, the drafter's bf16 one-layer cache written at length +
+        # block_offset; then T that is no multiple of a round's rows (7,
+        # 33), the last rows (start = S - T), a start past S - T (clamped),
+        # and rows of zeros and of exact rounding ties
         S = 2560
+        off = 1237 + int(tree.levels[-1].block_offset)
         k3_err, k3_rep = 0.0, None
-        off_lv = tree.levels[-1]
-        k3_cases = [(32, 1, 1301, True), (32, 5, 777, True), (32, 19, 0, True),
-                    (32, tree.num_nodes, 1301, True),
-                    (1, tree.path_len, 1237, False),
-                    (1, level_rows[-1], 1237 + int(off_lv.block_offset), False),
-                    (32, level_rows[-1], 1237 + int(off_lv.block_offset), True)]
-        for L, T, start, quant in k3_cases:
+        k3_cases = [(32, 1, 1301, True, ""), (32, 5, 777, True, ""),
+                    (32, 19, 0, True, ""), (32, tree.num_nodes, 1301, True, ""),
+                    (1, tree.path_len, 1237, False, ""),
+                    (1, level_rows[-1], off, False, ""),
+                    (32, level_rows[-1], off, True, ""),
+                    (32, 7, 1301, True, ""), (32, 33, 1301, True, ""),
+                    (32, 5, S - 5, True, ""), (32, 7, S - 3, True, ""),
+                    (32, 5, 777, True, "zero rows and ties")]
+        for L, T, start, quant, rows in k3_cases:
             kn, vn = randn(L, B, T, G, W), randn(L, B, T, G, W)
+            if rows:
+                # t = 0: all-zero rows (scale 1/127); t = 1: amax 127, so
+                # scale 1 and every other value a tie k + 0.5; t = 2: amax
+                # 63.5, so scale 0.5 and the values (k + 0.5) / 2
+                i = torch.arange(W, device=dev, dtype=torch.float32)
+                ties = ((i % 126) + 0.5) * (1 - 2 * (i % 2))
+                ties[0] = 127.0
+                for x, sign in ((kn, 1.0), (vn, -1.0)):
+                    x[:, :, 0] = 0
+                    x[:, :, 1] = (sign * ties).to(torch.bfloat16)
+                    x[:, :, 2] = (sign * ties / 2).to(torch.bfloat16)
             mine = planes_of(L, S, quant)
             ref, before = clones(mine), clones(mine)
             st = torch.tensor(start, dtype=torch.int32, device=dev)
@@ -485,34 +526,43 @@ class KernelPhase:
             torch.cuda.synchronize()
             err = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(mine, ref) if a is not None)
+            s0 = min(max(start, 0), S - T)
             outside = torch.ones(S, dtype=torch.bool, device=dev)
-            outside[start:start + T] = False
+            outside[s0:s0 + T] = False
             untouched = all(torch.equal(a[..., outside, :] if a.ndim == 5 else a[..., outside],
                                         b[..., outside, :] if b.ndim == 5 else b[..., outside])
                             for a, b in zip(mine, before) if a is not None)
             kind = "int8" if quant else "bf16"
+            what = (f"K3 kv_write L={L} T={T} start={start}"
+                    f"{f' (clamped to {s0})' if s0 != start else ''} {kind}"
+                    f"{f', {rows}' if rows else ''}")
             if err != 0 or not same_bytes(mine, ref) or not untouched:
-                fail(f"K3 L={L} T={T} start={start} {kind}: max err {err}, rows "
-                     f"outside [start, start+T) untouched: {untouched}")
+                fail(f"{what}: max err {err}, rows outside [start, start+T) "
+                     f"untouched: {untouched}")
+            one_127 = (torch.ones((), device=dev)
+                       / torch.full((), 127.0, device=dev))
+            if rows and not bool((mine[2][..., s0] == one_127).all()):
+                fail(f"{what}: an all-zero row's scale is not 1/127")
             k3_err = max(k3_err, err)
             ms = timer(lambda: write_block_cuda(*mine, kn, vn, st))
             plain = timer(lambda: write_block_plain(*mine, kn, vn, st), reps=5)
             nbytes = 2 * L * B * T * G * W * 2 + 2 * L * B * T * G * (
                 W + 4 if quant else 2 * W)
             b_ms, b_by = bound(nbytes, 0.0)
-            log(f"K3 kv_write L={L} T={T} start={start} {kind}: max_abs_err "
-                f"{err:.3e} (tol 0, exact) ms {ms:.4f} plain_ms {plain:.4f} "
-                f"library_ms null bound_ms {b_ms:.4f} ({b_by}) [{card}]")
-            if (L, T) == (32, 5):
+            log(f"{what}: max_abs_err {err:.3e} (tol 0, byte-exact over the "
+                f"whole planes, other rows untouched) ms {ms:.4f} plain_ms "
+                f"{plain:.4f} library_ms null bound_ms {b_ms:.4f} ({b_by}; "
+                f"{self.judge(ms, b_ms, nbytes)}) [{card}]")
+            if (L, T, start) == (32, 5, 777) and k3_rep is None:
                 k3_rep = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
                               bound_by=b_by, shape=f"L=32 B=2 T={T} G=32 int8")
             del mine, ref, before
         return dict(k3_rep, max_abs_err=k3_err)
 
-
     def k4(self) -> dict:
         from lantern_tpu_torch.kv import (gather_write_block_cuda,
-                                          gather_write_block_plain)
+                                          gather_write_block_plain,
+                                          k4_staging)
 
         torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
         tree = self.tree
@@ -520,7 +570,10 @@ class KernelPhase:
         planes_of, clones, same_bytes = (self.planes_of, self.clones,
                                          self.same_bytes)
         # the bench lane's planes, the tree's 32-row block and 5-row paths;
-        # byte-exact over the whole buffers
+        # then one accepted row (A = 1) and every row of the block moved (A =
+        # blk, a permutation without fixed points), whose bf16 rows are more
+        # than a warp's registers stage (the shared-memory path); byte-exact
+        # over the whole buffers
         S = 2560
         L, blk, A = 32, tree.num_nodes, tree.path_len
         deep = [int(i) for i in tree.retrieve_indices[0]]        # a full path
@@ -536,6 +589,11 @@ class KernelPhase:
             ("a tree path", False, [777], [deep]),
             ("R=4 slots", False, [S - blk, 0, 777, 1301],
              [deep, short, [0, 3, 7, 1, 2][:A], [blk - 1, blk + 8, 0, 0, 0][:A]]),
+            ("A = 1", True, [777], [[3]]),
+            ("A = blk, every row moved", True, [1301],
+             [[(7 * j + 3) % blk for j in range(blk)]]),
+            ("A = blk, every row moved", False, [1301],
+             [[(7 * j + 3) % blk for j in range(blk)]]),
         ]
 
         def k4_wrong(planes, rel, start, how):
@@ -582,13 +640,16 @@ class KernelPhase:
                         fail(f"K4: the byte comparison does not catch a wrong "
                              f"variant ({how})")
                     del good, bad
+            n_rows = rl.shape[1]
+            row_bytes = W * mine[0].element_size()
+            staging = k4_staging(n_rows, row_bytes)
             ms = timer(lambda: gather_write_block_cuda(*mine, rl, st, blk))
             plain = timer(lambda: gather_write_block_plain(*mine, rl, st, blk),
                           reps=5)
             # library yardstick: index_select + index_copy_ per plane, indices
             # ready (one slot's; the R=4 case times slot 0's indices on all)
             src = (st[0] + torch.clamp(rl[0], 0, blk - 1)).long()
-            dst = (st[0] + torch.arange(A, device=dev)).long()
+            dst = (st[0] + torch.arange(n_rows, device=dev)).long()
 
             def lib_call():
                 for buf in mine:
@@ -596,14 +657,18 @@ class KernelPhase:
                         buf.index_copy_(3, dst, buf.index_select(3, src))
 
             lib = timer(lib_call, reps=5)
-            row = W * mine[0].element_size() + (4 if quant else 0)
-            nbytes = 2 * 2 * L * B * G * A * row + st.numel() * 4 + rl.numel() * 4
+            row = row_bytes + (4 if quant else 0)
+            nbytes = (2 * 2 * L * B * G * n_rows * row + st.numel() * 4
+                      + rl.numel() * 4)
             b_ms, b_by = bound(nbytes, 0.0)
-            log(f"K4 kv_gather L={L} B={B} G={G} S={S} blk={blk} A={A} R="
-                f"{len(starts)} {kind}, {what}: max_abs_err 0 (byte-exact over "
-                f"the whole buffers) ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-                f"{lib:.4f} bound_ms {b_ms:.5f} ({b_by}, {nbytes / 1e6:.2f} MB "
-                f"moved: launch-bound) [{card}]")
+            where = (f"registers, {staging} chunks a lane" if staging
+                     else "shared memory")
+            log(f"K4 kv_gather L={L} B={B} G={G} S={S} blk={blk} A={n_rows} R="
+                f"{len(starts)} {kind}, {what} (staged in {where}): "
+                f"max_abs_err 0 (byte-exact over the whole buffers) ms "
+                f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
+                f"{b_ms:.5f} ({b_by}, {nbytes / 1e6:.2f} MB moved; "
+                f"{self.judge(ms, b_ms, nbytes)}) [{card}]")
             if caught:
                 log("  wrong variants caught: " + "; ".join(caught))
             if (what, quant) == ("a tree path", True):
@@ -1066,6 +1131,16 @@ def profile(what: str, fn, card: str) -> None:
                   reverse=True)
     for us, n, key in rows[:12]:
         log(f"  {us / 1e3:9.3f} ms  {n:6d}x  {key[:90]}")
+    # the port's kernels, also where they fall below the 12 largest
+    for name, tag in PORT_KERNELS:
+        mine = [r for r in rows if tag in r[2]]
+        for us, n, key in mine:
+            if (us, n, key) not in rows[:12]:
+                log(f"  {us / 1e3:9.3f} ms  {n:6d}x  {key[:90]} (port "
+                    f"kernel {name}, below the 12 largest)")
+        if not mine:
+            log(f"  {0.0:9.3f} ms  {0:6d}x  {name} (port kernel, not "
+                f"launched on this path)")
 
 
 def main() -> int:

@@ -25,7 +25,7 @@ int lantern_kv_write(const void* k_new, const void* v_new, void* k_buf,
 int lantern_kv_gather(void* k_buf, void* v_buf, void* k_scale, void* v_scale,
                       const void* starts, const void* rels, int planes, int B,
                       int G, int S, int R, int A, int blk, int row_bytes,
-                      void* stream);
+                      int staging, void* stream);
 }
 
 namespace {
@@ -101,16 +101,18 @@ void kv_write(const at::Tensor& k_new, const at::Tensor& v_new,
 }
 
 // planes [L, B, G, S, W] (any of int8, bf16, f32); starts int32 [R]; rels
-// int32 [R, A]; in place
+// int32 [R, A]; staging: 16-byte chunks a lane holds per tensor, or 0 for
+// the shared-memory path (kv.k4_staging); in place
 void kv_gather(at::Tensor& k_buf, at::Tensor& v_buf,
                const c10::optional<at::Tensor>& k_scale,
                const c10::optional<at::Tensor>& v_scale,
-               const at::Tensor& starts, const at::Tensor& rels, int64_t blk) {
+               const at::Tensor& starts, const at::Tensor& rels, int64_t blk,
+               int64_t staging) {
   check(lantern_kv_gather(
             k_buf.data_ptr(), v_buf.data_ptr(), ptr(k_scale), ptr(v_scale),
             starts.data_ptr(), rels.data_ptr(), k_buf.size(0), k_buf.size(1),
             k_buf.size(2), k_buf.size(3), starts.size(0), rels.size(1), blk,
-            k_buf.size(4) * k_buf.element_size(), stream_of(k_buf)),
+            k_buf.size(4) * k_buf.element_size(), staging, stream_of(k_buf)),
         "kv_gather");
 }
 

@@ -99,7 +99,10 @@ def write_block_plain(k_buf, v_buf, k_scale, v_scale, k_new, v_new, start):
 def write_block_cuda(k_buf, v_buf, k_scale, v_scale, k_new, v_new, start):
     """K3 on the card: one launch writes (and, for an int8 cache,
     quantizes) the new rows of every layer into both planes and both scale
-    planes.  ``start`` stays on the device."""
+    planes.  A half-warp takes one ``(l, b, t, g)`` row of K and of V, in
+    rounds of several rows whose loads are all issued first, over a grid of
+    one wave; the quotients go through the division sequence K2 shares, so
+    the bytes equal ``quantize_rows``'.  ``start`` stays on the device."""
     L, B, G, S, W = k_buf.shape
     T = k_new.shape[2]
     quantized = k_scale is not None
@@ -180,14 +183,34 @@ def gather_write_block_plain(k_buf, v_buf, k_scale, v_scale, rel, start,
                 mine.index_copy_(3, s0 + j, mine.index_select(3, src))
 
 
+# K4 keeps a window's rows in registers when they fit: RC 16-byte chunks a
+# lane a tensor, one of these (the kernel's instantiations), for A <= 32
+K4_REG_CHUNKS = (1, 2, 4, 8)
+# else each warp stages one tensor's rows and scales in its own slice of
+# shared memory, which must fit one block's (Hopper's 227 KB opt-in)
+K4_MAX_STAGE_BYTES = 227 * 1024
+
+
+def k4_staging(A: int, row_bytes: int) -> int:
+    """K4's staging for ``A`` rows of ``row_bytes``: the 16-byte chunks a
+    lane holds in registers per tensor, or 0 for the shared-memory path."""
+    if A <= 32:
+        need = -(-A * (row_bytes // 16) // 32)
+        for rc in K4_REG_CHUNKS:
+            if need <= rc:
+                return rc
+    return 0
+
+
 def gather_write_block_cuda(k_buf, v_buf, k_scale, v_scale, rel, start,
                             blk: int):
     """K4 on the card: one launch compacts the accepted rows of every
-    layer plane, K and V, and (int8 cache) both scale planes.  One thread
-    block owns one ``(plane, batch, group)`` window: it stages the ``A``
-    source rows in shared memory, waits at a barrier, then stores them, so
-    overlapping sources and destinations read the original rows.  ``start``
-    and ``rel`` stay on the device; the kernel clamps ``rel`` to
+    layer plane, K and V, and (int8 cache) both scale planes.  One warp
+    owns one ``(plane, batch, group)`` window: it loads the ``A`` source
+    rows and scales (into registers, or its slice of shared memory for a
+    large ``A``: ``k4_staging``), waits at a warp barrier, then stores them,
+    so overlapping sources and destinations read the original rows.
+    ``start`` and ``rel`` stay on the device; the kernel clamps ``rel`` to
     ``[0, blk-1]`` and ``start`` to ``[0, S-blk]`` exactly as the plain
     version does, so a ``start`` outside the contract (``start + blk <=
     S``) moves rows of the last window and never touches memory outside the
@@ -217,12 +240,14 @@ def gather_write_block_cuda(k_buf, v_buf, k_scale, v_scale, rel, start,
         _cuda.require(t.dtype in (torch.int32, torch.int64),
                       "kv_gather: start and rel must be integer tensors")
     starts, rels = _starts_rels(start, rel, L, blk, S)
-    _cuda.require(rels.shape[1] * (row_bytes + 4) <= 48 * 1024,
-                  f"kv_gather: {rels.shape[1]} rows of {row_bytes} bytes "
-                  f"exceed the 48 KB staging buffer")
+    A = rels.shape[1]
+    staging = k4_staging(A, row_bytes)
+    _cuda.require(staging > 0 or A * (row_bytes + 4) <= K4_MAX_STAGE_BYTES,
+                  f"kv_gather: {A} rows of {row_bytes} bytes exceed the "
+                  f"{K4_MAX_STAGE_BYTES // 1024} KB staging slice")
     _cuda.library().kv_gather(k_buf, v_buf, k_scale if quantized else None,
                               v_scale if quantized else None, starts, rels,
-                              blk)
+                              blk, staging)
     _cuda.LAUNCHES["kv_gather"] += 1
 
 

@@ -177,11 +177,13 @@ def _planes(seed, dtype):
 
 
 @pytest.mark.parametrize("T,start", [(1, 0), (1, 201), (5, 13), (5, 251),
-                                     (19, 111)])
+                                     (19, 111), (32, 77), (33, 240)])
 def test_kv_write_plain_matches_pallas_write_block_int8(T, start):
-    """Quantize + write at an unaligned (or clamped, 251 + 5 > 256) start:
-    the int8 planes against write_block(interpret=True) and the scale
-    planes against lax.dynamic_update_slice, byte for byte."""
+    """Quantize + write at an unaligned (or clamped: 251 + 5 and 240 + 33 >
+    256) start, also 32 and 33 rows (the tree block, and one row more than
+    a multiple of the rows the kernel takes a round): the int8 planes
+    against write_block(interpret=True) and the scale planes against
+    lax.dynamic_update_slice, byte for byte."""
     kb, vb, ks, vs = _planes(T * 1000 + start, "int8")
     rng = np.random.default_rng(start)
     kn = rng.normal(size=(L_, B_, T, G_, W_)).astype(np.float32)
@@ -248,6 +250,33 @@ def test_kvcache_write_commit_matches_jax(quantized):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     with pytest.raises(ValueError, match="offset"):
         ct.write(torch.from_numpy(kn), torch.from_numpy(vn), offset=2)
+
+
+def _ties_rows():
+    """An all-zero row, then rows whose values sit exactly at k + 0.5 of
+    their scale: amax 127 gives scale 1, amax 63.5 gives scale 0.5."""
+    i = np.arange(128, dtype=np.float32)
+    ties = ((i % 126) + 0.5) * (1 - 2 * (i % 2))
+    ties[0] = 127.0
+    return np.stack([np.zeros(128, np.float32), ties, ties / 2, -ties])
+
+
+def test_quantize_rows_zero_row_and_ties_match_jax():
+    """The two cases the division routine K2 and K3 share must reproduce:
+    an all-zero row quantizes to zeros with scale 1/127, and exact ties
+    round to the even neighbour, as JAX's quantize_rows does."""
+    x = _ties_rows()[None]
+    q, s = tkv.quantize_rows(torch.from_numpy(x))
+    qj, sj = jkv.quantize_rows(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sj))
+    assert s[0, 0].item() == np.float32(1) / np.float32(127)
+    assert not q[0, 0].any()
+    assert s[0, 1].item() == 1.0 and s[0, 2].item() == 0.5
+    # -1.5 -> -2, 2.5 -> 2, -3.5 -> -4, 4.5 -> 4, ...
+    np.testing.assert_array_equal(q[0, 1].numpy(), np.round(x[0, 1]))
+    np.testing.assert_array_equal(q[0, 2].numpy(), np.round(2 * x[0, 2]))
+    assert q[0, 1, 2].item() == 2 and q[0, 1, 3].item() == -4
 
 
 def test_fake_quant_rows_matches_jax():
@@ -318,22 +347,46 @@ def test_tree_attention_cuda_matches_plain(cuda, S, T, length, quant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,start,quant", [(1, 1301, True), (5, 777, True),
-                                           (19, 0, True), (5, 3, False)])
-def test_kv_write_cuda_matches_plain(cuda, T, start, quant):
+@pytest.mark.parametrize("L,G,T,start,quant,rows", [
+    pytest.param(4, 4, 1, 1301, True, "", id="1-1301-True"),
+    pytest.param(4, 4, 5, 777, True, "", id="5-777-True"),
+    pytest.param(4, 4, 19, 0, True, "", id="19-0-True"),
+    pytest.param(4, 4, 5, 3, False, "", id="5-3-False"),
+    # the lane shape's 32-row tree block; T off a round's rows
+    pytest.param(32, 32, 32, 1301, True, "", id="lane-32"),
+    pytest.param(32, 32, 7, 1301, True, "", id="lane-7"),
+    pytest.param(32, 32, 33, 1301, True, "", id="lane-33"),
+    # the last rows, and a start past S - T (clamped to it)
+    pytest.param(4, 4, 5, 1403, True, "", id="start=S-T"),
+    pytest.param(4, 4, 7, 1405, True, "", id="start-clamped"),
+    pytest.param(4, 4, 5, 777, True, "ties", id="zero-rows-and-ties"),
+    # the drafter's bf16 one-layer cache, written at length + block_offset
+    pytest.param(1, 32, 3, 1247, False, "", id="drafter-bf16"),
+])
+def test_kv_write_cuda_matches_plain(cuda, L, G, T, start, quant, rows):
+    """K3 against its plain version, byte for byte over random planes (so
+    rows outside [start, start+T) must stay as they were)."""
     g = torch.Generator(device=cuda).manual_seed(T)
-    L, B, G, S, W = 4, 2, 4, 1408, 128
+    B, S, W = 2, 1408, 128
     kn, vn = (torch.randn((L, B, T, G, W), generator=g, device=cuda).bfloat16()
               for _ in range(2))
-    dt = torch.int8 if quant else torch.bfloat16
-    planes = [torch.zeros((L, B, G, S, W), dtype=dt, device=cuda)
-              for _ in range(2)]
-    planes += ([torch.zeros((L, B, G, S), device=cuda) for _ in range(2)]
-               if quant else [None, None])
+    if rows:
+        ties = torch.from_numpy(_ties_rows()).to(cuda).bfloat16()
+        kn[:, :, :4] = ties[None, None, :, None]
+        vn[:, :, :4] = -ties[None, None, :, None]
+    if quant:
+        planes = [torch.randint(-127, 128, (L, B, G, S, W), generator=g,
+                                device=cuda, dtype=torch.int8)
+                  for _ in range(2)]
+        planes += [torch.rand((L, B, G, S), generator=g, device=cuda)
+                   for _ in range(2)]
+    else:
+        planes = [torch.randn((L, B, G, S, W), generator=g, device=cuda)
+                  .bfloat16() for _ in range(2)] + [None, None]
     ref = [None if p is None else p.clone() for p in planes]
     st = torch.tensor(start, dtype=torch.int32, device=cuda)
     tkv.write_block_cuda(*planes, kn, vn, st)
     tkv.write_block_plain(*ref, kn, vn, st)
     for a, b in zip(planes, ref):
         if b is not None:
-            assert torch.equal(a, b)
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))

@@ -92,15 +92,25 @@ def _gather_planes(rng, dtype, L=2, B=3, G=2, S=192, W=128):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("start,blk", [(0, 57), (13, 16), (111, 5), (135, 57),
-                                       (160, 32)])
-def test_gather_write_block_plain_matches_pallas_interpret(dtype, start, blk):
+@pytest.mark.parametrize("start,blk,A", [
+    pytest.param(0, 57, 6, id="0-57"), pytest.param(13, 16, 6, id="13-16"),
+    pytest.param(111, 5, 5, id="111-5"), pytest.param(135, 57, 6, id="135-57"),
+    pytest.param(160, 32, 6, id="160-32"),
+    pytest.param(37, 24, 1, id="A=1"), pytest.param(64, 32, 32, id="A=blk")])
+def test_gather_write_block_plain_matches_pallas_interpret(dtype, start, blk,
+                                                           A):
     """``buf[start + j] = buf[start + rel[j]]``, unaligned starts, windows
-    that are no tile multiples, overlapping sources and destinations."""
+    that are no tile multiples, overlapping sources and destinations; one
+    accepted row, and every row of the block moved (A = blk)."""
     rng = np.random.default_rng(start * 100 + blk)
     kb, vb = _gather_planes(rng, dtype)
-    A = min(6, blk)
-    rel = rng.integers(0, blk, size=(A,)).astype(np.int32)
+    if A == blk:            # one cycle through the block: no row stays
+        p = rng.permutation(blk)
+        rel = np.empty(blk, np.int32)
+        rel[p] = np.roll(p, -1)
+        assert (rel != np.arange(blk)).all()
+    else:
+        rel = rng.integers(0, blk, size=(A,)).astype(np.int32)
     kj, vj = jkvu.gather_write_block(kb, vb, jnp.asarray(rel),
                                      jnp.int32(start), blk, interpret=True)
     kt, vt = tt(kb), tt(vb)
@@ -141,6 +151,39 @@ def test_gather_write_block_rejects_bad_arguments():
     with pytest.raises(ValueError, match="blk=65"):
         tkv.gather_write_block(kb, kb.clone(), None, None,
                                torch.zeros(2, dtype=torch.int32), st, 65)
+
+
+def test_k4_staging_rule():
+    """K4 stages a window's rows in registers (1, 2, 4 or 8 chunks of 16
+    bytes a lane a tensor) when A <= 32 and they fit, else in a warp's slice
+    of shared memory."""
+    assert tkv.k4_staging(5, 128) == 2        # the lane's int8 path
+    assert tkv.k4_staging(5, 256) == 4        # bf16
+    assert tkv.k4_staging(5, 512) == 8        # f32
+    assert tkv.k4_staging(1, 128) == 1
+    assert tkv.k4_staging(32, 128) == 8       # int8, A = blk = 32
+    assert tkv.k4_staging(32, 256) == 0       # bf16, A = blk = 32
+    assert tkv.k4_staging(33, 16) == 0
+    for A in range(1, 40):
+        for row_bytes in (16, 64, 128, 256, 512):
+            rc = tkv.k4_staging(A, row_bytes)
+            assert rc in (0,) + tkv.K4_REG_CHUNKS
+            if rc:
+                assert A <= 32 and A * row_bytes <= 32 * 16 * rc
+            else:
+                assert A > 32 or A * row_bytes > 32 * 16 * 8
+
+
+def test_gather_write_block_cuda_rejects_oversized_staging():
+    """The shared-memory slice of one warp holds up to 227 KB of rows and
+    scales (the old kernel's block took 48 KB); the wrapper refuses more
+    before it builds or launches anything."""
+    kb = torch.zeros((1, 1, 1, 512, 128))
+    st = torch.tensor(0, dtype=torch.int32)
+    A = tkv.K4_MAX_STAGE_BYTES // (128 * 4 + 4) + 1
+    with pytest.raises(ValueError, match="staging slice"):
+        tkv.gather_write_block_cuda(kb, kb.clone(), None, None,
+                                    torch.zeros(A, dtype=torch.int32), st, A)
 
 
 def test_gather_write_block_reads_before_it_writes():
@@ -509,11 +552,18 @@ def test_sample_without_replacement_matches_jax_given_the_same_noise():
 # ------------------------------------------------- CUDA kernels (card only)
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
-@pytest.mark.parametrize("R", [1, 4])
-def test_kv_gather_cuda_matches_plain(cuda, dtype, R):
-    g = torch.Generator(device=cuda).manual_seed(R)
-    L, B, G, S, W, blk, A = 4 * R, 2, 4, 1408, 128, 32, 5
+@pytest.mark.parametrize("dtype,R,A,S,G", [
+    *[pytest.param(d, r, 5, 1408, 4, id=f"{r}-{d}")
+      for r in (1, 4) for d in ("int8", "bfloat16", "float32")],
+    pytest.param("int8", 1, 1, 1408, 4, id="A=1-int8"),
+    pytest.param("int8", 1, 32, 1408, 4, id="A=blk-int8"),         # registers
+    pytest.param("bfloat16", 1, 32, 1408, 4, id="A=blk-bfloat16"), # shared
+    pytest.param("float32", 4, 32, 1408, 4, id="A=blk-R4-float32"),
+    pytest.param("int8", 4, 5, 2560, 32, id="lane-R4-int8"),
+])
+def test_kv_gather_cuda_matches_plain(cuda, dtype, R, A, S, G):
+    g = torch.Generator(device=cuda).manual_seed(R * 100 + A)
+    L, B, W, blk = 4 * R, 2, 128, 32
     if dtype == "int8":
         planes = [torch.randint(-127, 128, (L, B, G, S, W), generator=g,
                                 device=cuda, dtype=torch.int8) for _ in range(2)]
@@ -524,8 +574,14 @@ def test_kv_gather_cuda_matches_plain(cuda, dtype, R):
                   .to(getattr(torch, dtype)) for _ in range(2)] + [None, None]
     starts = torch.tensor([S - blk, 0, 777, 5000][:R], dtype=torch.int32,
                           device=cuda)
-    rels = torch.tensor([[0, 3, 7, 1, 2], [0, 1, 2, 3, 4], [0, 2, 9, 40, -3],
-                         [31, 30, 0, 0, 0]][:R], dtype=torch.int32, device=cuda)
+    if A == 5:
+        rels = [[0, 3, 7, 1, 2], [0, 1, 2, 3, 4], [0, 2, 9, 40, -3],
+                [31, 30, 0, 0, 0]]
+    elif A == 1:
+        rels = [[3], [0], [40], [-1]]
+    else:                  # A = blk: every row of the block is rewritten
+        rels = [[(7 * j + 3 + r) % blk for j in range(blk)] for r in range(4)]
+    rels = torch.tensor(rels[:R], dtype=torch.int32, device=cuda)
     ref = [None if p is None else p.clone() for p in planes]
     tkv.gather_write_block_cuda(*planes, rels, starts, blk)
     tkv.gather_write_block_plain(*ref, rels, starts, blk)
