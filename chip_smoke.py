@@ -53,12 +53,27 @@ Phases (any failure exits non-zero and prints no result line):
      the derived ones (32 K2 launches for the prefill);
 6. rollback check: with pinned choices (``pin=0.5``) and stale drafting,
    ``deferred_commit`` False and True must commit the same tokens in the
-   same steps (both modes commit the same bytes; K4 only moves them).
+   same steps (both modes commit the same bytes; K4 only moves them);
+7. the XL lane: in phase 3 each kernel at LlamaGen-XL's shapes (K2 with two
+   heads of 64 a 128-lane group, which must catch swapped heads and a
+   softmax shared by both, every row compared, the caption's pad rows that
+   see no key too; K3 and K4 byte-exact at 36 layers and 10
+   groups), in phase 4 a tiny LlamaGen forward card vs CPU, and after
+   phase 6 LlamaGen-XL t2i at full width and depth (36 layers x 1280, 20
+   heads of 64, vocab 16384, a left-padded 120-row ``RandomT5`` caption,
+   256 image tokens, the passthrough drafter): the AR twin (bf16 KV),
+   static spec over ``ckpts/bench_tree_XL.json`` with deferred commit (bf16
+   KV) and dynamic EAGLE-2 spec (59/4/10) with the rollback commit (int8
+   KV), each with its launch counts equal to the derived ones (K4 once a
+   dynamic verify step) and its tokens in the vocab, and a profile; then
+   the rollback check of step 6 on the XL static path (the drafter over the
+   calibrated tree, bf16 KV).
 
 The line before the last two is ``{"kernels": [...]}`` (``launches`` are
-the rollback path's, the one path that runs all four kernels; the other
-paths' counts are under ``launches_by_path``); then the ``nvidia-smi``
-name/power-limit line; the last line is the device record.
+the rollback path's, the one Lumina path that runs all four kernels; every
+path's counts are under ``launches_by_path``; each kernel's XL record is
+under ``xl``); then the ``nvidia-smi`` name/power-limit line; the last line
+is the device record.
 """
 
 from __future__ import annotations
@@ -78,12 +93,16 @@ BF16_FLOPS = 989e12
 K1_SHAPES = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w_gu": (4096, 22016),
              "w_down": (11008, 4096), "lm_head": (4096, 65536),
              "fc_w": (8192, 4096)}          # the drafter's input fusion
+K1_SHAPES_XL = {"wqkv": (1280, 3840), "wo": (1280, 1280), "w_gu": (1280, 7168),
+                "w_down": (3584, 1280), "lm_head": (1280, 16384),
+                "fc_w": (2560, 1280)}
 # the port's kernels, and the part of their device names the profile finds
 PORT_KERNELS = (("int8_matmul", "int8_matmul_kernel"),
                 ("tree_attention", "tree_attention_kernel"),
                 ("kv_write", "kv_write_kernel"), ("kv_gather", "kv_gather"))
 TEXT = list(range(60000, 60016))          # 16 text tokens, as bench.py
 LONG_TEXT = list(range(60000, 60200))     # 200 text tokens: a long prompt
+XL_CAPTION = "a photo of a red fox standing in fresh snow at dawn"  # 12 words
 
 
 def log(msg: str) -> None:
@@ -162,6 +181,8 @@ class KernelPhase:
         self.tree = trees.get_tree(os.path.join("ckpts",
                                                 "bench_tree_lumina.json"))
         self.level_rows = [len(lv.child_flat_idx) for lv in self.tree.levels]
+        self.tree_xl = trees.get_tree(os.path.join("ckpts",
+                                                   "bench_tree_XL.json"))
         # the launch floor: a trivial launch, a fill of a one-element CUDA
         # tensor, timed as the kernels are; K3 and K4 lines state their
         # multiple of it
@@ -175,9 +196,10 @@ class KernelPhase:
         return torch.randn(shape, generator=self.gen,
                            device=self.dev).to(torch.bfloat16)
 
-    def planes_of(self, L, S, quant):
+    def planes_of(self, L, S, quant, G=None):
         """Random K/V planes (and scale planes for int8) [L, B, G, S, W]."""
-        torch, B, G, W = self.torch, self.B, self.G, self.W
+        torch, B, W = self.torch, self.B, self.W
+        G = G or self.G
         if quant:
             return [torch.randint(-127, 128, (L, B, G, S, W),
                                   generator=self.gen, device=self.dev,
@@ -196,15 +218,66 @@ class KernelPhase:
                                             y.view(torch.uint8))
                    for x, y in zip(a, b))
 
-    def k1(self) -> dict:
-        from lantern_tpu_torch.ops.quant import (K1_MAX_ROWS, K1_STAGE_ROWS,
-                                                 int8_matmul,
+    def k1_shape(self, name: str, K: int, N: int, rows, rep_M, lane: str):
+        """K1 at one weight shape and each row count of ``rows``: error
+        against the plain version, a dropped k split caught, times.  Returns
+        ``(max error, record at rep_M or None, q, s)``."""
+        from lantern_tpu_torch.ops.quant import (K1_STAGE_ROWS, int8_matmul,
                                                  int8_matmul_cuda,
                                                  k1_split_stages, k1_splits)
         from lantern_tpu_torch.ops._cuda import sm_count
 
         torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
         gen, randn = self.gen, self.randn
+        q = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        s = (torch.rand((1, N), generator=gen, device=dev) + 0.5) * 2e-4
+        out_dt = torch.float32 if name == "lm_head" else torch.bfloat16
+        nsplit = k1_splits(K, N, sm_count(torch.device(dev, 0)))
+        # known-wrong variant: one k split's rows dropped (with one split,
+        # one stage's)
+        a, b = k1_split_stages(K, nsplit)[nsplit // 2]
+        if nsplit == 1:
+            b = a + 1
+        k1_err, rep = 0.0, None
+        for M in rows:
+            x = randn(M, K)
+            got = int8_matmul_cuda(x, q, s, out_dt)
+            ref = int8_matmul(x, q, s, out_dt)
+            torch.cuda.synchronize()
+            scale_ = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 1e-2 * scale_ + 1e-6
+            if not (err <= tol and torch.isfinite(got.float()).all()):
+                fail(f"K1 {lane}{name} M={M}: max err {err} > tol {tol}")
+            k1_err = max(k1_err, err)
+            x2 = x.clone()
+            x2[:, a * K1_STAGE_ROWS:b * K1_STAGE_ROWS] = 0
+            werr = (int8_matmul(x2, q, s, out_dt).float()
+                    - ref.float()).abs().max().item()
+            if werr <= tol:
+                fail(f"K1 {lane}{name} M={M}: tol {tol} does not separate a "
+                     f"wrong variant (k rows of stages [{a}, {b}) dropped: "
+                     f"err {werr})")
+            ms = timer(lambda: int8_matmul_cuda(x, q, s, out_dt))
+            plain = timer(lambda: int8_matmul(x, q, s, out_dt), reps=5)
+            lib = timer(lambda: (x @ q.to(torch.bfloat16)) * s, reps=5)
+            nbytes = M * K * 2 + K * N + N * 4 + M * N * (4 if out_dt == torch.float32 else 2)
+            b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
+            log(f"K1 int8_matmul {lane}{name} M={M} K={K} N={N} splits={nsplit}: "
+                f"max_abs_err {err:.3e} (tol {tol:.3e}; a dropped k split "
+                f"errs {werr:.3e}) ms {ms:.4f} plain_ms {plain:.4f} "
+                f"library_ms {lib:.4f} bound_ms {b_ms:.4f} ({b_by}) [{card}]")
+            if M == rep_M:
+                rep = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=b_ms, bound_by=b_by,
+                           shape=f"{lane}M={M} K={K} N={N} ({name})")
+        return k1_err, rep, q, s
+
+    def k1(self) -> dict:
+        from lantern_tpu_torch.ops.quant import K1_MAX_ROWS, int8_matmul_cuda
+
+        torch = self.torch
         # rows: AR 2, prefill 38, tree verify 64; the drafter's levels and
         # its extension run 2 x the level's / the path's rows; the long
         # prompt's prefill ends on a launch of 22 rows.  Together they take
@@ -217,52 +290,13 @@ class KernelPhase:
             fail(f"K1: the row counts {k1_rows} miss a width of the kernel")
         k1_err, k1_rep = 0.0, None
         for name, (K, N) in K1_SHAPES.items():
-            q = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
-                              dtype=torch.int8)
-            s = (torch.rand((1, N), generator=gen, device=dev) + 0.5) * 2e-4
-            out_dt = torch.float32 if name == "lm_head" else torch.bfloat16
-            nsplit = k1_splits(K, N, sm_count(torch.device(dev, 0)))
-            # known-wrong variant: one k split's rows dropped (with one
-            # split, one stage's)
-            a, b = k1_split_stages(K, nsplit)[nsplit // 2]
-            if nsplit == 1:
-                b = a + 1
-            for M in k1_rows:
-                x = randn(M, K)
-                got = int8_matmul_cuda(x, q, s, out_dt)
-                ref = int8_matmul(x, q, s, out_dt)
-                torch.cuda.synchronize()
-                scale_ = ref.float().abs().max().item()
-                err = (got.float() - ref.float()).abs().max().item()
-                tol = 1e-2 * scale_ + 1e-6
-                if not (err <= tol and torch.isfinite(got.float()).all()):
-                    fail(f"K1 {name} M={M}: max err {err} > tol {tol}")
-                k1_err = max(k1_err, err)
-                x2 = x.clone()
-                x2[:, a * K1_STAGE_ROWS:b * K1_STAGE_ROWS] = 0
-                werr = (int8_matmul(x2, q, s, out_dt).float()
-                        - ref.float()).abs().max().item()
-                if werr <= tol:
-                    fail(f"K1 {name} M={M}: tol {tol} does not separate a wrong "
-                         f"variant (k rows of stages [{a}, {b}) dropped: err "
-                         f"{werr})")
-                ms = timer(lambda: int8_matmul_cuda(x, q, s, out_dt))
-                plain = timer(lambda: int8_matmul(x, q, s, out_dt), reps=5)
-                lib = timer(lambda: (x @ q.to(torch.bfloat16)) * s, reps=5)
-                nbytes = M * K * 2 + K * N + N * 4 + M * N * (4 if out_dt == torch.float32 else 2)
-                b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
-                log(f"K1 int8_matmul {name} M={M} K={K} N={N} splits={nsplit}: "
-                    f"max_abs_err {err:.3e} (tol {tol:.3e}; a dropped k split "
-                    f"errs {werr:.3e}) ms {ms:.4f} plain_ms {plain:.4f} "
-                    f"library_ms {lib:.4f} bound_ms {b_ms:.4f} ({b_by}) [{card}]")
-                if name == "w_gu" and M == 64:
-                    k1_rep = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  shape=f"M={M} K={K} N={N} (w_gu, tree verify)")
+            err, rep, q, s = self.k1_shape(name, K, N, k1_rows,
+                                           64 if name == "w_gu" else None, "")
+            k1_err, k1_rep = max(k1_err, err), rep or k1_rep
             # a row's result depends on neither M nor the other rows: every
             # row of a launch of 1, 10 and 22 rows (the instruction's 8-, 16-
             # and 32-row widths) equals its row of the 64-row launch
-            x = randn(64, K)
+            x = self.randn(64, K)
             full = int8_matmul_cuda(x, q, s, torch.float32)
             for M in (1, 10, 22):
                 few = int8_matmul_cuda(x[:M], q, s, torch.float32)
@@ -273,6 +307,18 @@ class KernelPhase:
                          f"{(few - full[:M]).abs().max().item():.3e})")
             log(f"K1 int8_matmul {name} K={K} N={N}: row 0 at M=64 equals the "
                 f"M=1 launch bit for bit, and so do all rows of M=10 and M=22")
+        return dict(k1_rep, max_abs_err=k1_err)
+
+    def k1_xl(self) -> dict:
+        """K1 at LlamaGen-XL's six weight shapes and the XL paths' rows: 2
+        (AR), 52 (the 26-row tree), 118 (a 59-row dynamic tree), 240 (the
+        caption prefill)."""
+        k1_err, k1_rep = 0.0, None
+        for name, (K, N) in K1_SHAPES_XL.items():
+            err, rep, _, _ = self.k1_shape(name, K, N, (2, 52, 118, 240),
+                                           52 if name == "w_gu" else None,
+                                           "XL ")
+            k1_err, k1_rep = max(k1_err, err), rep or k1_rep
         return dict(k1_rep, max_abs_err=k1_err)
 
     def k2(self, grid: int) -> dict:
@@ -471,6 +517,161 @@ class KernelPhase:
                         f"{why} {e:.3e}" for why, e in werr.items()))
         return dict(k2_rep, max_abs_err=k2_err)
 
+    def k2_xl(self) -> dict:
+        """K2 with two 64-wide heads a 128-lane group (``pk = 2``) at
+        LlamaGen-XL's widths: B = 2, 10 groups of two heads, S = 512 (450
+        rows rounded up).  T = 1 (AR), 26 (the XL tree), 59 (a dynamic
+        tree), 120 (the caption prefill); the drafter's levels of 10 rows
+        behind windows of 0 to 30 rows on a bf16 one-layer cache.  Each case
+        must catch two known-wrong variants: the heads of a group swapped,
+        and one softmax over the 128-wide product shared by both."""
+        import torch.nn.functional as F
+
+        from lantern_tpu_torch.kv import group_blocks, quantize_rows
+        from lantern_tpu_torch.ops.tree_attention import (
+            NEG_INF, tree_attention_cuda, tree_attention_plain)
+
+        torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
+        B, G, S, W, hd = 2, 10, 512, 128, 64
+        nh, Tc, tree = 2 * G, 120, self.tree_xl
+        scale = hd ** -0.5
+        # (T, length, int8 KV, block mask, window)
+        cases = [(1, Tc + 255, True, "causal", 0),
+                 (1, Tc + 255, False, "causal", 0),
+                 (tree.num_nodes, 300, False, "tree", 0),
+                 (tree.num_nodes, 300, True, "tree", 0),
+                 (59, 300, True, "random", 0),
+                 (Tc, 0, True, "causal", 0), (Tc, 0, False, "causal", 0),
+                 (Tc, 0, True, "left-padded", 0)]
+        cases += [(10, 299, False, "random", w) for w in (0, 10, 20, 30)]
+        k2_err, k2_rep = 0.0, None
+        for T, length, quant, mkind, window in cases:
+            q, kn, vn = (self.randn(B, T, nh, hd) for _ in range(3))
+            kc, vc = self.randn(B, G, S, W), self.randn(B, G, S, W)
+            kw = {}
+            if quant:
+                (kc, ks), (vc, vs) = quantize_rows(kc), quantize_rows(vc)
+                kw = dict(k_scale=ks, v_scale=vs)
+            tril = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
+            if mkind == "tree":
+                mask = torch.as_tensor(tree.attn_mask, device=dev)[None]
+            elif mkind == "random":
+                mask = ((torch.rand((1, T, T), generator=self.gen, device=dev)
+                         < 0.4) | torch.eye(T, dtype=torch.bool, device=dev))
+            else:
+                mask = tril[None]
+            mask = mask.expand(B, T, T).contiguous()
+            dead = torch.zeros((B, T), dtype=torch.bool, device=dev)
+            if mkind == "left-padded":
+                # the cond row's first 108 caption rows are pads (a 10-word
+                # caption): a pad row sees no key at all, and both versions
+                # give it the mean of the whole cache plane's and the
+                # block's value rows
+                mask = mask & ~(torch.arange(T, device=dev) < 108)[None, None]
+                mask[1] = tril
+                dead[0, :108] = True
+            if window:
+                kw["window_mask"] = (torch.rand((T, window), generator=self.gen,
+                                                device=dev) < 0.5)
+            bias = torch.zeros((B, S), device=dev)
+            bias[1, :7] = NEG_INF
+            ln = torch.tensor(length, dtype=torch.int32, device=dev)
+            args = (q, kn, vn, kc, vc, ln, mask, bias, scale)
+            got = tree_attention_cuda(*args, **kw)
+            ref = tree_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            tol = 2e-2 * ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            what = (f"K2 tree_attention XL pk=2 S={S} T={T} length={length} "
+                    f"{'int8' if quant else 'bf16'} KV, {mkind} mask"
+                    f"{f', window {window}' if window else ''}")
+            if not (err <= tol and torch.isfinite(got.float()).all()):
+                fail(f"{what}: max err {err} > tol {tol}")
+            if bool(dead.any()):
+                # the means are small beside the other rows: their own scale
+                dtol = 2e-2 * ref[dead].float().abs().max().item()
+                derr = (got[dead].float() - ref[dead].float()).abs().max().item()
+                if not derr <= dtol:
+                    fail(f"{what}: rows that see no key, max err {derr} > tol "
+                         f"{dtol}")
+                log(f"{what}: the {int(dead.sum())} rows that see no key: "
+                    f"max_abs_err {derr:.3e} (tol {dtol:.3e} = 2e-2 * their "
+                    f"max|ref|)")
+            k2_err = max(k2_err, err)
+            swapped = ref.reshape(B, T, G, 2, hd).flip(3).reshape(ref.shape)
+            wide = tree_attention_plain(
+                q.reshape(B, T, G, W), kn.reshape(B, T, G, W),
+                vn.reshape(B, T, G, W), *args[3:], **kw).reshape(ref.shape)
+            werr = {}
+            for why, bad in (("heads swapped", swapped),
+                             ("one softmax for both heads", wide)):
+                werr[why] = (bad.float() - ref.float()).abs().max().item()
+                if werr[why] <= tol:
+                    fail(f"{what}: tol {tol} does not separate a wrong variant "
+                         f"({why}: err {werr[why]})")
+            ms = timer(lambda: tree_attention_cuda(*args, **kw))
+            plain = timer(lambda: tree_attention_plain(*args, **kw), reps=5)
+            # library yardstick: SDPA over the dequantized prefix (and
+            # window) + block, 20 heads of 64
+            vis = length + window
+
+            def heads(x):              # [B, G, n, 128] -> [B, 2G, n, 64]
+                return x.reshape(B, G, -1, 2, hd).transpose(2, 3).reshape(
+                    B, nh, -1, hd)
+            if quant:
+                kq, kqs = quantize_rows(group_blocks(kn))
+                vq, vqs = quantize_rows(group_blocks(vn))
+                kd = torch.cat([kc[:, :, :vis].float() * ks[:, :, :vis, None],
+                                kq.float() * kqs[..., None]], 2).bfloat16()
+                vd = torch.cat([vc[:, :, :vis].float() * vs[:, :, :vis, None],
+                                vq.float() * vqs[..., None]], 2).bfloat16()
+            else:
+                kd = torch.cat([kc[:, :, :vis], group_blocks(kn)], 2)
+                vd = torch.cat([vc[:, :, :vis], group_blocks(vn)], 2)
+            kd, vd = heads(kd), heads(vd)
+            am = (bias[:, None, None, :length] == 0).expand(B, 1, T, length)
+            if window:
+                am = torch.cat([am, kw["window_mask"][None, None].expand(
+                    B, 1, T, window)], -1)
+            am = torch.cat([am, mask[:, None]], dim=-1)
+            qh = q.transpose(1, 2)
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=am, scale=scale))
+            row = W * (1 if quant else 2) + (4 if quant else 0)
+            nbytes = (4 * B * T * G * W * 2 + 2 * B * G * vis * row
+                      + B * T * (T + window) + B * vis * 4)
+            b_ms, b_by = bound(nbytes, 4.0 * B * G * T * (vis + T) * W)
+            log(f"{what}: max_abs_err {err:.3e} (tol {tol:.3e} = 2e-2 * "
+                f"max|ref|) ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+                f"{lib:.4f} bound_ms {b_ms:.4f} ({b_by}) [{card}]")
+            log("  wrong variants' max err: " + "; ".join(
+                f"{why} {e:.3e}" for why, e in werr.items()))
+            if (T, quant, window) == (1, True, 0):
+                k2_rep = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              bound_ms=b_ms, bound_by=b_by,
+                              shape=f"XL pk=2 B=2 T=1 G=10 S=512 length="
+                                    f"{length} int8 KV")
+        # with nothing but itself visible to a row, its output is
+        # bf16(v_scale) * v_int8 of its own head: bit for bit
+        T = Tc
+        q, kn, vn = (self.randn(B, T, nh, hd) for _ in range(3))
+        kc, ks = quantize_rows(self.randn(B, G, S, W))
+        eye = torch.eye(T, dtype=torch.bool, device=dev)[None].expand(
+            B, T, T).contiguous()
+        args = (q, kn, vn, kc, kc, torch.zeros((), dtype=torch.int32,
+                                              device=dev), eye,
+                torch.zeros((B, S), device=dev), scale)
+        got = tree_attention_cuda(*args, k_scale=ks, v_scale=ks)
+        ref = tree_attention_plain(*args, k_scale=ks, v_scale=ks)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"K2 XL pk=2 T={T}: identity mask differs from the plain "
+                 f"version (max diff "
+                 f"{(got.float() - ref.float()).abs().max().item():.3e})")
+        log(f"K2 tree_attention XL pk=2 T={T} length=0, identity mask: equals "
+            f"the plain version bit for bit")
+        return dict(k2_rep, max_abs_err=k2_err)
+
     def judge(self, ms: float, b_ms: float, nbytes: float) -> str:
         """A K3 or K4 time against its bound, its rate and the launch floor;
         a bound under the floor is said, and the floor judges the time."""
@@ -480,14 +681,64 @@ class KernelPhase:
             out += " (bound under the launch floor: judged against the floor)"
         return out
 
-    def k3(self) -> dict:
+    def k3_case(self, L, T, start, quant, rows, S, G, lane=""):
+        """K3 at one case, byte-exact against its plain version over the
+        whole planes, the rows outside the block untouched; timed.  Returns
+        ``(max_abs_err, ms, plain_ms, bound_ms, bound_by)``."""
         from lantern_tpu_torch.kv import write_block_cuda, write_block_plain
 
         torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
-        tree, level_rows, randn = self.tree, self.level_rows, self.randn
-        B, G, W = self.B, self.G, self.W
-        planes_of, clones, same_bytes = (self.planes_of, self.clones,
-                                         self.same_bytes)
+        randn, B, W = self.randn, self.B, self.W
+        kn, vn = randn(L, B, T, G, W), randn(L, B, T, G, W)
+        if rows:
+            # t = 0: all-zero rows (scale 1/127); t = 1: amax 127, so
+            # scale 1 and every other value a tie k + 0.5; t = 2: amax
+            # 63.5, so scale 0.5 and the values (k + 0.5) / 2
+            i = torch.arange(W, device=dev, dtype=torch.float32)
+            ties = ((i % 126) + 0.5) * (1 - 2 * (i % 2))
+            ties[0] = 127.0
+            for x, sign in ((kn, 1.0), (vn, -1.0)):
+                x[:, :, 0] = 0
+                x[:, :, 1] = (sign * ties).to(torch.bfloat16)
+                x[:, :, 2] = (sign * ties / 2).to(torch.bfloat16)
+        mine = self.planes_of(L, S, quant, G)
+        ref, before = self.clones(mine), self.clones(mine)
+        st = torch.tensor(start, dtype=torch.int32, device=dev)
+        write_block_cuda(*mine, kn, vn, st)
+        write_block_plain(*ref, kn, vn, st)
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(mine, ref) if a is not None)
+        s0 = min(max(start, 0), S - T)
+        outside = torch.ones(S, dtype=torch.bool, device=dev)
+        outside[s0:s0 + T] = False
+        untouched = all(torch.equal(a[..., outside, :] if a.ndim == 5 else a[..., outside],
+                                    b[..., outside, :] if b.ndim == 5 else b[..., outside])
+                        for a, b in zip(mine, before) if a is not None)
+        kind = "int8" if quant else "bf16"
+        what = (f"K3 kv_write {lane}L={L} G={G} T={T} start={start}"
+                f"{f' (clamped to {s0})' if s0 != start else ''} {kind}"
+                f"{f', {rows}' if rows else ''}")
+        if err != 0 or not self.same_bytes(mine, ref) or not untouched:
+            fail(f"{what}: max err {err}, rows outside [start, start+T) "
+                 f"untouched: {untouched}")
+        one_127 = (torch.ones((), device=dev)
+                   / torch.full((), 127.0, device=dev))
+        if rows and not bool((mine[2][..., s0] == one_127).all()):
+            fail(f"{what}: an all-zero row's scale is not 1/127")
+        ms = timer(lambda: write_block_cuda(*mine, kn, vn, st))
+        plain = timer(lambda: write_block_plain(*mine, kn, vn, st), reps=5)
+        nbytes = 2 * L * B * T * G * W * 2 + 2 * L * B * T * G * (
+            W + 4 if quant else 2 * W)
+        b_ms, b_by = bound(nbytes, 0.0)
+        log(f"{what}: max_abs_err {err:.3e} (tol 0, byte-exact over the "
+            f"whole planes, other rows untouched) ms {ms:.4f} plain_ms "
+            f"{plain:.4f} library_ms null bound_ms {b_ms:.4f} ({b_by}; "
+            f"{self.judge(ms, b_ms, nbytes)}) [{card}]")
+        return err, ms, plain, b_ms, b_by
+
+    def k3(self) -> dict:
+        tree, level_rows = self.tree, self.level_rows
         # the bench lane's planes: the AR twin's row, the deferred commit's
         # accepted path, a prefill, the rollback path's 32-row provisional
         # tree block, the drafter's bf16 one-layer cache written at length +
@@ -496,7 +747,7 @@ class KernelPhase:
         # and rows of zeros and of exact rounding ties
         S = 2560
         off = 1237 + int(tree.levels[-1].block_offset)
-        k3_err, k3_rep = 0.0, None
+        k3_rep, k3_err = None, 0.0
         k3_cases = [(32, 1, 1301, True, ""), (32, 5, 777, True, ""),
                     (32, 19, 0, True, ""), (32, tree.num_nodes, 1301, True, ""),
                     (1, tree.path_len, 1237, False, ""),
@@ -506,95 +757,87 @@ class KernelPhase:
                     (32, 5, S - 5, True, ""), (32, 7, S - 3, True, ""),
                     (32, 5, 777, True, "zero rows and ties")]
         for L, T, start, quant, rows in k3_cases:
-            kn, vn = randn(L, B, T, G, W), randn(L, B, T, G, W)
-            if rows:
-                # t = 0: all-zero rows (scale 1/127); t = 1: amax 127, so
-                # scale 1 and every other value a tie k + 0.5; t = 2: amax
-                # 63.5, so scale 0.5 and the values (k + 0.5) / 2
-                i = torch.arange(W, device=dev, dtype=torch.float32)
-                ties = ((i % 126) + 0.5) * (1 - 2 * (i % 2))
-                ties[0] = 127.0
-                for x, sign in ((kn, 1.0), (vn, -1.0)):
-                    x[:, :, 0] = 0
-                    x[:, :, 1] = (sign * ties).to(torch.bfloat16)
-                    x[:, :, 2] = (sign * ties / 2).to(torch.bfloat16)
-            mine = planes_of(L, S, quant)
-            ref, before = clones(mine), clones(mine)
-            st = torch.tensor(start, dtype=torch.int32, device=dev)
-            write_block_cuda(*mine, kn, vn, st)
-            write_block_plain(*ref, kn, vn, st)
-            torch.cuda.synchronize()
-            err = max((a.float() - b.float()).abs().max().item()
-                      for a, b in zip(mine, ref) if a is not None)
-            s0 = min(max(start, 0), S - T)
-            outside = torch.ones(S, dtype=torch.bool, device=dev)
-            outside[s0:s0 + T] = False
-            untouched = all(torch.equal(a[..., outside, :] if a.ndim == 5 else a[..., outside],
-                                        b[..., outside, :] if b.ndim == 5 else b[..., outside])
-                            for a, b in zip(mine, before) if a is not None)
-            kind = "int8" if quant else "bf16"
-            what = (f"K3 kv_write L={L} T={T} start={start}"
-                    f"{f' (clamped to {s0})' if s0 != start else ''} {kind}"
-                    f"{f', {rows}' if rows else ''}")
-            if err != 0 or not same_bytes(mine, ref) or not untouched:
-                fail(f"{what}: max err {err}, rows outside [start, start+T) "
-                     f"untouched: {untouched}")
-            one_127 = (torch.ones((), device=dev)
-                       / torch.full((), 127.0, device=dev))
-            if rows and not bool((mine[2][..., s0] == one_127).all()):
-                fail(f"{what}: an all-zero row's scale is not 1/127")
+            err, ms, plain, b_ms, b_by = self.k3_case(L, T, start, quant,
+                                                      rows, S, self.G)
             k3_err = max(k3_err, err)
-            ms = timer(lambda: write_block_cuda(*mine, kn, vn, st))
-            plain = timer(lambda: write_block_plain(*mine, kn, vn, st), reps=5)
-            nbytes = 2 * L * B * T * G * W * 2 + 2 * L * B * T * G * (
-                W + 4 if quant else 2 * W)
-            b_ms, b_by = bound(nbytes, 0.0)
-            log(f"{what}: max_abs_err {err:.3e} (tol 0, byte-exact over the "
-                f"whole planes, other rows untouched) ms {ms:.4f} plain_ms "
-                f"{plain:.4f} library_ms null bound_ms {b_ms:.4f} ({b_by}; "
-                f"{self.judge(ms, b_ms, nbytes)}) [{card}]")
             if (L, T, start) == (32, 5, 777) and k3_rep is None:
                 k3_rep = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
                               bound_by=b_by, shape=f"L=32 B=2 T={T} G=32 int8")
-            del mine, ref, before
         return dict(k3_rep, max_abs_err=k3_err)
 
-    def k4(self) -> dict:
+    def k3_xl(self) -> dict:
+        """K3 at LlamaGen-XL's planes (L = 36, G = 10, S = 512): the caption
+        prefill (120 rows, bf16 and int8), the AR row, the static path's
+        deferred commit of a path (bf16), the dynamic path's 59-row
+        provisional tree (int8), the drafter's bf16 one-layer cache (a
+        level of 10 rows behind 30, the extension of a 6-row path)."""
+        tree = self.tree_xl
+        S, G, rep, k3_err = 512, 10, None, 0.0
+        for L, T, start, quant, rows in [
+                (36, 120, 0, False, ""), (36, 120, 0, True, ""),
+                (36, 1, 375, False, ""), (36, tree.path_len, 300, False, ""),
+                (36, 59, 300, True, ""), (36, 59, S - 59, True, ""),
+                (36, 59, 300, True, "zero rows and ties"),
+                (1, 10, 330, False, ""), (1, 6, 300, False, "")]:
+            err, ms, plain, b_ms, b_by = self.k3_case(L, T, start, quant,
+                                                      rows, S, G, "XL ")
+            k3_err = max(k3_err, err)
+            if (L, T, quant, rows) == (36, 59, True, "") and rep is None:
+                rep = dict(ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=b_ms, bound_by=b_by,
+                           shape="XL L=36 B=2 T=59 G=10 int8")
+        return dict(rep, max_abs_err=k3_err)
+
+    def k4(self, xl: bool = False) -> dict:
         from lantern_tpu_torch.kv import (gather_write_block_cuda,
                                           gather_write_block_plain,
                                           k4_staging)
 
         torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
-        tree = self.tree
-        B, G, W = self.B, self.G, self.W
+        B, W = self.B, self.W
         planes_of, clones, same_bytes = (self.planes_of, self.clones,
                                          self.same_bytes)
-        # the bench lane's planes, the tree's 32-row block and 5-row paths;
-        # then one accepted row (A = 1) and every row of the block moved (A =
-        # blk, a permutation without fixed points), whose bf16 rows are more
-        # than a warp's registers stage (the shared-memory path); byte-exact
-        # over the whole buffers
-        S = 2560
-        L, blk, A = 32, tree.num_nodes, tree.path_len
-        deep = [int(i) for i in tree.retrieve_indices[0]]        # a full path
-        short = [max(int(i), 0) for i in tree.retrieve_indices[-1]]
-        k4_cases = [
-            ("identity", True, [1237], [list(range(A))]),
-            ("a tree path", True, [777], [deep]),
-            ("pads past blk, start = S - blk", True, [S - blk],
-             [[0, 2, blk + 8, 99, -3][:A]]),
-            ("pads below their row, start = 0", True, [0], [[0, 3, 7, 1, 2][:A]]),
-            ("R=4 slots", True, [S - blk, 0, 777, 1301],
-             [deep, short, [0, 3, 7, 1, 2][:A], [blk - 1, blk + 8, 0, 0, 0][:A]]),
-            ("a tree path", False, [777], [deep]),
-            ("R=4 slots", False, [S - blk, 0, 777, 1301],
-             [deep, short, [0, 3, 7, 1, 2][:A], [blk - 1, blk + 8, 0, 0, 0][:A]]),
-            ("A = 1", True, [777], [[3]]),
-            ("A = blk, every row moved", True, [1301],
-             [[(7 * j + 3) % blk for j in range(blk)]]),
-            ("A = blk, every row moved", False, [1301],
-             [[(7 * j + 3) % blk for j in range(blk)]]),
-        ]
+        if xl:
+            # LlamaGen-XL's base planes (L = 36, G = 10, S = 512) and the
+            # dynamic path's rollback: a 59-row provisional tree, paths of at
+            # most depth + 2 = 6 nodes
+            S, L, G, blk, A, lane = 512, 36, 10, 59, 6, "XL "
+            deep = [0, 3, 14, 27, 41, 58]
+            k4_cases = [
+                ("a tree path", True, [300], [deep]),
+                ("identity", True, [375], [list(range(A))]),
+                ("pads past blk, start = S - blk", True, [S - blk],
+                 [[0, 2, blk + 8, 99, -3, 5]]),
+                ("A = 1", True, [300], [[3]]),
+                ("a tree path", False, [300], [deep])]
+        else:
+            # the bench lane's planes, the tree's 32-row block and 5-row
+            # paths; then one accepted row (A = 1) and every row of the
+            # block moved (A = blk, a permutation without fixed points),
+            # whose bf16 rows are more than a warp's registers stage (the
+            # shared-memory path); byte-exact over the whole buffers
+            tree = self.tree
+            S, L, G, lane = 2560, 32, self.G, ""
+            blk, A = tree.num_nodes, tree.path_len
+            deep = [int(i) for i in tree.retrieve_indices[0]]    # a full path
+            short = [max(int(i), 0) for i in tree.retrieve_indices[-1]]
+            k4_cases = [
+                ("identity", True, [1237], [list(range(A))]),
+                ("a tree path", True, [777], [deep]),
+                ("pads past blk, start = S - blk", True, [S - blk],
+                 [[0, 2, blk + 8, 99, -3][:A]]),
+                ("pads below their row, start = 0", True, [0], [[0, 3, 7, 1, 2][:A]]),
+                ("R=4 slots", True, [S - blk, 0, 777, 1301],
+                 [deep, short, [0, 3, 7, 1, 2][:A], [blk - 1, blk + 8, 0, 0, 0][:A]]),
+                ("a tree path", False, [777], [deep]),
+                ("R=4 slots", False, [S - blk, 0, 777, 1301],
+                 [deep, short, [0, 3, 7, 1, 2][:A], [blk - 1, blk + 8, 0, 0, 0][:A]]),
+                ("A = 1", True, [777], [[3]]),
+                ("A = blk, every row moved", True, [1301],
+                 [[(7 * j + 3) % blk for j in range(blk)]]),
+                ("A = blk, every row moved", False, [1301],
+                 [[(7 * j + 3) % blk for j in range(blk)]]),
+            ]
 
         def k4_wrong(planes, rel, start, how):
             """Known-wrong forms of the rollback on one slot (host indices)."""
@@ -615,7 +858,7 @@ class KernelPhase:
         k4_rep = None
         for what, quant, starts, rels in k4_cases:
             kind = "int8 + scales" if quant else "bf16"
-            mine = planes_of(L, S, quant)
+            mine = planes_of(L, S, quant, G)
             ref = clones(mine)
             st = torch.tensor(starts, dtype=torch.int32, device=dev)
             rl = torch.tensor(rels, dtype=torch.int32, device=dev)
@@ -629,7 +872,7 @@ class KernelPhase:
                 for how, rel, s0 in (
                         ("rows stored without staging", [0, 3, 7, 1, 2][:A], 0),
                         ("scales from the unclamped index",
-                         [0, 2, blk + 8, 99, -3][:A], 777)):
+                         [0, 2, blk + 8, 99, -3][:A], 300 if xl else 777)):
                     good, bad = clones(ref), clones(ref)
                     gather_write_block_plain(
                         *good, torch.tensor(rel, dtype=torch.int32, device=dev),
@@ -663,7 +906,7 @@ class KernelPhase:
             b_ms, b_by = bound(nbytes, 0.0)
             where = (f"registers, {staging} chunks a lane" if staging
                      else "shared memory")
-            log(f"K4 kv_gather L={L} B={B} G={G} S={S} blk={blk} A={n_rows} R="
+            log(f"K4 kv_gather {lane}L={L} B={B} G={G} S={S} blk={blk} A={n_rows} R="
                 f"{len(starts)} {kind}, {what} (staged in {where}): "
                 f"max_abs_err 0 (byte-exact over the whole buffers) ms "
                 f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
@@ -674,26 +917,34 @@ class KernelPhase:
             if (what, quant) == ("a tree path", True):
                 k4_rep = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                               bound_by=b_by, max_abs_err=0.0,
-                              shape=f"L=32 B=2 G=32 S={S} blk={blk} A={A} int8 "
-                                    f"+ scales")
+                              shape=f"{lane}L={L} B=2 G={G} S={S} blk={blk} "
+                                    f"A={A} int8 + scales")
             del mine, ref
         return k4_rep
 
 
 def phase_kernels(torch, timer, card: str, grid: int):
+    """Each kernel against its plain version at the shapes of both lanes'
+    main paths.  Returns ``{lane: {kernel: record}}``."""
     from lantern_tpu_torch.ops import _cuda
 
     phase = KernelPhase(torch, timer, card)
-    records = {"int8_matmul": phase.k1(), "tree_attention": phase.k2(grid),
-               "kv_write": phase.k3(), "kv_gather": phase.k4()}
+    records = {
+        "lumina": {
+            "int8_matmul": phase.k1(), "tree_attention": phase.k2(grid),
+            "kv_write": phase.k3(), "kv_gather": phase.k4()},
+        "xl": {
+            "int8_matmul": phase.k1_xl(), "tree_attention": phase.k2_xl(),
+            "kv_write": phase.k3_xl(), "kv_gather": phase.k4(xl=True)}}
     _cuda.reset_launches()
     return records
 
 
 def phase_sweep_splits(torch, timer, card: str) -> None:
     """Times K2 and K1 at split counts other than the ones ``k2_splits`` and
-    ``k1_splits`` choose (marked ``*``), at the decode lane's shapes, to hold
-    those rules against a card."""
+    ``k1_splits`` choose (marked ``*``), at the decode lanes' shapes (K2 also
+    at LlamaGen-XL's two heads a group), to hold those rules against a
+    card."""
     from lantern_tpu_torch.kv import quantize_rows
     from lantern_tpu_torch.ops import _cuda, quant, tree_attention as tta
 
@@ -709,11 +960,16 @@ def phase_sweep_splits(torch, timer, card: str) -> None:
         log(f"{what}, ms by splits (* = the rule's): " + "; ".join(times)
             + f" [{card}]")
 
-    B, G, W = KernelPhase.B, KernelPhase.G, KernelPhase.W
-    for S, T, length, quantized in [(2560, 1, 2371, True), (2560, 32, 1237, True),
-                                    (2560, 5, 1237, False), (384, 1, 290, True),
-                                    (384, 32, 155, True)]:
-        q, kn, vn = randn(B, T, G, W), randn(B, T, G, W), randn(B, T, G, W)
+    B, W = KernelPhase.B, KernelPhase.W
+    # (S, T, length, int8 KV, groups, heads a group): the Lumina lane, then
+    # LlamaGen-XL's 10 groups of two heads of 64
+    for S, T, length, quantized, G, pk in [
+            (2560, 1, 2371, True, 32, 1), (2560, 32, 1237, True, 32, 1),
+            (2560, 5, 1237, False, 32, 1), (384, 1, 290, True, 32, 1),
+            (384, 32, 155, True, 32, 1), (512, 1, 375, True, 10, 2),
+            (512, 26, 300, False, 10, 2), (512, 59, 300, True, 10, 2),
+            (512, 10, 299, False, 10, 2), (512, 120, 0, True, 10, 2)]:
+        q, kn, vn = (randn(B, T, G * pk, W // pk) for _ in range(3))
         kc, vc = randn(B, G, S, W), randn(B, G, S, W)
         kw = {}
         if quantized:
@@ -723,14 +979,15 @@ def phase_sweep_splits(torch, timer, card: str) -> None:
         args = (q, kn, vn, kc, vc,
                 torch.tensor(length, dtype=torch.int32, device="cuda"),
                 mask[None].expand(B, T, T).contiguous(),
-                torch.zeros((B, S), device="cuda"), W ** -0.5)
-        line(f"K2 S={S} T={T} length={length} "
+                torch.zeros((B, S), device="cuda"), (W // pk) ** -0.5)
+        line(f"K2 S={S} T={T} length={length} G={G} pk={pk} "
              f"{'int8' if quantized else 'bf16'} KV",
-             tta.k2_splits(B, G, S, T, sms),
+             tta.k2_splits(B, G, S, T, sms, pk),
              [n for n in (1, 2, 3, 4, 5, 6, 7, 8, 12)
               if n <= S // tta.K2_TILE_KEYS],
              lambda n: tta.tree_attention_launch(*args, n, **kw))
-    for name, (K, N) in K1_SHAPES.items():
+    for name, (K, N) in [*K1_SHAPES.items(),
+                         *((f"XL {n}", kn) for n, kn in K1_SHAPES_XL.items())]:
         q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
                           dtype=torch.int8)
         s = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
@@ -744,6 +1001,12 @@ def phase_sweep_splits(torch, timer, card: str) -> None:
                  [n for n in counts if n <= K // quant.K1_STAGE_ROWS],
                  lambda n: quant.int8_matmul_launch(x, q, s, n))
     _cuda.reset_launches()
+
+
+def on_device(params: dict, dev) -> dict:
+    """A params dict (one level of nested dicts) moved to ``dev``."""
+    return {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+                else v.to(dev)) for k, v in params.items()}
 
 
 def phase_forward(torch):
@@ -764,8 +1027,7 @@ def phase_forward(torch):
     tree = trees.get_tree(os.path.join("ckpts", "bench_tree_lumina.json"))
     outs = {}
     for dev in ("cpu", "cuda"):
-        p = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
-                 else v.to(dev)) for k, v in params.items()}
+        p = on_device(params, dev)
         rope = tfm.make_rope_tables(cfg, dev)
         kv = KVCache.create(cfg, 2, quantized=True, device=dev)
         g2 = torch.Generator().manual_seed(9)
@@ -797,8 +1059,7 @@ def phase_forward(torch):
     lv0, lv1 = tree.levels[0], tree.levels[1]
     outs = {}
     for dev in ("cpu", "cuda"):
-        p = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
-                 else v.to(dev)) for k, v in dparams.items()}
+        p = on_device(dparams, dev)
         head = (params["lm_head_q"].to(dev), params["lm_head_s"].to(dev))
         rope = tfm.make_rope_tables(dcfg.model, dev)
         kv = KVCache.create(dcfg.model, 2, device=dev)
@@ -832,13 +1093,99 @@ def phase_forward(torch):
             f"CPU plain max_abs_err {err:.3e} (tol {tol:.3e})")
 
 
-def rollback_launches(tree, layers: int, prompt: int, steps: int):
-    """``(totals, per verify step)``: the kernel launches of one
-    rollback-path run, derived from the tree: a
-    prefill (base forward over the prompt, drafter ``extend`` over it, first
-    draft) and ``steps`` verify steps (base tree forward + lm_head, one
-    rollback, ``extend`` over the path's rows, next draft).  K1 takes at
-    most ``K1_MAX_ROWS`` rows a launch; every forward here is CFG batch 2."""
+def phase_forward_llamagen(torch):
+    """Tiny LlamaGen forward (head_dim 64: two heads a 128-lane group, 2-D
+    rope, a left-padded caption prefix): kernels on the card vs the plain
+    path on the CPU, bf16, int8 KV, the XL tree after the prefix, then the
+    drafter's prefill over the base prefill's hidden states (the pad rows'
+    too: the drafter takes no mask) and a dynamic draft level (10 rows
+    behind a 20-row window)."""
+    from lantern_tpu_torch import configs, trees
+    from lantern_tpu_torch.kv import KVCache
+    from lantern_tpu_torch.models import drafter as drf
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops.quant import quantize_params
+
+    cfg = configs.tiny_config(vocab_size=512, hidden_size=256, num_layers=2,
+                              num_heads=4, cond_kind="caption", block_size=16,
+                              max_seq_len=64, dtype="bfloat16")
+    dcfg = configs.drafter_config(cfg)
+    gen = torch.Generator().manual_seed(6)
+    params = quantize_params(tfm.fuse_params(
+        tfm.init_params(gen, cfg, device="cpu")))
+    dparams = drf.init_drafter_params(gen, dcfg, params["embed"])
+    dparams = quantize_params(tfm.fuse_params(dparams))
+    tree = trees.get_tree(os.path.join("ckpts", "bench_tree_XL.json"))
+    Tc = cfg.cls_token_num
+    g2 = torch.Generator().manual_seed(12)
+    cond = torch.randn((1, Tc, cfg.caption_dim), generator=g2)
+    cond[:, :3] = 0
+    pv = torch.ones((2, 128), dtype=torch.bool)
+    pv[0, :3] = False
+    tids = torch.randint(0, 512, (2, tree.num_nodes), generator=g2)
+    ids = torch.randint(0, 512, (2, 10), generator=g2)
+    wm = torch.rand((10, 20), generator=g2) < 0.5
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = on_device(params, dev)
+        dp = on_device(dparams, dev)
+        rope = tfm.make_rope_tables(cfg, dev)
+        kv = KVCache.create(cfg, 2, quantized=True, device=dev)
+        emb = tfm.cond_embed(p, cfg, torch.cat(
+            [cond, p["cond"]["uncond"][None].float().cpu()]).to(dev))
+        block = (torch.tril(torch.ones((Tc, Tc), dtype=torch.bool))[None]
+                 & pv[:, None, :Tc]).to(dev)
+        res = tfm.forward(p, cfg, emb, kv, torch.arange(Tc, device=dev), rope,
+                          block_mask=block)
+        pos = Tc + torch.as_tensor(tree.depth, device=dev).long()
+        res2 = tfm.forward(p, cfg, tfm.token_embed(p, tids.to(dev)), res.kv,
+                           pos, rope, block_mask=torch.as_tensor(
+                               tree.attn_mask, device=dev),
+                           prefix_valid=pv.to(dev), commit=False)
+        got = [tfm.logits_head(p, res.hidden[:, -1:]),
+               tfm.logits_head(p, res2.hidden)]
+        # the drafter: its prefill over this device's base hidden states,
+        # as spec.prefill_request runs it, then a level of 10 rows behind a
+        # 20-row window of earlier provisional rows
+        drope = tfm.make_rope_tables(dcfg.model, dev)
+        hidden, dk = drf.extend(dp, dcfg, drope,
+                                KVCache.create(dcfg.model, 2, device=dev),
+                                torch.zeros((2, Tc), dtype=torch.int32,
+                                            device=dev), res.hidden, Tc)
+        x = drf.fuse_inputs(dp, ids.to(dev), hidden[:, -1:].expand(2, 10, -1))
+        lvl = tfm.forward(dp, dcfg.model, x, dk, dk.length.expand(10), drope,
+                          block_mask=torch.eye(10, dtype=torch.bool,
+                                               device=dev),
+                          window_mask=wm.to(dev), commit=False,
+                          write_offset=20)
+        got += [res.hidden, hidden,
+                drf._head_logits((p["lm_head_q"], p["lm_head_s"]),
+                                 lvl.hidden, 3.0)]
+        outs[dev] = [t.float().cpu() for t in got]
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        err = (a - b).abs().max().item()
+        tol = 5e-2 * a.abs().max().item()
+        if not (err <= tol and torch.isfinite(b).all()):
+            fail(f"forward (LlamaGen, pk=2) output {i}: card vs CPU max err "
+                 f"{err} > tol {tol}")
+        log(f"forward: tiny bf16 LlamaGen (head_dim 64, caption prefix with "
+            f"pads, int8 KV; prefix / XL tree / prefill hiddens / drafter "
+            f"prefill hiddens / drafter level) output {i}: "
+            f"card kernels vs CPU plain max_abs_err {err:.3e} (tol {tol:.3e})")
+
+
+def spec_launches(layers: int, prompt: int, steps: int, verify_rows: int,
+                  path_rows: int, levels, deferred: bool):
+    """``(totals, per verify step)``: the kernel launches of one spec run
+    with the EAGLE drafter, derived from its shapes: a prefill (base forward
+    over the ``prompt`` rows, drafter ``extend`` over them, first draft) and
+    ``steps`` verify steps (base forward over the ``verify_rows`` tree rows
+    + lm_head; a rollback (K4) unless ``deferred``, whose forward instead
+    commits the previous rows, one K3 either way; ``extend`` over the
+    ``path_rows`` of a path; the next draft).  A draft is a root head, then
+    per level of ``levels`` rows fc_w, a one-layer forward and the head.
+    K1 takes at most ``K1_MAX_ROWS`` rows a launch; every forward here is
+    CFG batch 2."""
     from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
 
     def k1(rows):
@@ -859,16 +1206,15 @@ def rollback_launches(tree, layers: int, prompt: int, steps: int):
     def extend(T):                       # fc_w + a one-layer forward
         return add({"int8_matmul": k1(T)}, forward(T, 1))
 
-    levels = [len(lv.child_flat_idx) for lv in tree.levels]
-    # root head, then per level: fc_w, a one-layer forward, the base head
     draft = add({"int8_matmul": k1(1)},
                 *[add({"int8_matmul": 2 * k1(n)}, forward(n, 1))
                   for n in levels])
     prefill = add(forward(prompt, layers), {"int8_matmul": k1(1)},
                   extend(prompt), draft)
-    step = add(forward(tree.num_nodes, layers),
-               {"int8_matmul": k1(tree.num_nodes), "kv_gather": 1},
-               extend(tree.path_len), draft)
+    step = add(forward(verify_rows, layers),
+               {"int8_matmul": k1(verify_rows),
+                "kv_gather": 0 if deferred else 1},
+               extend(path_rows), draft)
     return {k: prefill[k] + steps * step[k] for k in step}, step
 
 
@@ -990,8 +1336,10 @@ def phase_main_path(torch, grid: int, card: str):
         missing = [k for k in path if launch[k] == 0]
         if missing:
             fail(f"{name} run launched no {missing} kernel: {launch}")
-    want, per_step = rollback_launches(tree, cfg.num_layers, len(TEXT) + 3,
-                                       rres.steps)
+    want, per_step = spec_launches(
+        cfg.num_layers, len(TEXT) + 3, rres.steps, tree.num_nodes,
+        tree.path_len, [len(lv.child_flat_idx) for lv in tree.levels],
+        deferred=False)
     if roll_launch != want:
         fail(f"rollback path launched {roll_launch}, but the tree's levels "
              f"give {want} for {rres.steps} verify steps")
@@ -1091,6 +1439,185 @@ def phase_main_path(torch, grid: int, card: str):
             "ar": ar_launch, "long_prompt": long_launch}
 
 
+def phase_xl(torch, card: str):
+    """The LlamaGen-XL t2i lane at full width and depth (36 layers x 1280, 20
+    heads of 64, vocab 16384, 120 caption rows): random int8 W8A16 weights
+    from a seed, one left-padded ``RandomT5`` caption against the params'
+    ``uncond`` features, LANTERN k=10 delta=5, top-2000, cfg 3.0, the
+    hidden-passthrough drafter.  Three paths, each with the launch counters
+    reset just before and read just after, and a profile:
+    - the AR twin (``ar.generate``), 256 tokens, bf16 KV;
+    - static: the drafter proposes ``ckpts/bench_tree_XL.json``, deferred
+      commit, bf16 KV (the JAX bench's XL configuration);
+    - dynamic: EAGLE-2 with 59 tokens, depth 4, top-10, rollback commit (K4
+      once a verify step), int8 KV.
+    The launch counts must equal the ones derived from the tree or the
+    budgets, and every token must lie in the vocab.  Then the static path
+    with pinned choices (``pin=0.5``) must commit the same tokens in the same
+    steps with rollback commit as with deferred commit."""
+    import dataclasses
+
+    from lantern_tpu_torch import configs, trees
+    from lantern_tpu_torch.engine import ar, spec
+    from lantern_tpu_torch.models import drafter as drf
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops import _cuda
+    from lantern_tpu_torch.ops.acceptance import LanternSpec
+    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS, quantize_params
+    from lantern_tpu_torch.ops.sampling import LogitsWarp
+    from lantern_tpu_torch.ops.vq_distance import nearest_latents
+    from lantern_tpu_torch.utils.t5 import RandomT5, flip_for_left_padding
+
+    n_img = 256
+    cfg = configs.llamagen_config("XL", "t2i", image_tokens=n_img)
+    dcfg = configs.drafter_config(cfg, num_layers=1, total_tokens=59,
+                                  depth=4, top_k=10)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_params(tfm.fuse_params(
+        tfm.init_params(gen, cfg, device="cuda")))
+    cb = torch.randn((cfg.vocab_size, 8), generator=gen, device="cuda")
+    params["nearest_latents"] = torch.as_tensor(nearest_latents(cb, k=11),
+                                                device="cuda")
+    dparams = drf.init_drafter_params(
+        torch.Generator(device="cuda").manual_seed(101), dcfg, params["embed"])
+    H = cfg.hidden_size
+    fc = torch.zeros((2 * H, H), dtype=cfg.torch_dtype, device="cuda")
+    fc[H:] = torch.eye(H, dtype=cfg.torch_dtype, device="cuda")
+    dparams["fc_w"] = fc
+    dparams["layers"] = {k: v * 0 for k, v in dparams["layers"].items()}
+    dparams = quantize_params(tfm.fuse_params(dparams))
+    emb, mask = RandomT5(cfg.caption_dim, cfg.cls_token_num).get_text_embeddings(
+        [XL_CAPTION])
+    emb, mask = flip_for_left_padding(emb, mask)
+    cond = torch.as_tensor(emb, dtype=torch.float32, device="cuda")
+    uncond = params["cond"]["uncond"][None].float()
+    pv = torch.ones((2, cfg.cls_token_num), dtype=torch.bool, device="cuda")
+    pv[0] = torch.as_tensor(mask[0], device="cuda").bool()
+    n_pads = int((~pv[0]).sum())
+    torch.cuda.synchronize()
+    log(f"XL: LlamaGen-XL t2i int8 params and the one-layer passthrough "
+        f"drafter built on the card in {time.perf_counter() - t0:.1f} s "
+        f"(L={cfg.num_layers} H={H} heads={cfg.num_heads}x{cfg.head_dim} "
+        f"V={cfg.vocab_size} S={-(-cfg.max_seq_len // 128) * 128}); caption "
+        f"{cfg.cls_token_num} rows, {n_pads} of them left pads")
+
+    warp = LogitsWarp(temperature=1.0, top_k=2000, top_p=1.0)
+    tree = trees.get_tree(os.path.join("ckpts", "bench_tree_XL.json"))
+    static = spec.SpecDecodeConfig(
+        warp=warp, cfg_scale=3.0, lantern=LanternSpec(k=10, delta=5.0),
+        max_new=n_img, walk_batch_warp=True, deferred_commit=True)
+    dynamic = dataclasses.replace(static, mode="dynamic", kv_quant=True,
+                                  deferred_commit=False)
+    req = dict(cond=cond, uncond=uncond, prefix_valid=pv)
+
+    def run_spec(ecfg, seed, max_steps=0):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return spec.generate(params, ecfg, cfg, tree, None, g,
+                             max_steps=max_steps, dparams=dparams, dcfg=dcfg,
+                             **req)
+
+    def run_ar(seed, n):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return ar.generate(params, cfg, cond, uncond, n, 3.0, warp, g,
+                           prefix_valid=pv)
+
+    run_spec(static, 7, max_steps=2)      # warm-up (cuBLAS, allocator)
+    run_spec(dynamic, 7, max_steps=2)
+    run_ar(7, 3)
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, dict(_cuda.LAUNCHES)
+
+    torch.cuda.reset_peak_memory_stats()
+    ar_res, t_ar, ar_launch = timed(lambda: run_ar(8, n_img))
+    sres, t_st, st_launch = timed(lambda: run_spec(static, 8))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    dres, t_dyn, dyn_launch = timed(lambda: run_spec(dynamic, 8))
+    peak_dyn = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for name, toks, n in (("XL AR", ar_res.tokens, n_img),
+                          ("XL static", sres.tokens, sres.n_valid),
+                          ("XL dynamic", dres.tokens, dres.n_valid)):
+        if n != n_img or toks.shape[0] != n_img:
+            fail(f"{name} committed {n} of {toks.shape[0]} tokens, want "
+                 f"{n_img}")
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"{name}: a token outside [0, {cfg.vocab_size})")
+    for name, res in (("XL static", sres), ("XL dynamic", dres)):
+        if res.step_compression < 1.0:
+            fail(f"{name}: step compression {res.step_compression} < 1")
+    Tc, L = cfg.cls_token_num, cfg.num_layers
+
+    def k1(rows):
+        return -(-2 * rows // K1_MAX_ROWS)
+    want_ar = {"int8_matmul": 4 * L * k1(Tc) + 1 + n_img * (4 * L + 1),
+               "tree_attention": (1 + n_img) * L, "kv_write": 1 + n_img,
+               "kv_gather": 0}
+    want_st, step_st = spec_launches(
+        L, Tc, sres.steps, tree.num_nodes, tree.path_len,
+        [len(lv.child_flat_idx) for lv in tree.levels], deferred=True)
+    want_dyn, step_dyn = spec_launches(
+        L, Tc, dres.steps, dcfg.total_tokens, dcfg.depth + 2,
+        [dcfg.top_k] * dcfg.depth, deferred=False)
+    for name, got, want in (("XL AR", ar_launch, want_ar),
+                            ("XL static", st_launch, want_st),
+                            ("XL dynamic", dyn_launch, want_dyn)):
+        if got != want:
+            fail(f"{name} launched {got}, but its shapes give {want}")
+    if dyn_launch["kv_gather"] != dres.steps:
+        fail(f"XL dynamic: K4 ran {dyn_launch['kv_gather']} times in "
+             f"{dres.steps} steps")
+    log(f"XL AR [{card}] {n_img} tokens, bf16 KV: {n_img / t_ar:.2f} tok/s "
+        f"({t_ar:.2f} s); launches {ar_launch} = the derived counts")
+    log(f"XL static [{card}] {n_img} tokens, drafter (passthrough) + the "
+        f"calibrated {tree.num_nodes}-row tree + deferred commit, bf16 KV: "
+        f"{n_img / t_st:.2f} tok/s ({t_st:.2f} s, {sres.steps} verify steps, "
+        f"{sres.steps / t_st:.2f} steps/s, step compression "
+        f"{sres.step_compression:.3f}); static/AR {t_ar / t_st:.3f}; peak "
+        f"memory {peak:.2f} GiB; launches {st_launch} = the derived counts; "
+        f"per verify step {step_st}")
+    log(f"XL dynamic [{card}] {n_img} tokens, EAGLE-2 {dcfg.total_tokens}/"
+        f"{dcfg.depth}/{dcfg.top_k} + rollback, int8 KV: {n_img / t_dyn:.2f} "
+        f"tok/s ({t_dyn:.2f} s, {dres.steps} verify steps, "
+        f"{dres.steps / t_dyn:.2f} steps/s, step compression "
+        f"{dres.step_compression:.3f}); dynamic/AR {t_ar / t_dyn:.3f}; peak "
+        f"memory {peak_dyn:.2f} GiB; launches {dyn_launch} = the derived "
+        f"counts (K4 once a step); per verify step {step_dyn}")
+    profile("XL static (drafter + deferred), 6 verify steps",
+            lambda: run_spec(static, 9, max_steps=6), card)
+    profile("XL dynamic (EAGLE-2 + rollback), 6 verify steps",
+            lambda: run_spec(dynamic, 9, max_steps=6), card)
+    profile("XL ar, 12 tokens", lambda: run_ar(9, 12), card)
+
+    # end-to-end check of the XL paths at full depth: pinned choices make
+    # the static path deterministic, and its rollback commit (K4 on the 36
+    # bf16 planes) must commit what its deferred commit does, step by step
+    n_steps = 24
+    pinned = dataclasses.replace(static, pin=0.5)
+    runs = {d: run_spec(dataclasses.replace(pinned, deferred_commit=d), 10,
+                        max_steps=n_steps) for d in (False, True)}
+    a, b = runs[False], runs[True]
+    if not (torch.equal(a.tokens, b.tokens) and a.steps == b.steps == n_steps
+            and a.accept_sum == b.accept_sum):
+        fail(f"XL pinned rollback and deferred runs differ: steps {a.steps} / "
+             f"{b.steps}, accepted {a.accept_sum} / {b.accept_sum}, first "
+             f"difference at token "
+             f"{int((a.tokens != b.tokens).int().argmax())}")
+    log(f"XL rollback check [{card}]: pinned (pin=0.5) static drafter runs "
+        f"over the calibrated tree, deferred_commit False vs True: {n_steps} "
+        f"steps, {a.accept_sum} tokens, token-exact")
+    return {"xl_ar": ar_launch, "xl_static": st_launch,
+            "xl_dynamic": dyn_launch}
+
+
 def profile(what: str, fn, card: str) -> None:
     """Device time by kernel over one short run (torch.profiler), and the
     share of the run's wall time the card was busy: the union of the
@@ -1186,10 +1713,12 @@ def main() -> int:
         return 0
     records = phase_kernels(torch, timer, f"{card}, {smi}", args.grid)
     phase_forward(torch)
+    phase_forward_llamagen(torch)
     if args.kernels_only:
         log("kernels-only run: build, kernel and forward phases passed")
         return 0
     launches = phase_main_path(torch, args.grid, f"{card}, {smi}")
+    launches.update(phase_xl(torch, f"{card}, {smi}"))
 
     kernels = []
     for name, src, rep in (
@@ -1201,7 +1730,7 @@ def main() -> int:
              "lantern_tpu/ops/pallas/kv_update.py:170"),
             ("kv_gather", "lantern_tpu_torch/csrc/kv_gather.cu",
              "lantern_tpu/ops/pallas/kv_update.py:313")):
-        r = records[name]
+        r, x = records["lumina"][name], records["xl"][name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep,
                         "launches": launches["rollback"][name],
@@ -1210,7 +1739,10 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"]})
+                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        "xl": {k: x[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "shape")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,9 @@ Same frozen dataclasses and presets as the JAX package, with
 XLA or the TPU kernels (``use_flash_attention``, ``flash_min_seq``,
 ``dense_softmax``, ``dense_qk_mulsum_max_t``, ``scan_unroll``) have no
 counterpart here: the port has one attention path (``ops/tree_attention``).
+``dense_qk_mulsum_max_t`` in particular, which ``llamagen_config`` sets in
+the JAX package, picks how XLA lowers the decode block's contractions; the
+port's attention is the same function at every T.
 """
 
 from __future__ import annotations
@@ -93,6 +96,49 @@ def _ffn_dim(hidden: int, multiple_of: int = 256) -> int:
     return multiple_of * ((inner + multiple_of - 1) // multiple_of)
 
 
+def llamagen_config(
+    size: str = "B",
+    task: str = "c2i",
+    image_tokens: int = 256,
+    max_extra: int = 74,
+) -> ModelConfig:
+    """LlamaGen family: LLaMA blocks, 2-D interleaved rope over the image
+    grid, vocab 16384.  ``task`` 'c2i': a one-row class-label prefix; 't2i':
+    120 T5 caption rows.  ``image_tokens``: generated VQ tokens (256 for
+    256 px).  The sequence holds the prefix, the image and ``max_extra`` rows
+    of room for a provisional tree block.  Head_dim is 64 from B to XXL, so
+    the KV cache packs two heads into each 128-lane group ('nano' is a CPU
+    test size; '3B' has head_dim 100, which no 128-lane group packs)."""
+    dims = {
+        "nano": (2, 4, 64),
+        "B": (12, 12, 768),
+        "L": (24, 16, 1024),
+        "XL": (36, 20, 1280),
+        "XXL": (48, 24, 1536),
+        "3B": (24, 32, 3200),
+    }
+    n_layer, n_head, dim = dims[size]
+    if task == "c2i":
+        cond = dict(cond_kind="label", cls_token_num=1, num_classes=1000)
+    elif task == "t2i":
+        cond = dict(cond_kind="caption", cls_token_num=120, caption_dim=2048)
+    else:
+        raise ValueError(task)
+    return ModelConfig(
+        vocab_size=16384,
+        hidden_size=dim,
+        intermediate_size=_ffn_dim(dim),
+        num_layers=n_layer,
+        num_heads=n_head,
+        num_kv_heads=n_head,
+        rope_kind="2d",
+        rope_pairing="interleaved",
+        block_size=image_tokens,
+        max_seq_len=cond["cls_token_num"] + image_tokens + max_extra,
+        **cond,
+    )
+
+
 def chameleon_7b_config(max_seq_len: int = 4096, swin_norm: bool = False) -> ModelConfig:
     """Anole-7B / Lumina-mGPT-7B share the Chameleon-7B geometry:
     32L x 4096h x 32 heads, QK-norm, vocab 65536."""
@@ -149,8 +195,11 @@ def tiny_config(
 
 
 def drafter_config(base: ModelConfig, num_layers: int = 1, **kw) -> DrafterConfig:
-    """Drafter mirroring a base model's block geometry (see the JAX
-    counterpart for the per-family quirks)."""
+    """Drafter mirroring a base model's block geometry, one decoder layer by
+    default and always pre-norm with no final norm.  For a LlamaGen base
+    (a conditioning prefix) its first layer skips the input norm, and its
+    2-D rope prefix is one row shorter than the base's: its inputs are the
+    base's rows shifted left by one."""
     m = base.replace(
         num_layers=num_layers,
         cls_token_num=max(base.cls_token_num - 1, 0),

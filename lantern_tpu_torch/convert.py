@@ -4,7 +4,9 @@ The port keeps the JAX package's parameter layout, so the bridge is a
 checked leaf-by-leaf copy.  It accepts the split layout (``wq``/``wk``/
 ``wv``, ``w_gate``/``w_up``), the fused layout (``wqkv``, ``w_gu``), the
 quantized layout (``*_q`` int8 with ``*_s`` f32 scales, ``lm_head_q``/
-``lm_head_s``) and the LANTERN ``nearest_latents`` table;
+``lm_head_s``), the LANTERN ``nearest_latents`` table and the LlamaGen
+conditioning adapters ``cond`` (a label ``table``, or the caption MLP's
+``fc1``, ``fc2`` and ``uncond``; never quantized);
 ``convert_drafter_params`` carries an EAGLE drafter's pytree (``fc_w`` or
 ``fc_w_q``/``fc_w_s``, ``fc_b``, the shared ``embed``, no ``norm`` or
 ``lm_head``).  Leaves arrive as
@@ -21,7 +23,8 @@ from .device import resolve_device
 from .ops.quant import LAYER_KERNELS
 
 _TOP = {"embed", "norm", "lm_head", "lm_head_q", "lm_head_s",
-        "nearest_latents", "layers"}
+        "nearest_latents", "layers", "cond"}
+_COND = ({"table"}, {"fc1", "fc2", "uncond"})
 _DRAFTER_TOP = {"embed", "fc_w", "fc_w_q", "fc_w_s", "fc_b", "layers"}
 _LAYER = {"attn_norm", "ffn_norm", "q_norm_w", "q_norm_b", "k_norm_w",
           "k_norm_b"}
@@ -50,10 +53,8 @@ def _convert(params: dict, top: set, what: str, device, skip=()) -> dict:
     dev = resolve_device(device)
     unknown = set(params) - top
     if unknown:
-        raise ValueError(
-            f"{what}: entries {sorted(unknown)} belong to another pytree "
-            f"or to an unported lane (the conditioning adapters `cond`: "
-            f"LlamaGen/XL, ROADMAP queue 1, item 10)")
+        raise ValueError(f"{what}: unknown entries {sorted(unknown)} (they "
+                         f"belong to another pytree)")
     layers = params["layers"]
     unknown = set(layers) - _LAYER
     if unknown:
@@ -61,7 +62,13 @@ def _convert(params: dict, top: set, what: str, device, skip=()) -> dict:
     _check_pairs(set(layers), "layers")
     _check_pairs({n for n in params if n.endswith(("_q", "_s"))}, what)
     out = {k: to_tensor(v, dev) for k, v in params.items()
-           if k != "layers" and k not in skip}
+           if k not in ("layers", "cond") and k not in skip}
+    if "cond" in params:
+        if set(params["cond"]) not in _COND:
+            raise ValueError(f"{what}: cond must hold {sorted(_COND[0])} or "
+                             f"{sorted(_COND[1])}, got "
+                             f"{sorted(params['cond'])}")
+        out["cond"] = {k: to_tensor(v, dev) for k, v in params["cond"].items()}
     out["layers"] = {k: to_tensor(v, dev) for k, v in layers.items()}
     for n in list(out["layers"]) + list(out):
         if n.endswith("_q"):
@@ -72,8 +79,7 @@ def _convert(params: dict, top: set, what: str, device, skip=()) -> dict:
 
 
 def convert_params(params: dict, device=None) -> dict:
-    """Convert a Chameleon-family ``lantern_tpu`` base-model pytree (numpy
-    leaves) to the port's dict of tensors on ``device``.  Unknown entries
+    """Convert a ``lantern_tpu`` base-model pytree (numpy leaves) to the port's dict of tensors on ``device``.  Unknown entries
     raise (a drafter's pytree goes through ``convert_drafter_params``)."""
     out = _convert(params, _TOP, "convert_params", device)
     if "nearest_latents" in out:

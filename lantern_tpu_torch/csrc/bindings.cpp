@@ -16,7 +16,7 @@ int lantern_tree_attention(const void* q, const void* k_new, const void* v_new,
                            const void* length, const void* mask,
                            const void* wmask, const void* bias, void* out,
                            void* part, void* tickets, int B, int T, int G,
-                           int S, int window, int rows, int nsplit,
+                           int S, int window, int rows, int heads, int nsplit,
                            int quantized, float scale, void* stream);
 int lantern_kv_write(const void* k_new, const void* v_new, void* k_buf,
                      void* v_buf, void* k_scale, void* v_scale,
@@ -57,11 +57,11 @@ void int8_matmul(const at::Tensor& x, const at::Tensor& q, const at::Tensor& s,
         "int8_matmul");
 }
 
-// q/k_new/v_new/out [B, T, G, 128]; caches [B, G, S, 128]; when nsplit > 1
-// part holds the per-split partials and tickets (int32, zero between
-// launches) one counter per (b, g, row tile of `rows` query rows); wmask
-// [B, T, window] (or none) is the visibility of cache rows [length, length
-// + window)
+// q/k_new/v_new/out [B, T, nh, hd] with nh * hd = G * 128 (one head of 128
+// or two of 64 a group); caches [B, G, S, 128]; when nsplit > 1 part holds
+// the per-split partials and tickets (int32, zero between launches) one
+// counter per (b, g, row tile of `rows` query rows); wmask [B, T, window]
+// (or none) is the visibility of cache rows [length, length + window)
 void tree_attention(const at::Tensor& q, const at::Tensor& k_new,
                     const at::Tensor& v_new, const at::Tensor& k_cache,
                     const at::Tensor& v_cache,
@@ -80,7 +80,8 @@ void tree_attention(const at::Tensor& q, const at::Tensor& k_new,
             bias.data_ptr(), out.data_ptr(), ptr(part), ptr(tickets),
             q.size(0), q.size(1),
             k_cache.size(1), k_cache.size(2),
-            wmask.has_value() ? wmask->size(2) : 0, rows, nsplit,
+            wmask.has_value() ? wmask->size(2) : 0, rows,
+            q.size(2) / k_cache.size(1), nsplit,
             k_scale.has_value(),
             static_cast<float>(scale), stream_of(q)),
         "tree_attention");

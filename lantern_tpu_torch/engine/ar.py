@@ -1,11 +1,13 @@
-"""Vanilla CFG autoregressive decode loop over a token prompt — the 1.0x
-baseline the speculative engine is measured against.
+"""Vanilla CFG autoregressive decode loops — the 1.0x baseline the
+speculative engine is measured against.
 
-Counterpart of ``generate_tokens`` in ``lantern_tpu/engine/ar.py``: the
-cond/uncond rows carry their own position ids, every step samples ONE token
-from the CFG-combined logits and feeds it to both rows.  A plain Python
-loop replaces ``lax.fori_loop``; the only host read per step is the stop
-check when ``stop_ids`` is set.
+Counterpart of ``lantern_tpu/engine/ar.py``: ``generate`` prefills a
+LlamaGen conditioning prefix (class label or caption features, with the
+caption's pad mask) as the cond/uncond batch pair; ``generate_tokens``
+prefills a Chameleon token prompt whose cond/uncond rows carry their own
+position ids.  Every step samples ONE token from the CFG-combined logits
+and feeds it to both rows.  A plain Python loop replaces ``lax.fori_loop``;
+the only host read per step is the stop check when ``stop_ids`` is set.
 """
 
 from __future__ import annotations
@@ -28,6 +30,56 @@ class ARResult(NamedTuple):
     # committed length: max_new, or with stop_ids the index one past the
     # first stop id; -1 means "no stop tracking requested"
     n_valid: int = -1
+
+
+def generate(
+    params: dict,
+    cfg: ModelConfig,
+    cond: torch.Tensor,            # label ids [1] or caption feats [1, Tc, Dc]
+    uncond: torch.Tensor,          # the uncond counterpart (same shape)
+    max_new: int,
+    cfg_scale: float,
+    warp: LogitsWarp,
+    generator: Optional[torch.Generator],
+    rope=None,
+    prefix_valid: Optional[torch.Tensor] = None,   # [2, <= S] caption pads
+    kv_quant: bool = False,
+    device=None,
+) -> ARResult:
+    """LlamaGen base-mode CFG AR loop over an embedding prefix.
+    ``prefix_valid`` (bool, False on the caption's left pads) masks the pad
+    rows in the prefill block itself and in every later read."""
+    dev = resolve_device(device)
+    if rope is None:
+        rope = tfm.make_rope_tables(cfg, dev)
+    Tc = cfg.cls_token_num
+    embeds = tfm.cond_embed(params, cfg,
+                            torch.cat([cond, uncond], dim=0).to(dev))
+    kv = KVCache.create(cfg, 2, quantized=kv_quant, device=dev)
+    block = None
+    if prefix_valid is not None:
+        pv = torch.ones((2, kv.max_len), dtype=torch.bool, device=dev)
+        pv[:, :prefix_valid.shape[-1]] = prefix_valid.to(dev).bool()
+        prefix_valid = pv
+        block = (torch.tril(torch.ones((Tc, Tc), dtype=torch.bool,
+                                       device=dev))[None]
+                 & pv[:, None, :Tc])
+    res = tfm.forward(params, cfg, embeds, kv,
+                      torch.arange(Tc, device=dev), rope, block_mask=block)
+    kv = res.kv
+    logits = tfm.logits_head(params, res.hidden[:, -1])           # [2, V]
+    tok = sample_token(generator, cfg_combine(logits, cfg_scale), warp)
+    out = torch.zeros((max_new,), dtype=torch.int32, device=dev)
+    for i in range(max_new):
+        out[i] = tok[0]
+        emb = tfm.token_embed(params, tok[:, None].expand(2, 1))
+        res = tfm.forward(params, cfg, emb, kv,
+                          torch.full((1,), Tc + i, device=dev), rope,
+                          prefix_valid=prefix_valid)
+        kv = res.kv
+        logits = tfm.logits_head(params, res.hidden[:, -1])
+        tok = sample_token(generator, cfg_combine(logits, cfg_scale), warp)
+    return ARResult(tokens=out, kv=kv)
 
 
 def generate_tokens(

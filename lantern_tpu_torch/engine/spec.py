@@ -1,19 +1,26 @@
-"""Speculative decode engine, static EAGLE-1 mode.
+"""Speculative decode engine: static (EAGLE-1) and dynamic (EAGLE-2) trees.
 
-Counterpart of ``lantern_tpu/engine/spec.py`` for the Lumina lane:
-draft -> one tree-verify forward -> acceptance (greedy or LANTERN
-rejection-sampling walk) -> commit -> next draft.
+Counterpart of ``lantern_tpu/engine/spec.py``: draft -> one tree-verify
+forward -> acceptance (greedy or LANTERN rejection-sampling walk) -> commit
+-> next draft.
 
-Drafting is either the EAGLE drafter (``drafter.extend`` over the accepted
-rows, then ``drafter.draft_static``: one drafter forward per tree level) or,
-with ``stale_draft``, ``drafter.draft_stale`` (no drafter forwards).
+Drafting, static mode: the EAGLE drafter (``drafter.extend`` over the
+accepted rows, then ``drafter.draft_static``: one drafter forward per tree
+level) or, with ``stale_draft``, ``drafter.draft_stale`` (no drafter
+forwards).  Dynamic mode: ``drafter.draft_dynamic`` beam-expands a tree of
+its own shape each step (``DrafterConfig.total_tokens``, ``depth``,
+``top_k``).
 
 Commit is either provisional write + rollback (the verify forward writes
 all N+1 tree rows at ``length`` and ``KVCache.accept_path`` compacts the
-accepted ones: kernel K4) or, with ``deferred_commit``, deferred: the tree
-block's K/V never hit the cache, the state carries them and the NEXT verify
-forward commits only the accepted rows (``forward(extra_kv=...)``).  Both
-commit the same bytes.
+accepted ones: kernel K4) or, with ``deferred_commit`` (static mode only),
+deferred: the tree block's K/V never hit the cache, the state carries them
+and the NEXT verify forward commits only the accepted rows
+(``forward(extra_kv=...)``).  Both commit the same bytes.
+
+Two conditioning styles: a LlamaGen embedding prefix (``cond``/``uncond``
+label ids or caption features, ``prefix_valid`` for caption pads) or a
+Chameleon token prompt (``token_prompt``).
 
 A plain Python loop replaces ``lax.while_loop``; its condition reads three
 scalars back per step.  Everything else stays on the device.
@@ -38,22 +45,19 @@ from ..ops.sampling import LogitsWarp, categorical, cfg_combine, sample_token
 from ..trees import TreeSpec
 
 __all__ = ["SpecDecodeConfig", "SpecState", "SpecResult", "TokenPrompt",
-           "make_static_step", "prefill_request", "generate"]
-
-_NOT_PORTED = ("not ported yet: lantern_tpu_torch runs static (EAGLE-1) "
-               "mode only; dynamic (EAGLE-2) mode is ROADMAP queue 1, "
-               "item 13")
+           "make_static_step", "make_dynamic_step", "prefill_request",
+           "generate"]
 
 
 @dataclasses.dataclass(frozen=True)
 class SpecDecodeConfig:
-    """Static engine config (see the JAX counterpart for each field)."""
+    """Engine config (see the JAX counterpart for each field)."""
 
     warp: LogitsWarp = LogitsWarp()
     cfg_scale: float = 4.0
     lantern: acc.LanternSpec = acc.LanternSpec()
     max_new: int = 256
-    mode: str = "static"
+    mode: str = "static"            # "static" (EAGLE-1) | "dynamic" (EAGLE-2)
     kv_quant: bool = False
     # pin every stochastic choice: acceptance coins become this constant,
     # proposals deterministic top-k, bonus/t0 sampling argmax
@@ -68,15 +72,11 @@ class SpecDecodeConfig:
     def dwarp(self) -> LogitsWarp:
         return self.drafter_warp if self.drafter_warp is not None else self.warp
 
-    def check_ported(self) -> None:
-        if self.mode != "static":
-            raise NotImplementedError(_NOT_PORTED)
-
 
 class SpecState(NamedTuple):
     base_kv: KVCache
     draft_kv: Optional[KVCache]     # the drafter's cache (None when stale)
-    draft: drf.StaticDraft
+    draft: object                   # drf.StaticDraft | drf.DynamicDraft
     root_token: torch.Tensor        # [] sampled-but-unverified next token
     tokens: torch.Tensor            # [max_new + pad] committed ids
     n_new: torch.Tensor             # [] committed count
@@ -107,7 +107,8 @@ class _Ctx(NamedTuple):
     rope: tuple
     nearest: Optional[torch.Tensor]
     prefix_valid: torch.Tensor          # [2, S] bool
-    pos_offsets: torch.Tensor           # [2] per-branch position shift
+    pos_offsets: torch.Tensor           # [2] per-branch position shift (0s
+                                        # for an embedding prefix)
     logits_mask: Optional[torch.Tensor]
     logits_fn: object
     generator: Optional[torch.Generator]
@@ -115,7 +116,8 @@ class _Ctx(NamedTuple):
     dparams: Optional[dict] = None
     dcfg: Optional[DrafterConfig] = None
     drope: Optional[tuple] = None
-    # pad mask threaded into the drafter's forwards (token prompts)
+    # pad mask threaded into the drafter's forwards: token prompts only
+    # (the LlamaGen drafter takes no mask)
     drafter_pv: Optional[torch.Tensor] = None
     levels: tuple = ()                  # drafter.device_levels of the tree
 
@@ -129,6 +131,11 @@ def bind_logits_fn(logits_fn, pos_offsets):
     def bound(logits, positions):
         return logits_fn(logits, positions, start=pos_offsets[1])
     return bound
+
+
+def _safe_gather_ext(vec_ext: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather with -1 indices mapped to the last (pad) slot of ``vec_ext``."""
+    return vec_ext[torch.where(idx < 0, vec_ext.shape[0] - 1, idx).long()]
 
 
 def _mask_logits(logits, mask):
@@ -271,8 +278,8 @@ def make_static_step(ecfg: SpecDecodeConfig, cfg: ModelConfig,
         cand_vec = torch.cat([state.root_token.reshape(1).to(torch.int32),
                               d.ss_token.reshape(-1)])
         tree_tokens = cand_vec[tree_indices]                     # [N+1]
-        ext = torch.cat([tree_tokens, minus_one])
-        candidates = ext[torch.where(retrieve < 0, ext.shape[0] - 1, retrieve)]
+        candidates = _safe_gather_ext(torch.cat([tree_tokens, minus_one]),
+                                      retrieve)
         if sampling:
             node_q = torch.cat([ones, d.ss_prob.reshape(-1)])[tree_indices]
             level_probs = d.level_probs
@@ -307,20 +314,81 @@ def _draft_static(ecfg: SpecDecodeConfig, spec: TreeSpec, ctx: _Ctx,
         levels=ctx.levels)
 
 
+def make_dynamic_step(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx):
+    """One EAGLE-2 dynamic-tree speculative step: the draft carries its own
+    tree (tokens, ancestor mask, depths, root paths, children)."""
+    minus_one = torch.full((1,), -1, dtype=torch.int32,
+                           device=ctx.prefix_valid.device)
+    dcfg = ctx.dcfg
+
+    def step(state: SpecState) -> SpecState:
+        d: drf.DynamicDraft = state.draft
+        candidates = _safe_gather_ext(torch.cat([d.draft_tokens, minus_one]),
+                                      d.retrieve_indices)
+        state, root_hidden = _verify_and_update(
+            ecfg, cfg, ctx, state, candidates, None, None, d.children, None,
+            d.draft_tokens, d.tree_mask, d.tree_position_ids,
+            d.retrieve_indices, dcfg.depth + 1)
+        new_draft, dkv = _draft_dynamic(ecfg, ctx, state.draft_kv,
+                                        root_hidden, state.root_token)
+        return state._replace(draft=new_draft, draft_kv=dkv)
+
+    return step
+
+
+def _draft_dynamic(ecfg: SpecDecodeConfig, ctx: _Ctx, draft_kv: KVCache,
+                   root_hidden: torch.Tensor, root_token: torch.Tensor):
+    return drf.draft_dynamic(
+        ctx.dparams, ctx.dcfg, ctx.drope, draft_kv, root_hidden, root_token,
+        head_of(ctx.params), ecfg.cfg_scale, ecfg.dwarp,
+        pos_offsets=ctx.pos_offsets, logits_mask=ctx.logits_mask,
+        logits_fn=ctx.logits_fn, prefix_valid=ctx.drafter_pv)
+
+
+def _check_request(ecfg: SpecDecodeConfig, token_prompt, cond, uncond,
+                   prefix_valid, dparams, dcfg) -> None:
+    """The JAX engine's rejections, and the port's own checks of a call."""
+    if ecfg.mode not in ("static", "dynamic"):
+        raise ValueError(f"mode must be 'static' or 'dynamic', got "
+                         f"{ecfg.mode!r}")
+    if ecfg.stale_draft and ecfg.mode != "static":
+        raise ValueError("stale_draft requires mode='static'")
+    if ecfg.deferred_commit and ecfg.mode != "static":
+        raise ValueError("deferred_commit requires mode='static'")
+    if not ecfg.stale_draft and (dparams is None or dcfg is None):
+        raise ValueError("the EAGLE drafter (stale_draft=False, and dynamic "
+                         "mode) needs its weights: pass dparams and dcfg")
+    embedding = cond is not None or uncond is not None
+    if (token_prompt is not None) == embedding or (
+            embedding and (cond is None or uncond is None)):
+        raise ValueError("pass exactly one conditioning: token_prompt, or "
+                         "cond and uncond")
+    if token_prompt is not None and prefix_valid is not None:
+        raise ValueError("pass padding via token_prompt.valid, not "
+                         "prefix_valid, for token-prompt requests")
+
+
 def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
-                    spec: TreeSpec, token_prompt: TokenPrompt,
-                    generator: Optional[torch.Generator],
+                    spec: Optional[TreeSpec],
+                    token_prompt: Optional[TokenPrompt] = None,
+                    generator: Optional[torch.Generator] = None,
                     logits_mask: Optional[torch.Tensor] = None,
                     logits_fn=None, device=None,
                     dparams: Optional[dict] = None,
-                    dcfg: Optional[DrafterConfig] = None):
-    """Prefill one token-prompt request: base (and drafter) prefix, first
-    token, first draft tree.  Returns ``(SpecState, ctx)``.  ``dparams``
-    and ``dcfg`` are the EAGLE drafter; stale drafting needs neither."""
-    ecfg.check_ported()
-    if not ecfg.stale_draft and (dparams is None or dcfg is None):
-        raise ValueError("stale_draft=False drafts with the EAGLE drafter: "
-                         "pass dparams and dcfg")
+                    dcfg: Optional[DrafterConfig] = None,
+                    cond: Optional[torch.Tensor] = None,
+                    uncond: Optional[torch.Tensor] = None,
+                    prefix_valid: Optional[torch.Tensor] = None):
+    """Prefill one request: base (and drafter) prefix, first token, first
+    draft tree.  Returns ``(SpecState, ctx)``.
+
+    Conditioning: a token prompt (``token_prompt``), or an embedding prefix
+    (``cond``/``uncond``: label ids [1] or caption features [1, Tc, Dc],
+    with ``prefix_valid`` [2, <= S] False on caption pads).  ``dparams`` and
+    ``dcfg`` are the EAGLE drafter, needed unless ``ecfg.stale_draft``;
+    ``spec`` is the static tree (unused in dynamic mode)."""
+    _check_request(ecfg, token_prompt, cond, uncond, prefix_valid, dparams,
+                   dcfg)
     dev = resolve_device(device)
     rope = tfm.make_rope_tables(cfg, dev)
     nearest = params.get("nearest_latents")
@@ -328,61 +396,92 @@ def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
         raise ValueError("lantern enabled but params lack 'nearest_latents'")
     base_kv = KVCache.create(cfg, 2, quantized=ecfg.kv_quant, device=dev)
     S = base_kv.max_len
-    tp = token_prompt.to(dev)
-    L = tp.tokens.shape[1]
     pv = torch.ones((2, S), dtype=torch.bool, device=dev)
-    pv[:, :L] = tp.valid.bool()
-    offs = torch.stack([torch.zeros((), dtype=torch.int32, device=dev),
-                        tp.pos_diff.to(torch.int32)])
-    ctx = _Ctx(params=params, rope=rope, nearest=nearest, prefix_valid=pv,
-               pos_offsets=offs, logits_mask=logits_mask,
-               logits_fn=bind_logits_fn(logits_fn, offs), generator=generator)
+    zero2 = torch.zeros((2,), dtype=torch.int32, device=dev)
+    if token_prompt is not None:
+        tp = token_prompt.to(dev)
+        L = tp.tokens.shape[1]
+        pv[:, :L] = tp.valid.bool()
+        offs = torch.stack([zero2[0], tp.pos_diff.to(torch.int32)])
+        ctx = _Ctx(params=params, rope=rope, nearest=nearest, prefix_valid=pv,
+                   pos_offsets=offs, logits_mask=logits_mask,
+                   logits_fn=bind_logits_fn(logits_fn, offs),
+                   generator=generator, drafter_pv=pv)
+        block = (torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                       device=dev))[None]
+                 & tp.valid.bool()[:, None, :])
+        res = tfm.forward(params, cfg, tfm.token_embed(params, tp.tokens),
+                          base_kv, tp.positions, rope, block_mask=block)
+    else:
+        # an embedding prefix: its pad mask masks the prefill block itself
+        # as well as every later read of the cached prefix
+        L = cfg.cls_token_num
+        if prefix_valid is not None:
+            pv[:, :prefix_valid.shape[-1]] = prefix_valid.to(dev).bool()
+        ctx = _Ctx(params=params, rope=rope, nearest=nearest, prefix_valid=pv,
+                   pos_offsets=zero2, logits_mask=logits_mask,
+                   logits_fn=logits_fn, generator=generator)
+        embeds = tfm.cond_embed(params, cfg,
+                                torch.cat([cond, uncond], dim=0).to(dev))
+        block = (torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                       device=dev))[None] & pv[:, None, :L])
+        res = tfm.forward(params, cfg, embeds, base_kv,
+                          torch.arange(L, device=dev), rope, block_mask=block)
     if not ecfg.stale_draft:
-        ctx = ctx._replace(
-            dparams=dparams, dcfg=dcfg, drafter_pv=pv,
-            drope=tfm.make_rope_tables(dcfg.model, dev),
-            levels=drf.device_levels(spec, dev))
-    block = (torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None]
-             & tp.valid.bool()[:, None, :])
-    res = tfm.forward(params, cfg, tfm.token_embed(params, tp.tokens),
-                      base_kv, tp.positions, rope, block_mask=block)
+        ctx = ctx._replace(dparams=dparams, dcfg=dcfg,
+                           drope=tfm.make_rope_tables(dcfg.model, dev))
+        if ecfg.mode == "static":
+            ctx = ctx._replace(levels=drf.device_levels(spec, dev))
     base_kv = res.kv
     logits0 = cfg_combine(tfm.logits_head(params, res.hidden[:, -1:]),
                           ecfg.cfg_scale)
     first = _mask_logits(logits0[0, -1], logits_mask)
-    if ctx.logits_fn is not None:
+    if token_prompt is not None and ctx.logits_fn is not None:
         first = ctx.logits_fn(first[None, :], torch.full(
             (1,), L - 1, dtype=torch.int32, device=dev))[0]
     t0 = (torch.argmax(first) if ecfg.pin is not None
           else sample_token(generator, first, ecfg.warp)).to(torch.int32)
+    draft_kv = None
     if ecfg.stale_draft:
-        draft_kv = None
         draft = drf.draft_stale(spec, logits0[0, -1], base_kv.length,
                                 ecfg.dwarp, generator, logits_mask=logits_mask,
                                 logits_fn=ctx.logits_fn, pin=ecfg.pin)
     else:
-        # drafter prefill: the prompt's tokens shifted left one (the first
-        # generated token closes the stream), the base hiddens aligned; pad
-        # rows are masked inside the prompt block too
-        dtok = torch.cat([tp.tokens[:, 1:],
-                          t0.reshape(1, 1).expand(2, 1).to(tp.tokens.dtype)],
-                         dim=1)
-        dpos = torch.clamp(torch.arange(L, device=dev)[None, :]
-                           - offs[:, None], min=0)
-        out_hidden, dk = drf.extend(
-            dparams, dcfg, ctx.drope,
-            KVCache.create(dcfg.model, 2, device=dev), dtok, res.hidden, L,
-            prefix_valid=pv, positions=dpos, block_valid=tp.valid)
-        draft, draft_kv = _draft_static(ecfg, spec, ctx, dk,
-                                        out_hidden[:, -1:])
+        # drafter prefill: the base rows' next tokens (the prompt shifted
+        # left one, or for an embedding prefix Tc - 1 zeros; the first
+        # generated token closes the stream) with the base hiddens aligned
+        dk = KVCache.create(dcfg.model, 2, device=dev)
+        t0_2 = t0.reshape(1, 1).expand(2, 1)
+        if token_prompt is not None:
+            dtok = torch.cat([tp.tokens[:, 1:], t0_2.to(tp.tokens.dtype)],
+                             dim=1)
+            dpos = torch.clamp(torch.arange(L, device=dev)[None, :]
+                               - ctx.pos_offsets[:, None], min=0)
+            out_hidden, dk = drf.extend(
+                dparams, dcfg, ctx.drope, dk, dtok, res.hidden, L,
+                prefix_valid=pv, positions=dpos, block_valid=tp.valid)
+        else:
+            dtok = torch.cat([torch.zeros((2, L - 1), dtype=torch.int32,
+                                          device=dev), t0_2], dim=1)
+            out_hidden, dk = drf.extend(dparams, dcfg, ctx.drope, dk, dtok,
+                                        res.hidden, L)
+        if ecfg.mode == "static":
+            draft, draft_kv = _draft_static(ecfg, spec, ctx, dk,
+                                            out_hidden[:, -1:])
+        else:
+            draft, draft_kv = _draft_dynamic(ecfg, ctx, dk,
+                                             out_hidden[:, -1:], t0)
 
     def zero(dtype=torch.int32):
         return torch.zeros((), dtype=dtype, device=dev)
 
+    # the committed stream is written in fixed blocks of a path's length at
+    # n_new: pad the buffer by one block
+    pad = (spec.path_len if ecfg.mode == "static" else dcfg.depth + 2) + 1
     state = SpecState(
         base_kv=base_kv, draft_kv=draft_kv, draft=draft, root_token=t0,
-        tokens=torch.zeros((ecfg.max_new + spec.path_len + 1,),
-                           dtype=torch.int32, device=dev),
+        tokens=torch.zeros((ecfg.max_new + pad,), dtype=torch.int32,
+                           device=dev),
         n_new=zero(), steps=zero(), accept_sum=zero(),
         stopped=zero(torch.bool))
     if ecfg.deferred_commit:
@@ -398,20 +497,28 @@ def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
 
 
 def generate(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
-             spec: TreeSpec, token_prompt: TokenPrompt,
-             generator: Optional[torch.Generator], max_steps: int = 0,
+             spec: Optional[TreeSpec],
+             token_prompt: Optional[TokenPrompt] = None,
+             generator: Optional[torch.Generator] = None, max_steps: int = 0,
              logits_mask: Optional[torch.Tensor] = None, logits_fn=None,
              device=None, dparams: Optional[dict] = None,
-             dcfg: Optional[DrafterConfig] = None) -> SpecResult:
-    """Full speculative generation for one token-prompt request (CFG
-    cond/uncond as the batch pair).  ``dparams``/``dcfg``: the EAGLE
-    drafter, needed unless ``ecfg.stale_draft``."""
+             dcfg: Optional[DrafterConfig] = None,
+             cond: Optional[torch.Tensor] = None,
+             uncond: Optional[torch.Tensor] = None,
+             prefix_valid: Optional[torch.Tensor] = None) -> SpecResult:
+    """Full speculative generation for one request (CFG cond/uncond as the
+    batch pair), conditioned on a token prompt or on an embedding prefix
+    (see ``prefill_request``).  ``dparams``/``dcfg``: the EAGLE drafter,
+    needed unless ``ecfg.stale_draft``; ``spec``: the static tree, unused
+    in dynamic mode."""
     max_steps = max_steps or ecfg.max_new
     state, ctx = prefill_request(params, ecfg, cfg, spec, token_prompt,
                                  generator, logits_mask=logits_mask,
                                  logits_fn=logits_fn, device=device,
-                                 dparams=dparams, dcfg=dcfg)
-    step = make_static_step(ecfg, cfg, spec, ctx)
+                                 dparams=dparams, dcfg=dcfg, cond=cond,
+                                 uncond=uncond, prefix_valid=prefix_valid)
+    step = (make_static_step(ecfg, cfg, spec, ctx) if ecfg.mode == "static"
+            else make_dynamic_step(ecfg, cfg, ctx))
     n_new = steps = 0
     stopped = False
     while n_new < ecfg.max_new and steps < max_steps and not stopped:

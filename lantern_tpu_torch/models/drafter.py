@@ -1,4 +1,4 @@
-"""EAGLE-style drafter and static-tree drafting.
+"""EAGLE-style drafter: static (EAGLE-1) and dynamic (EAGLE-2) drafting.
 
 Counterpart of ``lantern_tpu/models/drafter.py``: a shallow decoder that
 predicts the base model's next hidden state from (token embedding, previous
@@ -13,9 +13,17 @@ hiddens, CFG-combined across the cond/uncond batch pair.
   see the earlier levels' rows through the forward's ``window_mask``;
 - ``draft_stale`` is the drafter-free form: every node proposes from the
   base model's distribution at the last accepted node, which is what the
-  hidden-passthrough drafter (``fc_w = [0; I]``, zeroed layers) computes.
+  hidden-passthrough drafter (``fc_w = [0; I]``, zeroed layers) computes;
+- ``draft_dynamic`` (EAGLE-2) beam-expands ``depth`` levels of ``top_k``
+  rows each (level ``i`` written at ``length + i * top_k`` behind a window
+  of the earlier levels' rows), keeps the best ``total_tokens - 1`` nodes
+  by cumulative log-probability and re-assembles them into a tree (ancestor
+  closure, children table, all-node root paths in lexicographic order).
 
-``draft_dynamic`` (EAGLE-2) is not ported yet.
+Every top-k that can decide a tree goes through ``topk_stable``: among
+equal values the lower index comes first, as in ``jax.lax.top_k``.  With the
+passthrough drafter a level's rows share one distribution, so ties there
+are the rule, not the exception.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from ..configs import DrafterConfig
 from ..kv import KVCache
 from ..ops.quant import head_matmul, mm
 from ..ops.sampling import (LogitsWarp, cfg_combine, residual_q,
-                            sample_without_replacement, uniform, warp_logits)
+                            sample_without_replacement, topk_stable, uniform,
+                            warp_logits)
 from ..trees import TreeSpec
 from . import transformer as tfm
 
@@ -129,12 +138,11 @@ def _sample_rows(logits: torch.Tensor, generator: Optional[torch.Generator],
     if warp.active:
         probs = torch.softmax(warp_logits(logits, warp), dim=-1)
         if pin is not None:
-            p_sel, idx = torch.topk(probs, K, dim=-1)
+            p_sel, idx = topk_stable(probs, K)
             return idx.to(torch.int32), residual_q(p_sel), probs
         idx, q = sample_without_replacement(generator, probs, K)
         return idx, q, probs
-    idx = torch.topk(logits, K, dim=-1).indices
-    vals = torch.gather(logits, -1, idx)
+    vals, idx = topk_stable(logits, K)
     return (idx.to(torch.int32), vals,
             torch.zeros((logits.shape[0], 0), dtype=torch.float32,
                         device=logits.device))
@@ -291,4 +299,147 @@ def draft_static(
         ss_token=torch.cat(ss_token, dim=0),
         ss_prob=torch.cat(ss_prob, dim=0).float(),
         level_probs=tuple(level_probs),
+    ), kv
+
+
+class DynamicDraft(NamedTuple):
+    draft_tokens: torch.Tensor       # [N+1] int32, the committed root first
+    retrieve_indices: torch.Tensor   # [N+1, depth+2] root paths, -1 pads
+    tree_mask: torch.Tensor          # [N+1, N+1] bool ancestor-or-self
+    tree_position_ids: torch.Tensor  # [N+1] node depths
+    children: torch.Tensor           # [N+1, top_k] child slots, -1 pads
+
+
+def _ancestor_closure(parent: torch.Tensor, depth_bound: int) -> torch.Tensor:
+    """``parent`` [n] (the root's parent is 0) -> the ancestor-or-self
+    matrix [n, n] bool; column 0 (the root) is always visible."""
+    n = parent.shape[0]
+    A = torch.eye(n, dtype=torch.bool, device=parent.device)
+    A[:, 0] = True
+    for _ in range(depth_bound):
+        A = A | A[parent]
+    return A
+
+
+def draft_dynamic(
+    params: dict,
+    dcfg: DrafterConfig,
+    rope,
+    kv: KVCache,
+    root_hidden: torch.Tensor,   # [2, 1, H] drafter output at the root token
+    root_token: torch.Tensor,    # [] committed root token id
+    base_lm_head,
+    cfg_scale: float,
+    warp: LogitsWarp,
+    pos_offsets: Optional[torch.Tensor] = None,
+    logits_mask: Optional[torch.Tensor] = None,
+    logits_fn=None,
+    prefix_valid: Optional[torch.Tensor] = None,
+):
+    """EAGLE-2 dynamic beam drafting.  Returns the draft and the cache whose
+    buffers hold the ``depth * top_k`` provisional level rows (length
+    unchanged).  Deterministic given the drafter's logits: every choice is
+    a top-k of (warped) log-probabilities."""
+    K, depth = dcfg.top_k, dcfg.depth
+    N = dcfg.total_tokens - 1          # nodes besides the root
+    dev = root_hidden.device
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def head_logp(hidden, shift: int, n: int):
+        logits = _head_logits(base_lm_head, hidden, cfg_scale, logits_mask,
+                              logits_fn, (kv.length + shift).to(
+                                  torch.int32).expand(n))
+        return torch.log_softmax(warp_logits(logits, warp), dim=-1)
+
+    # the root row scores depth-1 tokens (cond position kv.length + 1)
+    topk_p, topk_i = topk_stable(head_logp(root_hidden, 0, 1), K)   # [1, K]
+    scores = topk_p[0]
+    scores_list, ss_list = [scores], [topk_i[0]]
+    parents_list = [torch.zeros((1,), **i32)]
+    tokens = topk_i.to(torch.int32).expand(2, K)
+    input_hidden = root_hidden.expand(2, K, root_hidden.shape[-1])
+    eye = torch.eye(K, dtype=torch.bool, device=dev)
+    tree_mask = eye                                    # [K, K * (i + 1)]
+    topk_cs_index = torch.arange(K, **i32)
+    for i in range(depth):
+        x = fuse_inputs(params, tokens, input_hidden)
+        pos = (kv.length + i).to(torch.int32).expand(K)
+        if pos_offsets is not None:
+            pos = torch.clamp(pos[None, :] - pos_offsets[:, None], min=0)
+        res = tfm.forward(
+            params, dcfg.model, x, kv, positions=pos, rope=rope,
+            block_mask=tree_mask[:, i * K:], prefix_valid=prefix_valid,
+            window_mask=tree_mask[:, :i * K] if i else None, commit=False,
+            write_offset=i * K)
+        kv = res.kv
+        out_hidden = res.hidden                                  # [2, K, H]
+        bias = 1 + K * K * max(i - 1, 0) + (K if i > 0 else 0)
+        parents_list.append(topk_cs_index + bias)
+        # level-i rows sit at cond position kv.length + i + 1
+        topk_p, topk_i = topk_stable(head_logp(out_hidden, i + 1, K), K)
+        cu = topk_p + scores[:, None]                            # [K, K]
+        scores, topk_cs_index = topk_stable(cu.reshape(-1), K)
+        topk_cs_index = topk_cs_index.to(torch.int32)
+        out_ids = (topk_cs_index // K).long()
+        input_hidden = out_hidden.index_select(1, out_ids)
+        tokens = topk_i.reshape(-1)[topk_cs_index.long()].to(
+            torch.int32)[None, :].expand(2, K)
+        ss_list.append(topk_i.reshape(-1))
+        scores_list.append(cu.reshape(-1))
+        tree_mask = torch.cat([tree_mask[out_ids], eye], dim=1)
+
+    scores_flat = torch.cat(scores_list)                 # [K + depth * K^2]
+    ss_flat = torch.cat(ss_list)
+    top_idx = torch.sort(topk_stable(scores_flat, N)[1]).values
+    draft_tokens = torch.cat([root_token.reshape(1).to(torch.int32),
+                              ss_flat[top_idx].to(torch.int32)])
+    parents_flat = torch.cat(parents_list)               # [1 + depth * K]
+    draft_parents = parents_flat[top_idx // K]
+    mask_index = torch.searchsorted(top_idx, (draft_parents - 1).to(
+        top_idx.dtype), right=False)
+    mask_index = torch.where(draft_parents == 0, -1, mask_index) + 1
+    n1 = N + 1
+    # a parent missing from the kept nodes would index past the table, where
+    # the JAX gathers clamp: clamp explicitly
+    parent = torch.clamp(torch.cat([torch.zeros((1,), **i32),
+                                    mask_index.to(torch.int32)]), 0, N).long()
+    A = _ancestor_closure(parent, depth + 1)                     # [N+1, N+1]
+    tree_position_ids = A.sum(dim=1).to(torch.int32) - 1
+
+    # children table for the tree walk: child slots per parent in sibling
+    # order (rank = earlier slots with the same parent, the root excluded:
+    # its own parent entry is 0).  (parent, rank) pairs are unique; a rank
+    # past top_k lands in a spare column that is cut off, as the JAX
+    # scatter drops it
+    slots = torch.arange(n1, device=dev)
+    same_before = ((parent[None, :] == parent[:, None])
+                   & (slots[None, :] < slots[:, None]) & (slots[None, :] > 0))
+    sib_rank = torch.clamp(same_before.sum(dim=1), max=K)
+    children = torch.full((n1, K + 1), -1, **i32)
+    children.index_put_((parent[1:], sib_rank[1:]), slots[1:].to(torch.int32))
+    children = children[:, :K].contiguous()
+
+    # all-node root paths (a prefix-closed superset of the leaf paths),
+    # sorted lexicographically with pads last
+    D = depth + 2
+    rows = torch.arange(n1, device=dev)
+    paths = torch.full((n1, D), -1, **i32)
+    cur = rows.clone()
+    col = tree_position_ids.long()
+    for _ in range(D):
+        c = torch.clamp(col, 0, D - 1)
+        paths[rows, c] = torch.where(col >= 0, cur.to(torch.int32),
+                                     paths[rows, c])
+        cur = parent[cur]
+        col = col - 1
+    keys = torch.where(paths < 0, n1 + 5, paths)
+    order = rows
+    for c in range(D - 1, -1, -1):       # least significant column first
+        order = order[torch.sort(keys[order, c], stable=True).indices]
+    return DynamicDraft(
+        draft_tokens=draft_tokens,
+        retrieve_indices=paths[order],
+        tree_mask=A,
+        tree_position_ids=tree_position_ids,
+        children=children,
     ), kv

@@ -1,11 +1,13 @@
-"""The Chameleon-family decoder as plain functions over parameter dicts.
+"""The unified decoder as plain functions over parameter dicts.
 
-Counterpart of ``lantern_tpu/models/transformer.py`` for the variant the
-Lumina lane runs: 1-D rope with half pairing, QK-LayerNorm, swin (post-norm)
-or pre-norm ordering, token inputs (no conditioning prefix), MHA.  The
-params dict has the JAX package's layout (stacked ``[L, ...]`` layer
-weights, split or fused, dense or int8), so ``convert.py`` can move a JAX
-pytree over unchanged.
+Counterpart of ``lantern_tpu/models/transformer.py``.  One forward serves
+both families: Chameleon (Lumina / Anole: 1-D rope with half pairing,
+QK-LayerNorm, swin or pre-norm ordering, token prompts) and LlamaGen (2-D
+rope with interleaved pairing over the image grid, pre-norm, a class-label
+or T5-caption conditioning prefix from ``cond_embed``).  Every family is
+MHA.  The params dict has the JAX package's layout (stacked ``[L, ...]``
+layer weights, split or fused, dense or int8, and the unquantized ``cond``
+adapters), so ``convert.py`` can move a JAX pytree over unchanged.
 
 Per layer the TPU kernels of the path have hand-written CUDA
 counterparts, each reached through a device-dispatching op:
@@ -27,24 +29,26 @@ from ..configs import ModelConfig
 from ..device import resolve_device
 from ..kv import KVCache
 from ..ops.quant import has_kernel, head_matmul, head_of, mm
-from ..ops.rope import apply_rope_half, rope_table_1d
+from ..ops.rope import (apply_rope_half, apply_rope_interleaved,
+                        rope_table_1d, rope_table_2d)
 from ..ops.tree_attention import NEG_INF, tree_attention
 
 
-def _require_chameleon(cfg: ModelConfig) -> None:
-    if cfg.rope_kind != "1d" or cfg.rope_pairing != "half":
-        raise NotImplementedError(
-            "2-D / interleaved rope belongs to the LlamaGen/XL lane "
-            "(ROADMAP queue 1, item 10)")
+def _require_mha(cfg: ModelConfig) -> None:
     if cfg.num_kv_heads != cfg.num_heads:
         raise NotImplementedError("GQA is not ported (every LANTERN family "
                                   "is MHA)")
 
 
 def make_rope_tables(cfg: ModelConfig, device=None):
-    """Rope (cos, sin) f32 tables on ``device``."""
-    _require_chameleon(cfg)
-    cos, sin = rope_table_1d(cfg.max_seq_len, cfg.head_dim, cfg.rope_base)
+    """Rope (cos, sin) f32 tables on ``device``: the 2-D grid table (zero
+    rows over the conditioning prefix) or the 1-D one."""
+    _require_mha(cfg)
+    if cfg.rope_kind == "2d":
+        cos, sin = rope_table_2d(cfg.grid_size, cfg.head_dim, cfg.rope_base,
+                                 cfg.cls_token_num)
+    else:
+        cos, sin = rope_table_1d(cfg.max_seq_len, cfg.head_dim, cfg.rope_base)
     dev = resolve_device(device)
     return (torch.from_numpy(np.asarray(cos)).to(dev),
             torch.from_numpy(np.asarray(sin)).to(dev))
@@ -84,12 +88,22 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, dtype=None,
         layers["q_norm_b"] = torch.zeros((L, nh, hd), dtype=dt, device=dev)
         layers["k_norm_w"] = ones(L, nkv, hd)
         layers["k_norm_b"] = torch.zeros((L, nkv, hd), dtype=dt, device=dev)
-    return {
+    params = {
         "embed": w(V, H),
         "layers": layers,
         "norm": ones(H),
         "lm_head": w(H, V),
     }
+    if cfg.cond_kind == "label":
+        params["cond"] = {"table": w(cfg.num_classes + 1, H)}
+    elif cfg.cond_kind == "caption":
+        params["cond"] = {
+            "fc1": w(cfg.caption_dim, H),
+            "fc2": w(H, H),
+            "uncond": w(cfg.cls_token_num, cfg.caption_dim,
+                        scale=cfg.caption_dim ** -0.5),
+        }
+    return params
 
 
 def fuse_params(params: dict) -> dict:
@@ -122,6 +136,22 @@ def head_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     normed = (xf - mu) * torch.rsqrt(var + eps)
     return (normed * w + b).to(x.dtype)
+
+
+def cond_embed(params: dict, cfg: ModelConfig, cond) -> torch.Tensor:
+    """Conditioning prefix -> [B, cls_token_num, H].
+
+    - label: int [B] class ids (``num_classes`` selects the uncond row);
+    - caption: float [B, cls_token_num, caption_dim] T5 features through the
+      two-layer MLP (tanh GELU), as plain matmuls: the JAX package computes
+      them outside any kernel and keeps the adapters unquantized."""
+    if cfg.cond_kind == "label":
+        return params["cond"]["table"][cond.long()][:, None, :]
+    if cfg.cond_kind == "caption":
+        p = params["cond"]
+        h = torch.matmul(cond.to(p["fc1"].dtype), p["fc1"])
+        return torch.matmul(F.gelu(h, approximate="tanh"), p["fc2"])
+    raise ValueError(f"no conditioning for cond_kind={cfg.cond_kind}")
 
 
 def token_embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
@@ -190,7 +220,7 @@ def forward(
     restricted to the rows it ever exposes)."""
     if commit and write_offset != 0:
         raise ValueError("forward(commit=True) requires write_offset == 0")
-    _require_chameleon(cfg)
+    _require_mha(cfg)
     B, T, H = embeds.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     L = cfg.num_layers
@@ -216,6 +246,8 @@ def forward(
     else:
         pv = prefix_valid.bool().expand(B, S)
         p_bias = torch.where(pv, 0.0, NEG_INF)
+    apply_rope = (apply_rope_interleaved if cfg.rope_pairing == "interleaved"
+                  else apply_rope_half)
     scale = hd ** -0.5
     lp = params["layers"]
     k_all = torch.empty((L, B, T, nkv, hd), dtype=embeds.dtype, device=dev)
@@ -242,8 +274,8 @@ def forward(
         if cfg.qk_norm:
             q = head_layer_norm(q, w["q_norm_w"], w["q_norm_b"], cfg.norm_eps)
             k = head_layer_norm(k, w["k_norm_w"], w["k_norm_b"], cfg.norm_eps)
-        q = apply_rope_half(q, cos, sin, positions)
-        k = apply_rope_half(k, cos, sin, positions)
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
         k_all[li] = k
         v_all[li] = v
 

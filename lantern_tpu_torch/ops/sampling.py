@@ -86,6 +86,15 @@ def warp_logits(logits: torch.Tensor, warp: LogitsWarp) -> torch.Tensor:
     return logits
 
 
+def topk_stable(x: torch.Tensor, k: int):
+    """``(values, indices)`` of the ``k`` largest entries along the last
+    axis, in descending order and, among equal values, the lower index
+    first, as ``jax.lax.top_k`` orders them (``torch.topk`` promises no
+    order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def uniform(generator: torch.Generator, shape, device, low: float = 0.0,
             high: float = 1.0) -> torch.Tensor:
     u = torch.rand(shape, generator=generator, device=device)

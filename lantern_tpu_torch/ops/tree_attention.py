@@ -24,7 +24,16 @@ not committed (the earlier levels of a draft tree); row ``length + u`` is
 visible to block row ``t`` iff ``window_mask[b, t, u]`` (and its bias
 applies).  The JAX forward builds the same visibility as a dense
 ``prefix_override`` mask (``lantern_tpu/models/drafter.py:132``).  The
-caller keeps ``length + window <= S``.
+caller keeps ``length + window <= S``.  A row that sees no key at all (a
+pad row of a left-padded prefix, in its own prefill) has every score at
+the finite ``NEG_INF``, so both versions, as the JAX dense math, give it
+the mean of the value rows of the whole cache plane ``[0, S)`` and of the
+block.  Later reads mask such rows, but the LlamaGen drafter, which takes
+no mask, reads their hidden states.
+
+A 128-lane cache group holds one head of 128 (Chameleon) or two heads of
+64 (LlamaGen, ``pk = 2``): each head then takes the scores of its own 64
+lanes and its own softmax, and both share the group row's int8 scale.
 
 ``tree_attention`` dispatches by device: the hand-written kernel in
 ``csrc/tree_attention.cu`` on CUDA tensors, ``tree_attention_plain`` on CPU.
@@ -51,18 +60,20 @@ K2_SPLIT_MIN_ROWS = 256
 K2_MAX_SPLIT = 32
 
 
-def k2_rows(T: int) -> int:
-    """Query rows one K2 thread block owns (one or two 16-row mma tiles)."""
-    return 16 if T <= 16 else 32
+def k2_rows(T: int, pk: int = 1) -> int:
+    """Query rows one K2 thread block owns: one or two 16-row mma tiles with
+    one head a group; with two heads (``pk = 2``) always 16, whose two
+    heads already take two tiles (and the registers of 32 rows of one)."""
+    return 16 if T <= 16 or pk == 2 else 32
 
 
-def k2_splits(B: int, G: int, S: int, T: int, sms: int) -> int:
+def k2_splits(B: int, G: int, S: int, T: int, sms: int, pk: int = 1) -> int:
     """Prefix splits of a K2 launch on a card of ``sms`` SMs, from the shapes
     alone (``length`` stays on the device): as many as keep the ``B * G * row tiles * splits``
     thread blocks within one wave of ``K2_BLOCKS_PER_SM`` an SM, at most one
     per ``K2_SPLIT_MIN_ROWS`` rows of the capacity ``S`` and
     ``K2_MAX_SPLIT``."""
-    blocks = B * G * -(-T // k2_rows(T))
+    blocks = B * G * -(-T // k2_rows(T, pk))
     return max(1, min(K2_BLOCKS_PER_SM * sms // blocks,
                       S // K2_SPLIT_MIN_ROWS, K2_MAX_SPLIT))
 
@@ -158,13 +169,14 @@ def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
     group, row tile, prefix split) stream only the live prefix ``[0,
     length)`` through the tensor cores with an online softmax, the last
     split also the provisional window's cache rows and the block rows under
-    their masks; the last split to finish merges all of them.  Needs
-    head_dim == W == 128, MHA and bf16 activations; any T, any window."""
-    B, T = q.shape[:2]
+    their masks; the last split to finish merges all of them.  Needs W ==
+    128 lanes a group holding one head of 128 or two of 64, MHA and bf16
+    activations; any T, any window."""
+    B, T, nh = q.shape[:3]
     _, G, S, _ = k_cache.shape
     return tree_attention_launch(
         q, k_new, v_new, k_cache, v_cache, length, block_mask, prefix_bias,
-        scale, k2_splits(B, G, S, T, _cuda.sm_count(q.device)),
+        scale, k2_splits(B, G, S, T, _cuda.sm_count(q.device), nh // G),
         k_scale=k_scale, v_scale=v_scale, window_mask=window_mask)
 
 
@@ -177,9 +189,10 @@ def tree_attention_launch(q, k_new, v_new, k_cache, v_cache, length,
     B, T, nh, hd = q.shape
     _, G, S, W = k_cache.shape
     quant = k_scale is not None
-    _cuda.require(hd == 128 and W == 128 and nh == G,
-                  f"tree_attention: needs head_dim 128 and one head per "
-                  f"128-lane group, got nh={nh} hd={hd} cache G={G} W={W}")
+    pk = W // hd
+    _cuda.require(W == 128 and hd in (64, 128) and nh == G * pk,
+                  f"tree_attention: needs 128-lane groups of one head of 128 "
+                  f"or two of 64, got nh={nh} hd={hd} cache G={G} W={W}")
     for t in (q, k_new, v_new):
         _cuda.require(t.dtype == torch.bfloat16 and t.shape == q.shape,
                       "tree_attention: q/k_new/v_new must be bf16 "
@@ -206,11 +219,11 @@ def tree_attention_launch(q, k_new, v_new, k_cache, v_cache, length,
     out = torch.empty_like(q)
     _cuda.require(1 <= nsplit <= K2_MAX_SPLIT, f"tree_attention: takes 1 to "
                   f"{K2_MAX_SPLIT} prefix splits, got {nsplit}")
-    rows = k2_rows(T)
+    rows = k2_rows(T, pk)
     part = tickets = None
     if nsplit > 1:
         units = B * G * -(-T // rows)
-        part = torch.empty((units * nsplit * rows * (128 + 2),),
+        part = torch.empty((units * nsplit * rows * (128 + 2 * pk),),
                            dtype=torch.float32, device=q.device)
         tickets = _cuda.tickets(q.device, "tree_attention", units)
     _cuda.library().tree_attention(

@@ -221,9 +221,11 @@ def test_spec_first_token_distribution(models):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(mode="dynamic"), NotImplementedError, "item 13"),
-    (dict(mode="dynamic", stale_draft=False, deferred_commit=False),
-     NotImplementedError, "item 13"),
+    # dynamic mode drafts with the EAGLE drafter and commits by rollback,
+    # as in the JAX engine
+    (dict(mode="dynamic"), ValueError, "stale_draft requires mode='static'"),
+    (dict(mode="dynamic", stale_draft=False, deferred_commit=True),
+     ValueError, "deferred_commit requires mode='static'"),
     # the real drafter needs its weights
     (dict(stale_draft=False), ValueError, "dparams")])
 def test_spec_unported_modes_raise(models, kw, exc, match):

@@ -446,9 +446,9 @@ def test_convert_rejects_bad_layouts(jax_params):
     del bad["layers"]["wo_s"]
     with pytest.raises(ValueError, match="wo_q"):
         convert.convert_params(bad, device="cpu")
-    with pytest.raises(ValueError, match="unported"):
+    with pytest.raises(ValueError, match="unknown entries"):
         convert.convert_params(dict(jax.tree.map(np.asarray, p),
-                                    cond={"table": np.zeros((2, 2))}),
+                                    vision_tower={"w": np.zeros((2, 2))}),
                                device="cpu")
 
 
@@ -603,5 +603,5 @@ def test_forward_matches_jax(dtype, kvq, weights, defer):
 
 def test_forward_rejects_unported_variants():
     cfg = tc.tiny_config(vocab_size=64, hidden_size=256, num_heads=2)
-    with pytest.raises(NotImplementedError, match="LlamaGen"):
-        ttfm.make_rope_tables(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="GQA"):
+        ttfm.make_rope_tables(cfg.replace(num_kv_heads=1), "cpu")
