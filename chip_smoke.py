@@ -67,13 +67,37 @@ Phases (any failure exits non-zero and prints no result line):
    KV), each with its launch counts equal to the derived ones (K4 once a
    dynamic verify step) and its tokens in the vocab, and a profile; then
    the rollback check of step 6 on the XL static path (the drafter over the
-   calibrated tree, bf16 KV).
+   calibrated tree, bf16 KV);
+8. batched serving: in phase 3 K2, K3 and K4 with one length or start per
+   batch row at the batches' shapes (K2 must catch every row taking row
+   0's length, K3 and K4 two slots' starts swapped; byte-exact with a
+   clamped start) and K1 at the batched verify's 144 rows; then the
+   batched XL path: 12 captioned requests (distinct pad counts and seeds)
+   through ``Scheduler`` on the native queue into a ``BatchedEngine`` of 8
+   slots (``chain_bush_8``, static, rollback, int8 KV, the passthrough
+   drafter, LANTERN k=10 delta=5, top-2000, cfg 3.0, 256 tokens each).
+   It fails if any request has ``error`` set (a kernel fault would show
+   there), if a stream is short or leaves the vocab, if the launch counts
+   differ from the derived ones (one K2 a layer, one K3 and one K4 a
+   batched step; K1 ``ceil(2R * 9 / 64)`` launches a base matmul; the
+   drafter per slot), if a request's tokens or steps differ from its lone
+   ``spec.generate`` run of the same seed (sampled, the 12 requests) or if
+   pinned (``pin = 0.5``, 64 tokens) batched runs of 3 requests differ
+   from their lone runs; ``step_many`` must run under
+   ``torch.cuda.set_sync_debug_mode("error")``.  It prints the aggregate
+   tokens/s over the slots, the same requests' lone tokens/s and a profile
+   of the batched step.  Last a ragged Lumina
+   batch (full width, 4 layers, prompts of 16, 9 and 4 text tokens on 3
+   slots under one grid FSM, pinned): each stream must equal its lone run
+   under its own FSM, with derived launch counts.  Each phase prints its
+   seconds.
 
 The line before the last two is ``{"kernels": [...]}`` (``launches`` are
 the rollback path's, the one Lumina path that runs all four kernels; every
 path's counts are under ``launches_by_path``; each kernel's XL record is
-under ``xl``); then the ``nvidia-smi`` name/power-limit line; the last line
-is the device record.
+under ``xl``, its per-row record at the XL batch under ``batched``); then
+the ``nvidia-smi`` name/power-limit line; the last line is the device
+record.
 """
 
 from __future__ import annotations
@@ -103,6 +127,25 @@ PORT_KERNELS = (("int8_matmul", "int8_matmul_kernel"),
 TEXT = list(range(60000, 60016))          # 16 text tokens, as bench.py
 LONG_TEXT = list(range(60000, 60200))     # 200 text tokens: a long prompt
 XL_CAPTION = "a photo of a red fox standing in fresh snow at dawn"  # 12 words
+# the batched XL path: slots, requests through the scheduler, and their
+# captions (of different lengths, so of different left-pad counts)
+BATCH_SLOTS = 8
+BATCH_CAPTIONS = [
+    "two cats", "a sunflower field", "a plate of pancakes",
+    "a red fox in snow", "an owl on a tree branch",
+    "a city street in the evening rain",
+    "an old steam train crossing a stone bridge",
+    "a lighthouse on a cliff at night under stars",
+    "a snowy mountain lake reflecting pine trees at golden sunset",
+    "a watercolor painting of a harbor town in the morning fog",
+    "a bowl of ramen with an egg and green onions on top",
+    "a photo of a red fox standing in fresh snow at dawn light"]
+# the ragged Lumina batch: full Lumina width, 4 layers, token prompts of
+# three lengths on 3 slots, an 8 x 8 image grid
+RAGGED_TEXTS = [list(range(60000, 60016)), list(range(61000, 61009)),
+                list(range(62000, 62004))]
+RAGGED_LAYERS = 4
+RAGGED_GRID = 8
 
 
 def log(msg: str) -> None:
@@ -196,10 +239,10 @@ class KernelPhase:
         return torch.randn(shape, generator=self.gen,
                            device=self.dev).to(torch.bfloat16)
 
-    def planes_of(self, L, S, quant, G=None):
+    def planes_of(self, L, S, quant, G=None, B=None):
         """Random K/V planes (and scale planes for int8) [L, B, G, S, W]."""
-        torch, B, W = self.torch, self.B, self.W
-        G = G or self.G
+        torch, W = self.torch, self.W
+        G, B = G or self.G, B or self.B
         if quant:
             return [torch.randint(-127, 128, (L, B, G, S, W),
                                   generator=self.gen, device=self.dev,
@@ -311,15 +354,23 @@ class KernelPhase:
 
     def k1_xl(self) -> dict:
         """K1 at LlamaGen-XL's six weight shapes and the XL paths' rows: 2
-        (AR), 52 (the 26-row tree), 118 (a 59-row dynamic tree), 240 (the
-        caption prefill)."""
-        k1_err, k1_rep = 0.0, None
+        (AR), 52 (the 26-row tree), 118 (a 59-row dynamic tree), 144 (the
+        batched verify: 8 slots x CFG 2 x the 9-row tree, three launches),
+        240 (the caption prefill).  Returns ``(record at M = 52, record at
+        M = 144)``."""
+        k1_err, k1_rep, k1_batch = 0.0, None, None
         for name, (K, N) in K1_SHAPES_XL.items():
             err, rep, _, _ = self.k1_shape(name, K, N, (2, 52, 118, 240),
                                            52 if name == "w_gu" else None,
                                            "XL ")
             k1_err, k1_rep = max(k1_err, err), rep or k1_rep
-        return dict(k1_rep, max_abs_err=k1_err)
+            M = 2 * BATCH_SLOTS * 9
+            err, rep, _, _ = self.k1_shape(name, K, N, (M,),
+                                           M if name == "w_gu" else None,
+                                           "XL batch ")
+            k1_err, k1_batch = max(k1_err, err), rep or k1_batch
+        return (dict(k1_rep, max_abs_err=k1_err),
+                dict(k1_batch, max_abs_err=k1_err))
 
     def k2(self, grid: int) -> dict:
         import torch.nn.functional as F
@@ -685,7 +736,8 @@ class KernelPhase:
         """K3 at one case, byte-exact against its plain version over the
         whole planes, the rows outside the block untouched; timed.  Returns
         ``(max_abs_err, ms, plain_ms, bound_ms, bound_by)``."""
-        from lantern_tpu_torch.kv import write_block_cuda, write_block_plain
+        from lantern_tpu_torch.kv import (group_blocks, write_block_cuda,
+                                          write_block_plain)
 
         torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
         randn, B, W = self.randn, self.B, self.W
@@ -728,12 +780,25 @@ class KernelPhase:
             fail(f"{what}: an all-zero row's scale is not 1/127")
         ms = timer(lambda: write_block_cuda(*mine, kn, vn, st))
         plain = timer(lambda: write_block_plain(*mine, kn, vn, st), reps=5)
+        lib = None
+        if not quant:
+            # library yardstick of the bf16 write (no quantization to do):
+            # index_copy_ of the grouped rows into each plane
+            idx = s0 + torch.arange(T, device=dev)
+            kg, vg = group_blocks(kn), group_blocks(vn)
+
+            def lib_copy():
+                mine[0].index_copy_(3, idx, kg)
+                mine[1].index_copy_(3, idx, vg)
+            lib = timer(lib_copy, reps=5)
         nbytes = 2 * L * B * T * G * W * 2 + 2 * L * B * T * G * (
             W + 4 if quant else 2 * W)
         b_ms, b_by = bound(nbytes, 0.0)
         log(f"{what}: max_abs_err {err:.3e} (tol 0, byte-exact over the "
             f"whole planes, other rows untouched) ms {ms:.4f} plain_ms "
-            f"{plain:.4f} library_ms null bound_ms {b_ms:.4f} ({b_by}; "
+            f"{plain:.4f} library_ms "
+            f"{'null' if lib is None else f'{lib:.4f} (index_copy_ of the grouped rows)'}"
+            f" bound_ms {b_ms:.4f} ({b_by}; "
             f"{self.judge(ms, b_ms, nbytes)}) [{card}]")
         return err, ms, plain, b_ms, b_by
 
@@ -858,10 +923,19 @@ class KernelPhase:
         k4_rep = None
         for what, quant, starts, rels in k4_cases:
             kind = "int8 + scales" if quant else "bf16"
-            mine = planes_of(L, S, quant, G)
-            ref = clones(mine)
-            st = torch.tensor(starts, dtype=torch.int32, device=dev)
-            rl = torch.tensor(rels, dtype=torch.int32, device=dev)
+            # R slots of two batch rows each: a start and a path per row
+            # (each slot's repeated for its rows); one slot: the scalar
+            # start and the [A] path every row shares
+            R = len(starts)
+            B = 2 * R
+            mine = planes_of(L, S, quant, G, B)
+            ref, before = clones(mine), clones(mine)
+            st = torch.tensor(starts, dtype=torch.int32,
+                              device=dev).repeat_interleave(2)
+            rl = torch.tensor(rels, dtype=torch.int32,
+                              device=dev).repeat_interleave(2, 0)
+            if R == 1:
+                st, rl = st[0], rl[0]
             gather_write_block_cuda(*mine, rl, st, blk)
             gather_write_block_plain(*ref, rl, st, blk)
             torch.cuda.synchronize()
@@ -883,7 +957,18 @@ class KernelPhase:
                         fail(f"K4: the byte comparison does not catch a wrong "
                              f"variant ({how})")
                     del good, bad
-            n_rows = rl.shape[1]
+            if R > 1:
+                # two slots' starts swapped: a wrong variant the byte
+                # comparison must catch
+                swapped = st.reshape(R, 2)[[1, 0] + list(range(2, R))]
+                gather_write_block_plain(*before, rl, swapped.reshape(-1), blk)
+                caught["two slots' starts swapped"] = not same_bytes(ref,
+                                                                    before)
+                if not caught["two slots' starts swapped"]:
+                    fail(f"K4 {what} {kind}: the byte comparison does not "
+                         f"catch two slots' starts swapped")
+            del before
+            n_rows = rl.shape[-1]
             row_bytes = W * mine[0].element_size()
             staging = k4_staging(n_rows, row_bytes)
             ms = timer(lambda: gather_write_block_cuda(*mine, rl, st, blk))
@@ -891,8 +976,9 @@ class KernelPhase:
                           reps=5)
             # library yardstick: index_select + index_copy_ per plane, indices
             # ready (one slot's; the R=4 case times slot 0's indices on all)
-            src = (st[0] + torch.clamp(rl[0], 0, blk - 1)).long()
-            dst = (st[0] + torch.arange(n_rows, device=dev)).long()
+            st0, rl0 = st.reshape(-1)[0], rl.reshape(-1, n_rows)[0]
+            src = (st0 + torch.clamp(rl0, 0, blk - 1)).long()
+            dst = (st0 + torch.arange(n_rows, device=dev)).long()
 
             def lib_call():
                 for buf in mine:
@@ -907,7 +993,7 @@ class KernelPhase:
             where = (f"registers, {staging} chunks a lane" if staging
                      else "shared memory")
             log(f"K4 kv_gather {lane}L={L} B={B} G={G} S={S} blk={blk} A={n_rows} R="
-                f"{len(starts)} {kind}, {what} (staged in {where}): "
+                f"{R} {kind}, {what} (staged in {where}): "
                 f"max_abs_err 0 (byte-exact over the whole buffers) ms "
                 f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
                 f"{b_ms:.5f} ({b_by}, {nbytes / 1e6:.2f} MB moved; "
@@ -923,19 +1009,213 @@ class KernelPhase:
         return k4_rep
 
 
+    def rows(self) -> dict:
+        """K2, K3 and K4 with one length or start per batch row, at the
+        batched paths' shapes: the XL batch (R = 8 slots, B = 16 rows, 36
+        layers, 10 groups of two heads, S = 512, the 9-row chain_bush_8
+        tree, int8 KV) and the ragged Lumina batch (3 slots, B = 6, 4 layers,
+        32 groups, the 32-row Lumina tree).  K2 must catch every row taking
+        row 0's length; K3 and K4 must be byte-exact, with a clamped start,
+        and catch two slots' starts swapped.  Returns ``{kernel: record}``
+        of the XL batch."""
+        import torch.nn.functional as F
+
+        from lantern_tpu_torch.kv import (_rows, gather_write_block_cuda,
+                                          gather_write_block_plain,
+                                          group_blocks, quantize_rows,
+                                          write_block_cuda, write_block_plain)
+        from lantern_tpu_torch.ops.tree_attention import (
+            NEG_INF, tree_attention_cuda, tree_attention_plain)
+
+        from lantern_tpu_torch import trees
+
+        torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
+        randn, W = self.randn, self.W
+        xl_tree = trees.get_tree("chain_bush_8")
+        S_lum = -(-lane_dims(RAGGED_GRID)[1] // 128) * 128
+        lanes = [  # (name, R, L, G, S, head_dim, tree)
+            ("XL batch", BATCH_SLOTS, 36, 10, 512, 64, xl_tree),
+            ("Lumina ragged batch", len(RAGGED_TEXTS), RAGGED_LAYERS, 32,
+             S_lum, 128, self.tree)]
+        recs = {}
+        for name, R, L, G, S, hd, tree in lanes:
+            B, T, nh = 2 * R, tree.num_nodes, G * W // hd
+            # K2: a length per row, 0 and S - T among them
+            lens = torch.linspace(0, S - T, B, device=dev).round().to(
+                torch.int32)
+            lens[1] = 3 * S // 4 + 1
+            q, kn, vn = (randn(B, T, nh, hd) for _ in range(3))
+            kc, ks = quantize_rows(randn(B, G, S, W))
+            vc, vs = quantize_rows(randn(B, G, S, W))
+            mask = torch.as_tensor(tree.attn_mask, device=dev)[None].expand(
+                B, T, T).contiguous()
+            bias = torch.zeros((B, S), device=dev)
+            bias[1::2, :7] = NEG_INF               # left-padded uncond rows
+            kw = dict(k_scale=ks, v_scale=vs)
+            args = (q, kn, vn, kc, vc, lens, mask, bias, hd ** -0.5)
+            got = tree_attention_cuda(*args, **kw)
+            ref = tree_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            tol = 2e-2 * ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            what = (f"K2 tree_attention {name} pk={W // hd} B={B} T={T} "
+                    f"G={G} S={S} int8 KV, a length per row "
+                    f"({lens.min().item()}..{lens.max().item()})")
+            if not (err <= tol and torch.isfinite(got.float()).all()):
+                fail(f"{what}: max err {err} > tol {tol}")
+            bad = tree_attention_plain(q, kn, vn, kc, vc, lens[0], mask, bias,
+                                       hd ** -0.5, **kw)
+            werr = (bad.float() - ref.float()).abs().max().item()
+            if werr <= tol:
+                fail(f"{what}: tol {tol} does not separate every row taking "
+                     f"row 0's length (err {werr})")
+            ms = timer(lambda: tree_attention_cuda(*args, **kw))
+            plain = timer(lambda: tree_attention_plain(*args, **kw), reps=5)
+
+            def heads(x):            # [B, G, n, 128] -> [B, nh, n, hd]
+                return x.reshape(B, G, -1, W // hd, hd).transpose(
+                    2, 3).reshape(B, nh, -1, hd)
+            kq, kqs = quantize_rows(group_blocks(kn))
+            vq, vqs = quantize_rows(group_blocks(vn))
+            kd = heads(torch.cat([kc.float() * ks[..., None],
+                                  kq.float() * kqs[..., None]], 2).bfloat16())
+            vd = heads(torch.cat([vc.float() * vs[..., None],
+                                  vq.float() * vqs[..., None]], 2).bfloat16())
+            vis = ((torch.arange(S, device=dev)[None] < lens[:, None].long())
+                   & (bias == 0))
+            am = torch.cat([vis[:, None, None].expand(B, 1, T, S),
+                            mask[:, None]], -1)
+            qh = q.transpose(1, 2)
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=am, scale=hd ** -0.5))
+            live = int(lens.long().sum())
+            nbytes = (4 * B * T * G * W * 2 + 2 * G * live * (W + 4)
+                      + B * T * T + live * 4 + B * 4)
+            b_ms, b_by = bound(nbytes, 4.0 * G * T * (live + B * T) * W)
+            log(f"{what}: max_abs_err {err:.3e} (tol {tol:.3e} = 2e-2 * "
+                f"max|ref|; every row at row 0's length errs {werr:.3e}) ms "
+                f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA "
+                f"over the whole dequantized plane, masked per row) bound_ms "
+                f"{b_ms:.4f} ({b_by}) [{card}]")
+            rec2 = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                        bound_by=b_by, max_abs_err=err,
+                        shape=f"{name}: B={B} T={T} G={G} S={S} pk="
+                              f"{W // hd} int8 KV, a length per row")
+            del q, kn, vn, kc, vc, ks, vs, kd, vd, am, got, ref, bad
+            # K3 and K4: a start per slot (one clamped), int8 and bf16
+            starts = torch.tensor([(37 * r + 120) % (S - 2 * T) for r in
+                                   range(R)], dtype=torch.int32, device=dev)
+            starts[-1] = S - 3                      # clamped to S - T / S - blk
+            st = starts.repeat_interleave(2)
+            swapped = starts[[1, 0] + list(range(2, R))].repeat_interleave(2)
+            A = tree.path_len
+            rels = torch.tensor(
+                [[(5 * r + 3 * j) % T if j < 3 else (T + 4 if j == 3 else -2)
+                  for j in range(A)] for r in range(R)],
+                dtype=torch.int32, device=dev).repeat_interleave(2, 0)
+            for quant in (True, False):
+                kind = "int8 + scales" if quant else "bf16"
+                kn3, vn3 = randn(L, B, T, G, W), randn(L, B, T, G, W)
+                mine = self.planes_of(L, S, quant, G, B)
+                ref, wrong = self.clones(mine), self.clones(mine)
+                write_block_cuda(*mine, kn3, vn3, st)
+                write_block_plain(*ref, kn3, vn3, st)
+                write_block_plain(*wrong, kn3, vn3, swapped)
+                torch.cuda.synchronize()
+                w3 = (f"K3 kv_write {name} L={L} B={B} G={G} S={S} T={T} "
+                      f"{kind}, a start per slot (the last clamped)")
+                if not self.same_bytes(mine, ref):
+                    fail(f"{w3}: kernel and plain version differ")
+                if self.same_bytes(ref, wrong):
+                    fail(f"{w3}: two slots' starts swapped not caught")
+                ms3 = timer(lambda: write_block_cuda(*mine, kn3, vn3, st))
+                plain3 = timer(lambda: write_block_plain(*mine, kn3, vn3, st),
+                               reps=5)
+                lib3 = None
+                if not quant:
+                    s0 = torch.clamp(st.long(), 0, S - T)
+                    at = (torch.arange(B, device=dev)[:, None],
+                          s0[:, None] + torch.arange(T, device=dev))
+                    kg3, vg3 = group_blocks(kn3), group_blocks(vn3)
+
+                    def lib_put():
+                        _rows(mine[0])[at] = _rows(kg3)
+                        _rows(mine[1])[at] = _rows(vg3)
+                    lib3 = timer(lib_put, reps=5)
+                nb3 = 2 * L * B * T * G * W * 2 + 2 * L * B * T * G * (
+                    W + 4 if quant else 2 * W) + B * 4
+                b3, by3 = bound(nb3, 0.0)
+                log(f"{w3}: max_abs_err 0 (byte-exact; two slots' starts "
+                    f"swapped caught) ms {ms3:.4f} plain_ms {plain3:.4f} "
+                    f"library_ms {'null' if lib3 is None else f'{lib3:.4f}'}"
+                    f"{'' if quant else ' (index_put_ of the grouped rows)'} "
+                    f"bound_ms {b3:.4f} ({by3}; {self.judge(ms3, b3, nb3)}) "
+                    f"[{card}]")
+                # K4 on the same planes: the path of each slot at its start
+                ref4, wrong4 = self.clones(mine), self.clones(mine)
+                gather_write_block_cuda(*mine, rels, st, T)
+                gather_write_block_plain(*ref4, rels, st, T)
+                gather_write_block_plain(*wrong4, rels, swapped, T)
+                torch.cuda.synchronize()
+                w4 = (f"K4 kv_gather {name} L={L} B={B} G={G} S={S} blk={T} "
+                      f"A={A} {kind}, a start and a path per slot (the last "
+                      f"start clamped, pads outside the block)")
+                if not self.same_bytes(mine, ref4):
+                    fail(f"{w4}: kernel and plain version differ")
+                if self.same_bytes(ref4, wrong4):
+                    fail(f"{w4}: two slots' starts swapped not caught")
+                ms4 = timer(lambda: gather_write_block_cuda(*mine, rels, st,
+                                                            T))
+                plain4 = timer(lambda: gather_write_block_plain(
+                    *mine, rels, st, T), reps=5)
+                s0 = torch.clamp(st.long(), 0, S - T)[:, None]
+                bi = torch.arange(B, device=dev)[:, None]
+                src = (bi, s0 + torch.clamp(rels.long(), 0, T - 1))
+                dst = (bi, s0 + torch.arange(A, device=dev))
+
+                def lib_gather():
+                    for buf in mine:
+                        if buf is not None:
+                            v = _rows(buf)
+                            v[dst] = v[src]
+                lib4 = timer(lib_gather, reps=5)
+                row = W * mine[0].element_size() + (4 if quant else 0)
+                nb4 = 2 * 2 * L * B * G * A * row + B * 4 + B * A * 4
+                b4, by4 = bound(nb4, 0.0)
+                log(f"{w4}: max_abs_err 0 (byte-exact; two slots' starts "
+                    f"swapped caught) ms {ms4:.4f} plain_ms {plain4:.4f} "
+                    f"library_ms {lib4:.4f} (index_put_ of index-gathered "
+                    f"rows) bound_ms {b4:.5f} ({by4}; "
+                    f"{self.judge(ms4, b4, nb4)}) [{card}]")
+                if quant and name == "XL batch":
+                    recs = {"tree_attention": rec2, "kv_write": dict(
+                        ms=ms3, plain_ms=plain3, library_ms=lib3,
+                        bound_ms=b3, bound_by=by3, max_abs_err=0.0,
+                        shape=f"{name}: L={L} B={B} T={T} G={G} int8, a "
+                              f"start per slot"), "kv_gather": dict(
+                        ms=ms4, plain_ms=plain4, library_ms=lib4,
+                        bound_ms=b4, bound_by=by4, max_abs_err=0.0,
+                        shape=f"{name}: L={L} B={B} G={G} blk={T} A={A} "
+                              f"int8 + scales, a start per slot")}
+                del mine, ref, wrong, ref4, wrong4
+        return recs
+
+
 def phase_kernels(torch, timer, card: str, grid: int):
     """Each kernel against its plain version at the shapes of both lanes'
     main paths.  Returns ``{lane: {kernel: record}}``."""
     from lantern_tpu_torch.ops import _cuda
 
     phase = KernelPhase(torch, timer, card)
+    k1_xl, k1_batch = phase.k1_xl()
     records = {
         "lumina": {
             "int8_matmul": phase.k1(), "tree_attention": phase.k2(grid),
             "kv_write": phase.k3(), "kv_gather": phase.k4()},
         "xl": {
-            "int8_matmul": phase.k1_xl(), "tree_attention": phase.k2_xl(),
-            "kv_write": phase.k3_xl(), "kv_gather": phase.k4(xl=True)}}
+            "int8_matmul": k1_xl, "tree_attention": phase.k2_xl(),
+            "kv_write": phase.k3_xl(), "kv_gather": phase.k4(xl=True)},
+        "batched": dict(phase.rows(), int8_matmul=k1_batch)}
     _cuda.reset_launches()
     return records
 
@@ -1174,8 +1454,8 @@ def phase_forward_llamagen(torch):
             f"card kernels vs CPU plain max_abs_err {err:.3e} (tol {tol:.3e})")
 
 
-def spec_launches(layers: int, prompt: int, steps: int, verify_rows: int,
-                  path_rows: int, levels, deferred: bool):
+def spec_launches(layers: int, prompt, steps: int, verify_rows: int,
+                  path_rows: int, levels, deferred: bool, slots: int = 1):
     """``(totals, per verify step)``: the kernel launches of one spec run
     with the EAGLE drafter, derived from its shapes: a prefill (base forward
     over the ``prompt`` rows, drafter ``extend`` over them, first draft) and
@@ -1185,7 +1465,11 @@ def spec_launches(layers: int, prompt: int, steps: int, verify_rows: int,
     ``path_rows`` of a path; the next draft).  A draft is a root head, then
     per level of ``levels`` rows fc_w, a one-layer forward and the head.
     K1 takes at most ``K1_MAX_ROWS`` rows a launch; every forward here is
-    CFG batch 2."""
+    CFG batch 2.  The batched engine (``slots`` > 1): ``prompt`` lists every
+    request's prompt rows (one prefill each), a step's base forward and
+    lm_head take the ``slots`` requests' rows together (one K2 a layer, one
+    K3, one K4), and the drafter runs per slot (``slots`` times its
+    single-request launches)."""
     from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
 
     def k1(rows):
@@ -1195,12 +1479,12 @@ def spec_launches(layers: int, prompt: int, steps: int, verify_rows: int,
         return {"int8_matmul": 4 * n_layers * k1(T),
                 "tree_attention": n_layers, "kv_write": 1}
 
-    def add(*parts):
+    def add(*parts, times=1):
         out = {"int8_matmul": 0, "tree_attention": 0, "kv_write": 0,
                "kv_gather": 0}
         for part in parts:
             for k, n in part.items():
-                out[k] += n
+                out[k] += times * n
         return out
 
     def extend(T):                       # fc_w + a one-layer forward
@@ -1209,12 +1493,14 @@ def spec_launches(layers: int, prompt: int, steps: int, verify_rows: int,
     draft = add({"int8_matmul": k1(1)},
                 *[add({"int8_matmul": 2 * k1(n)}, forward(n, 1))
                   for n in levels])
-    prefill = add(forward(prompt, layers), {"int8_matmul": k1(1)},
-                  extend(prompt), draft)
-    step = add(forward(verify_rows, layers),
-               {"int8_matmul": k1(verify_rows),
-                "kv_gather": 0 if deferred else 1},
-               extend(path_rows), draft)
+    prefill = add(*[add(forward(p, layers), {"int8_matmul": k1(1)},
+                        extend(p), draft)
+                    for p in (prompt if isinstance(prompt, list)
+                              else [prompt])])
+    rows = slots * verify_rows
+    step = add(forward(rows, layers),
+               {"int8_matmul": k1(rows), "kv_gather": 0 if deferred else 1},
+               add(extend(path_rows), draft, times=slots))
     return {k: prefill[k] + steps * step[k] for k in step}, step
 
 
@@ -1439,37 +1725,20 @@ def phase_main_path(torch, grid: int, card: str):
             "ar": ar_launch, "long_prompt": long_launch}
 
 
-def phase_xl(torch, card: str):
-    """The LlamaGen-XL t2i lane at full width and depth (36 layers x 1280, 20
-    heads of 64, vocab 16384, 120 caption rows): random int8 W8A16 weights
-    from a seed, one left-padded ``RandomT5`` caption against the params'
-    ``uncond`` features, LANTERN k=10 delta=5, top-2000, cfg 3.0, the
-    hidden-passthrough drafter.  Three paths, each with the launch counters
-    reset just before and read just after, and a profile:
-    - the AR twin (``ar.generate``), 256 tokens, bf16 KV;
-    - static: the drafter proposes ``ckpts/bench_tree_XL.json``, deferred
-      commit, bf16 KV (the JAX bench's XL configuration);
-    - dynamic: EAGLE-2 with 59 tokens, depth 4, top-10, rollback commit (K4
-      once a verify step), int8 KV.
-    The launch counts must equal the ones derived from the tree or the
-    budgets, and every token must lie in the vocab.  Then the static path
-    with pinned choices (``pin=0.5``) must commit the same tokens in the same
-    steps with rollback commit as with deferred commit."""
-    import dataclasses
-
-    from lantern_tpu_torch import configs, trees
-    from lantern_tpu_torch.engine import ar, spec
+def build_xl(torch) -> dict:
+    """LlamaGen-XL t2i at full width and depth (36 layers x 1280, 20 heads
+    of 64, vocab 16384, 120 caption rows) with random int8 W8A16 weights
+    from seed 0, a LANTERN nearest table, and the one-layer
+    hidden-passthrough drafter; ``caption(text)`` gives a left-padded
+    ``RandomT5`` caption's ``(cond, uncond, prefix_valid)``."""
+    from lantern_tpu_torch import configs
     from lantern_tpu_torch.models import drafter as drf
     from lantern_tpu_torch.models import transformer as tfm
-    from lantern_tpu_torch.ops import _cuda
-    from lantern_tpu_torch.ops.acceptance import LanternSpec
-    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS, quantize_params
-    from lantern_tpu_torch.ops.sampling import LogitsWarp
+    from lantern_tpu_torch.ops.quant import quantize_params
     from lantern_tpu_torch.ops.vq_distance import nearest_latents
     from lantern_tpu_torch.utils.t5 import RandomT5, flip_for_left_padding
 
-    n_img = 256
-    cfg = configs.llamagen_config("XL", "t2i", image_tokens=n_img)
+    cfg = configs.llamagen_config("XL", "t2i", image_tokens=256)
     dcfg = configs.drafter_config(cfg, num_layers=1, total_tokens=59,
                                   depth=4, top_k=10)
     t0 = time.perf_counter()
@@ -1487,20 +1756,56 @@ def phase_xl(torch, card: str):
     dparams["fc_w"] = fc
     dparams["layers"] = {k: v * 0 for k, v in dparams["layers"].items()}
     dparams = quantize_params(tfm.fuse_params(dparams))
-    emb, mask = RandomT5(cfg.caption_dim, cfg.cls_token_num).get_text_embeddings(
-        [XL_CAPTION])
-    emb, mask = flip_for_left_padding(emb, mask)
-    cond = torch.as_tensor(emb, dtype=torch.float32, device="cuda")
+    t5 = RandomT5(cfg.caption_dim, cfg.cls_token_num)
     uncond = params["cond"]["uncond"][None].float()
-    pv = torch.ones((2, cfg.cls_token_num), dtype=torch.bool, device="cuda")
-    pv[0] = torch.as_tensor(mask[0], device="cuda").bool()
-    n_pads = int((~pv[0]).sum())
+
+    def caption(text: str):
+        emb, mask = flip_for_left_padding(*t5.get_text_embeddings([text]))
+        cond = torch.as_tensor(emb, dtype=torch.float32, device="cuda")
+        pv = torch.ones((2, cfg.cls_token_num), dtype=torch.bool,
+                        device="cuda")
+        pv[0] = torch.as_tensor(mask[0], device="cuda").bool()
+        return cond, uncond, pv
+
+    n_pads = int((~caption(XL_CAPTION)[2][0]).sum())
     torch.cuda.synchronize()
     log(f"XL: LlamaGen-XL t2i int8 params and the one-layer passthrough "
         f"drafter built on the card in {time.perf_counter() - t0:.1f} s "
         f"(L={cfg.num_layers} H={H} heads={cfg.num_heads}x{cfg.head_dim} "
         f"V={cfg.vocab_size} S={-(-cfg.max_seq_len // 128) * 128}); caption "
         f"{cfg.cls_token_num} rows, {n_pads} of them left pads")
+    return dict(cfg=cfg, dcfg=dcfg, params=params, dparams=dparams,
+                caption=caption)
+
+
+def phase_xl(torch, card: str, xl: dict):
+    """The LlamaGen-XL t2i lane at full width and depth (36 layers x 1280, 20
+    heads of 64, vocab 16384, 120 caption rows): random int8 W8A16 weights
+    from a seed, one left-padded ``RandomT5`` caption against the params'
+    ``uncond`` features, LANTERN k=10 delta=5, top-2000, cfg 3.0, the
+    hidden-passthrough drafter.  Three paths, each with the launch counters
+    reset just before and read just after, and a profile:
+    - the AR twin (``ar.generate``), 256 tokens, bf16 KV;
+    - static: the drafter proposes ``ckpts/bench_tree_XL.json``, deferred
+      commit, bf16 KV (the JAX bench's XL configuration);
+    - dynamic: EAGLE-2 with 59 tokens, depth 4, top-10, rollback commit (K4
+      once a verify step), int8 KV.
+    The launch counts must equal the ones derived from the tree or the
+    budgets, and every token must lie in the vocab.  Then the static path
+    with pinned choices (``pin=0.5``) must commit the same tokens in the same
+    steps with rollback commit as with deferred commit."""
+    import dataclasses
+
+    from lantern_tpu_torch import trees
+    from lantern_tpu_torch.engine import ar, spec
+    from lantern_tpu_torch.ops import _cuda
+    from lantern_tpu_torch.ops.acceptance import LanternSpec
+    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
+    from lantern_tpu_torch.ops.sampling import LogitsWarp
+
+    n_img = 256
+    cfg, dcfg, params, dparams = xl["cfg"], xl["dcfg"], xl["params"], xl["dparams"]
+    cond, uncond, pv = xl["caption"](XL_CAPTION)
 
     warp = LogitsWarp(temperature=1.0, top_k=2000, top_p=1.0)
     tree = trees.get_tree(os.path.join("ckpts", "bench_tree_XL.json"))
@@ -1618,6 +1923,284 @@ def phase_xl(torch, card: str):
             "xl_dynamic": dyn_launch}
 
 
+def phase_batched(torch, card: str, xl: dict):
+    """The batched XL path: ``BatchedEngine`` + ``Scheduler`` on the native
+    queue, the JAX bench's batched configuration (``bench.py:357-395``)
+    without its policy: LlamaGen-XL at full width and depth, 8 slots, the
+    9-row ``chain_bush_8`` tree, static mode, rollback commit, int8 KV, the
+    passthrough drafter, LANTERN k=10 delta=5, top-2000, cfg 3.0, 256
+    tokens; 12 requests with distinct captions (distinct pad counts) and
+    seeds, so finished slots are refilled.  Fails unless every request ends
+    without an error with 256 tokens in the vocab, the run's launch counts
+    equal the derived ones (one K2 a layer, one K3 and one K4 a step for all
+    slots; the drafter per slot), every request's tokens and steps equal
+    ``spec.generate`` alone with its seed (sampled), pinned (``pin = 0.5``,
+    64 tokens) batched runs of 3 requests equal their lone runs, and
+    ``step_many`` synchronizes nothing.  Prints the aggregate and the
+    single-request tokens/s and a profile of the batched step."""
+    import dataclasses
+
+    from lantern_tpu_torch import trees
+    from lantern_tpu_torch.engine import spec
+    from lantern_tpu_torch.engine.batch import BatchedEngine
+    from lantern_tpu_torch.engine.scheduler import Request, Scheduler
+    from lantern_tpu_torch.ops import _cuda
+    from lantern_tpu_torch.ops.acceptance import LanternSpec
+    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
+    from lantern_tpu_torch.ops.sampling import LogitsWarp
+
+    cfg, dcfg, params, dparams = (xl["cfg"], xl["dcfg"], xl["params"],
+                                  xl["dparams"])
+    R, n_img, L = BATCH_SLOTS, 256, cfg.num_layers
+    tree = trees.get_tree("chain_bush_8")
+    levels = [len(lv.child_flat_idx) for lv in tree.levels]
+    ecfg = spec.SpecDecodeConfig(
+        warp=LogitsWarp(temperature=1.0, top_k=2000, top_p=1.0),
+        cfg_scale=3.0, lantern=LanternSpec(k=10, delta=5.0), max_new=n_img,
+        kv_quant=True, walk_batch_warp=True)
+    caps = [xl["caption"](c) for c in BATCH_CAPTIONS]
+    pads = [int((~pv[0]).sum()) for _, _, pv in caps]
+    if len(set(pads)) != len(pads):
+        fail(f"batched XL: the captions' pad counts {pads} are not distinct")
+
+    def requests(n):
+        return [Request(uid=i, cond=c, uncond=u, prefix_valid=pv,
+                        seed=1000 + i) for i, (c, u, pv) in
+                enumerate(caps[:n])]
+
+    def engine(e):
+        eng = BatchedEngine(ecfg=e, cfg=cfg, tree=tree, params=params,
+                            num_slots=R, dparams=dparams, dcfg=dcfg)
+        eng.n_steps = 0
+        step = eng.step
+
+        def counted(batch):
+            eng.n_steps += 1
+            return step(batch)
+        eng.step = counted
+        return eng
+
+    def alone(e, req):
+        return spec.generate(params, e, cfg, tree, None,
+                             spec.request_generator(req.seed), dparams=dparams,
+                             dcfg=dcfg, cond=req.cond, uncond=req.uncond,
+                             prefix_valid=req.prefix_valid)
+
+    # warm-up (allocator, cuBLAS): two requests of 4 tokens
+    Scheduler(engine(dataclasses.replace(ecfg, max_new=4))).run(requests(2))
+    eng = engine(ecfg)
+    reqs = requests(len(caps))
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = Scheduler(eng).run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for r in done:
+        if r.error is not None:
+            fail(f"batched XL: request {r.uid} failed: {r.error}")
+        if r.tokens is None or r.tokens.shape != (n_img,) or not (
+                (r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all():
+            fail(f"batched XL: request {r.uid} returned "
+                 f"{None if r.tokens is None else r.tokens.shape} tokens, "
+                 f"want {n_img} in [0, {cfg.vocab_size})")
+    want, per_step = spec_launches(
+        L, [cfg.cls_token_num] * len(reqs), eng.n_steps, tree.num_nodes,
+        tree.path_len, levels, deferred=False, slots=R)
+    k1_base = -(-2 * R * tree.num_nodes // K1_MAX_ROWS)
+    base = {"tree_attention": L, "kv_write": 1, "kv_gather": 1,
+            "int8_matmul": (4 * L + 1) * k1_base}
+    drafter_step = {k: per_step[k] - base[k] for k in base}
+    if launches != want:
+        fail(f"batched XL launched {launches}, but its shapes give {want}")
+    steps = sum(r.steps for r in done)
+    toks = len(done) * n_img
+    log(f"batched XL [{card}] {len(done)} requests x {n_img} tokens on {R} "
+        f"slots (native queue, slots refilled), chain_bush_8, rollback, int8 "
+        f"KV: {eng.n_steps} batched steps in {wall:.2f} s, aggregate "
+        f"{toks / wall:.2f} tok/s over the {R} slots; per request "
+        f"{steps / len(done):.1f} verify steps, step compression "
+        f"{sum(r.accept_sum for r in done) / max(steps, 1):.3f}; peak "
+        f"memory {peak:.2f} "
+        f"GiB; launches {launches} = the derived counts; a batched step: "
+        f"base verify forward {base} (K1 {k1_base} launches a matmul over "
+        f"{2 * R * tree.num_nodes} rows), drafter per slot, {R} slots "
+        f"{drafter_step}")
+    # the same requests alone, one after the other: under sampling too a
+    # request draws the same numbers batched as alone, so its tokens and
+    # steps must match
+    t0 = time.perf_counter()
+    singles = [alone(ecfg, r) for r in requests(len(reqs))]
+    torch.cuda.synchronize()
+    t_alone = time.perf_counter() - t0
+    for r, a in zip(done, singles):
+        if not (np_equal(r.tokens, a.tokens.cpu().numpy())
+                and r.steps == a.steps):
+            fail(f"batched XL request {r.uid}: batched {r.steps} steps, "
+                 f"alone {a.steps}; tokens equal "
+                 f"{np_equal(r.tokens, a.tokens.cpu().numpy())}")
+    log(f"batched XL [{card}] the same {len(singles)} requests alone "
+        f"(spec.generate, same seeds): {len(singles) * n_img / t_alone:.2f} "
+        f"tok/s ({t_alone:.2f} s, step compression "
+        f"{sum(x.accept_sum for x in singles) / sum(x.steps for x in singles):.3f})"
+        f"; batched/alone {toks / wall / (len(singles) * n_img / t_alone):.3f}; "
+        f"every request's tokens and steps equal its batched run's")
+    # pinned: batched equals alone, tokens and steps
+    pinned = dataclasses.replace(ecfg, pin=0.5, max_new=64)
+    done_p = Scheduler(engine(pinned)).run(requests(3))
+    for r in done_p:
+        a = alone(pinned, r)
+        if r.error is not None or not (
+                np_equal(r.tokens, a.tokens.cpu().numpy())
+                and r.steps == a.steps):
+            fail(f"batched XL pinned request {r.uid}: batched {r.steps} "
+                 f"steps, alone {a.steps}; error {r.error}; tokens equal "
+                 f"{r.error is None and np_equal(r.tokens, a.tokens.cpu().numpy())}")
+    log(f"batched XL pinned check [{card}]: 3 requests (pin=0.5, 64 tokens) "
+        f"batched on {R} slots equal spec.generate alone, tokens and steps "
+        f"({[r.steps for r in done_p]} steps)")
+    # a profile of the batched step with every slot busy
+    pres = [eng.prefill(r.cond, r.uncond, spec.request_generator(r.seed),
+                        prefix_valid=r.prefix_valid) for r in requests(R)]
+    batch = eng.empty_batch(pres[0])
+    for i, p in enumerate(pres):
+        batch = eng.insert(batch, i, p)
+    batch = eng.step(batch)
+    profile(f"XL batched step, {R} busy slots, 4 steps (step_many)",
+            lambda: eng.step_many(batch, 4), card)
+    # step_many reads nothing back to the host: any synchronizing call
+    # raises in this mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step_many(batch, 2)
+    except RuntimeError as e:
+        fail(f"batched XL: step_many synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("batched XL: step_many(2) ran under torch.cuda.set_sync_debug_mode("
+        "'error'): no host synchronization between steps")
+    return {"xl_batched": launches}
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def phase_ragged(torch, card: str):
+    """A ragged Lumina batch: Lumina-7B width (hidden 4096, 32 heads of 128,
+    vocab 65536) at 4 layers, random int8 weights from seed 0, int8 KV, the
+    passthrough drafter over the calibrated Lumina tree, rollback commit,
+    pinned LANTERN choices (``pin = 0.5``, k=10 delta=5, top-2000, cfg 3.0);
+    3 token prompts of 16, 9 and 4 text tokens on 3 slots under one 8 x 8
+    grid FSM whose static start is right for the first only (each slot
+    binds its own).  K2 runs at pk = 1 with a length per row.  Fails unless
+    every stream equals its lone ``spec.generate`` under its own FSM
+    (tokens and steps), obeys the grammar, and the launch counts equal the
+    derived ones."""
+    import dataclasses
+
+    from lantern_tpu_torch import configs, trees
+    from lantern_tpu_torch.engine import spec
+    from lantern_tpu_torch.engine.batch import BatchedEngine
+    from lantern_tpu_torch.engine.scheduler import Request, Scheduler
+    from lantern_tpu_torch.models import chameleon as cham
+    from lantern_tpu_torch.models import drafter as drf
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops import _cuda
+    from lantern_tpu_torch.ops.acceptance import LanternSpec
+    from lantern_tpu_torch.ops.quant import quantize_params
+    from lantern_tpu_torch.ops.sampling import LogitsWarp
+    from lantern_tpu_torch.ops.vq_distance import nearest_latents
+
+    grid = RAGGED_GRID
+    max_new, max_seq_len = lane_dims(grid)
+    cfg = dataclasses.replace(configs.chameleon_7b_config(
+        max_seq_len=max_seq_len, swin_norm=True), num_layers=RAGGED_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_params(tfm.fuse_params(
+        tfm.init_params(gen, cfg, device="cuda")))
+    cb = torch.randn((8192, 8), generator=gen, device="cuda")
+    params["nearest_latents"] = torch.as_tensor(cham.shift_nearest_table(
+        nearest_latents(cb, k=11), cfg.vocab_size), device="cuda")
+    dcfg = configs.drafter_config(cfg, num_layers=1)
+    dparams = drf.init_drafter_params(
+        torch.Generator(device="cuda").manual_seed(101), dcfg, params["embed"])
+    H = cfg.hidden_size
+    fc = torch.zeros((2 * H, H), dtype=cfg.torch_dtype, device="cuda")
+    fc[H:] = torch.eye(H, dtype=cfg.torch_dtype, device="cuda")
+    dparams["fc_w"] = fc
+    dparams["layers"] = {k: v * 0 for k, v in dparams["layers"].items()}
+    dparams = quantize_params(tfm.fuse_params(dparams))
+    tree = trees.get_tree(os.path.join("ckpts", "bench_tree_lumina.json"))
+    ecfg = spec.SpecDecodeConfig(
+        warp=LogitsWarp(temperature=1.0, top_k=2000, top_p=1.0),
+        cfg_scale=3.0, lantern=LanternSpec(k=10, delta=5.0), max_new=max_new,
+        kv_quant=True, walk_batch_warp=True, pin=0.5)
+
+    def fsm(start):
+        return cham.LuminaGridFSM(w=grid, h=grid, image_start_idx=start,
+                                  vocab_size=cfg.vocab_size)
+
+    prompts = [cham.lumina_token_prompt(t, grid=(grid, grid))
+               for t in RAGGED_TEXTS]
+    eng = BatchedEngine(ecfg=ecfg, cfg=cfg, tree=tree, params=params,
+                        num_slots=len(prompts), dparams=dparams, dcfg=dcfg,
+                        logits_fn=fsm(len(RAGGED_TEXTS[0])))
+    eng.n_steps = 0
+    step = eng.step
+
+    def counted(batch):
+        eng.n_steps += 1
+        return step(batch)
+    eng.step = counted
+    reqs = [Request(uid=i, token_prompt=tp, seed=500 + i)
+            for i, tp in enumerate(prompts)]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    done = Scheduler(eng).run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    want, _ = spec_launches(
+        cfg.num_layers, [len(t) + 3 for t in RAGGED_TEXTS], eng.n_steps,
+        tree.num_nodes, tree.path_len,
+        [len(lv.child_flat_idx) for lv in tree.levels], deferred=False,
+        slots=len(prompts))
+    if launches != want:
+        fail(f"ragged Lumina batch launched {launches}, but its shapes give "
+             f"{want}")
+    for r, text in zip(done, RAGGED_TEXTS):
+        if r.error is not None:
+            fail(f"ragged Lumina request {r.uid} failed: {r.error}")
+        a = spec.generate(params, ecfg, cfg, tree, prompts[r.uid],
+                          spec.request_generator(r.seed), logits_fn=fsm(
+                              len(text)), dparams=dparams, dcfg=dcfg)
+        if not (np_equal(r.tokens, a.tokens.cpu().numpy())
+                and r.steps == a.steps):
+            fail(f"ragged Lumina request {r.uid} ({len(text)} text tokens): "
+                 f"batched {r.steps} steps, alone {a.steps}; tokens differ")
+        body = r.tokens[:max_new - 1].reshape(grid, grid + 1)
+        if not ((body[:, grid] == cham.LUMINA_NEWLINE_ID).all()
+                and r.tokens[-1] == cham.IMAGE_END_ID):
+            fail(f"ragged Lumina request {r.uid}: the grid grammar broke")
+    log(f"ragged Lumina batch [{card}] Lumina-7B width at "
+        f"{cfg.num_layers} layers, 3 slots, prompts of "
+        f"{[len(t) + 3 for t in RAGGED_TEXTS]} rows, {grid}x{grid} grid "
+        f"({max_new} tokens), pinned: {eng.n_steps} batched steps in "
+        f"{wall:.2f} s; every stream equals its lone run under its own FSM "
+        f"(steps {[r.steps for r in done]}) and keeps the grammar; launches "
+        f"{launches} = the derived counts")
+    return {"lumina_ragged": launches}
+
+
 def profile(what: str, fn, card: str) -> None:
     """Device time by kernel over one short run (torch.profiler), and the
     share of the run's wall time the card was busy: the union of the
@@ -1711,14 +2294,26 @@ def main() -> int:
     if args.sweep_splits:
         phase_sweep_splits(torch, timer, f"{card}, {smi}")
         return 0
-    records = phase_kernels(torch, timer, f"{card}, {smi}", args.grid)
-    phase_forward(torch)
-    phase_forward_llamagen(torch)
+    tag = f"{card}, {smi}"
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    records = timed("kernels", phase_kernels, torch, timer, tag, args.grid)
+    timed("forward", phase_forward, torch)
+    timed("forward_llamagen", phase_forward_llamagen, torch)
     if args.kernels_only:
         log("kernels-only run: build, kernel and forward phases passed")
         return 0
-    launches = phase_main_path(torch, args.grid, f"{card}, {smi}")
-    launches.update(phase_xl(torch, f"{card}, {smi}"))
+    launches = timed("main_path", phase_main_path, torch, args.grid, tag)
+    xl = timed("build_xl", build_xl, torch)
+    launches.update(timed("xl", phase_xl, torch, tag, xl))
+    launches.update(timed("batched_xl", phase_batched, torch, tag, xl))
+    del xl
+    launches.update(timed("ragged_lumina", phase_ragged, torch, tag))
 
     kernels = []
     for name, src, rep in (
@@ -1730,7 +2325,8 @@ def main() -> int:
              "lantern_tpu/ops/pallas/kv_update.py:170"),
             ("kv_gather", "lantern_tpu_torch/csrc/kv_gather.cu",
              "lantern_tpu/ops/pallas/kv_update.py:313")):
-        r, x = records["lumina"][name], records["xl"][name]
+        r, x, bt = (records["lumina"][name], records["xl"][name],
+                    records["batched"][name])
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep,
                         "launches": launches["rollback"][name],
@@ -1741,6 +2337,9 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         "xl": {k: x[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "shape")},
+                        "batched": {k: bt[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "shape")}})
     print(json.dumps({"kernels": kernels}), flush=True)

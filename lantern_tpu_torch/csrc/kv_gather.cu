@@ -8,9 +8,11 @@
 // permutation matmul; none of that is needed here.  Rows are moved as raw
 // 16-byte chunks, so int8, bf16 and f32 planes are all byte-exact.
 //
-// start [R] and rel [R, A] are read from device memory (no host sync):
-// slot r owns planes [r * L / R, (r + 1) * L / R).  rel is clamped to
-// [0, blk-1] and start to [0, S-blk], so no index can leave the window.
+// start ([] or [B]) and rel ([A] or [B, A]) are read from device memory
+// (no host sync): one start and one accepted path for every batch row, or
+// one a row (the batched engine's R requests are 2R rows, each with its
+// own length and path).  rel is clamped to [0, blk-1] and start to
+// [0, S-blk], so no index can leave the window.
 //
 // Bound: HBM bytes, A rows read and written once per window (5.4 MB at the
 // Lumina shape, 1.6 us at the card's rate).  What costs more than that is
@@ -21,9 +23,9 @@
 // - One warp owns one (plane, batch, group) window, K and V and both scale
 //   planes; a block holds 8 warps and the grid is one wave, with a
 //   grid-stride loop over windows.  No block-wide barrier.
-// - A warp reads start and rel once for its slot (lane j holds row j's
-//   clamped rel) and again only when a later window belongs to another
-//   slot; with R = 1 every window of the warp shares them.
+// - A warp reads start and rel once for its batch row (lane j holds row
+//   j's clamped rel) and again only when a later window belongs to another
+//   row; with one start and one path every window of the warp shares them.
 // - Register path (A <= 32 and the rows fit RC 16-byte chunks a lane a
 //   tensor): the warp loads all of its window's rows, K and V, and the
 //   scales into registers, waits at __syncwarp, then stores them.  Sources
@@ -47,28 +49,40 @@ struct Args {
   uint4* vb;
   float* ksc;              // null for a bf16 or f32 cache
   float* vsc;
-  const int* starts;       // [R]
-  const int* rels;         // [R, A]
-  int planes_per_start, BG, S, A, blk, chunks, windows;
+  const int* starts;       // [1] or [B]
+  const int* rels;         // [A] or [B, A]
+  int start_stride;        // 0: one start for every row; 1: one a row
+  int rel_stride;          // 0: one path for every row; A: one a row
+  int B, G, S, A, blk, chunks, windows;
   int stage_bytes;         // a warp's slice of shared memory (shared path)
 };
 
-__device__ __forceinline__ int clamp_rel(const Args& a, int r, int j) {
-  return min(max(a.rels[(size_t)r * a.A + j], 0), a.blk - 1);
+__device__ __forceinline__ int clamp_rel(const Args& a, int b, int j) {
+  return min(max(a.rels[(size_t)b * a.rel_stride + j], 0), a.blk - 1);
+}
+
+__device__ __forceinline__ int clamp_start(const Args& a, int b) {
+  return min(max(a.starts[b * a.start_stride], 0), a.S - a.blk);
+}
+
+// the batch row whose indices window w (= (plane * B + b) * G + g) takes;
+// 0 when every row shares them
+__device__ __forceinline__ int row_of(const Args& a, int w) {
+  return (a.start_stride | a.rel_stride) ? (w / a.G) % a.B : 0;
 }
 
 template <int RC>
 __global__ void __launch_bounds__(THREADS) kv_gather_kernel(const Args a) {
   const int lane = threadIdx.x & 31;
   const int n = a.A * a.chunks;       // chunks of one tensor's A rows
-  int cur = -1, start = 0, src = 0;   // slot, its start, lane's rel (row j)
+  int cur = -1, start = 0, src = 0;   // row, its start, lane's rel (row j)
   for (int w = blockIdx.x * WARPS + (threadIdx.x >> 5); w < a.windows;
        w += gridDim.x * WARPS) {
-    const int r = w / a.BG / a.planes_per_start;
-    if (r != cur) {                   // the same for every lane of the warp
-      cur = r;
-      start = min(max(a.starts[r], 0), a.S - a.blk);
-      src = lane < a.A ? clamp_rel(a, r, lane) : 0;
+    const int b = row_of(a, w);
+    if (b != cur) {                   // the same for every lane of the warp
+      cur = b;
+      start = clamp_start(a, b);
+      src = lane < a.A ? clamp_rel(a, b, lane) : 0;
     }
     const size_t row0 = (size_t)w * a.S + start;   // row `start` of window w
     uint4 kx[RC], vx[RC];
@@ -115,20 +129,19 @@ __global__ void __launch_bounds__(THREADS) kv_gather_shared_kernel(
   float* scl = reinterpret_cast<float*>(rows + (size_t)a.A * a.chunks);
   const int n = a.A * a.chunks;
   for (int w = blockIdx.x * wpb + warp; w < a.windows; w += gridDim.x * wpb) {
-    const int r = w / a.BG / a.planes_per_start;
-    const int start = min(max(a.starts[r], 0), a.S - a.blk);
-    const size_t row0 = (size_t)w * a.S + start;
+    const int b = row_of(a, w);
+    const size_t row0 = (size_t)w * a.S + clamp_start(a, b);
     for (int x = 0; x < 2; ++x) {
       uint4* buf = x ? a.vb : a.kb;
       float* sc = x ? a.vsc : a.ksc;
       for (int c = lane; c < n; c += 32) {
         const int j = c / a.chunks;
-        rows[c] = buf[(row0 + clamp_rel(a, r, j)) * a.chunks +
+        rows[c] = buf[(row0 + clamp_rel(a, b, j)) * a.chunks +
                       (c - j * a.chunks)];
       }
       if (sc != nullptr)
         for (int j = lane; j < a.A; j += 32)
-          scl[j] = sc[row0 + clamp_rel(a, r, j)];
+          scl[j] = sc[row0 + clamp_rel(a, b, j)];
       __syncwarp();
       for (int c = lane; c < n; c += 32) buf[row0 * a.chunks + c] = rows[c];
       if (sc != nullptr)
@@ -178,17 +191,22 @@ int launch_shared(const Args& a, cudaStream_t st) {
 
 }  // namespace
 
-// planes: L (= R * layers); row_bytes: W * element size, a multiple of 16;
-// staging: 16-byte chunks a lane holds per tensor (1, 2, 4 or 8: the
-// register path, A <= 32), or 0 for the shared-memory path
+// planes: L; starts: int32, one for every batch row (start_stride 0) or
+// one a row (1); rels: int32 [A] (rel_stride 0) or [B, A] (rel_stride A);
+// row_bytes: W * element size, a multiple of 16; staging: 16-byte chunks a
+// lane holds per tensor (1, 2, 4 or 8: the register path, A <= 32), or 0
+// for the shared-memory path
 LANTERN_EXPORT int lantern_kv_gather(void* k_buf, void* v_buf, void* k_scale,
                                      void* v_scale, const void* starts,
-                                     const void* rels, int planes, int B,
-                                     int G, int S, int R, int A, int blk,
+                                     int start_stride, const void* rels,
+                                     int rel_stride, int planes, int B,
+                                     int G, int S, int A, int blk,
                                      int row_bytes, int staging,
                                      void* stream) {
-  if (planes < 1 || B < 1 || G < 1 || R < 1 || planes % R || A < 1 ||
-      A > blk || blk > S || row_bytes < 16 || row_bytes % 16)
+  if (planes < 1 || B < 1 || G < 1 || A < 1 || A > blk || blk > S ||
+      row_bytes < 16 || row_bytes % 16 ||
+      (start_stride != 0 && start_stride != 1) ||
+      (rel_stride != 0 && rel_stride != A))
     return (int)cudaErrorInvalidValue;
   const long long windows = (long long)planes * B * G;
   if (windows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -199,8 +217,10 @@ LANTERN_EXPORT int lantern_kv_gather(void* k_buf, void* v_buf, void* k_scale,
   a.vsc = static_cast<float*>(v_scale);
   a.starts = static_cast<const int*>(starts);
   a.rels = static_cast<const int*>(rels);
-  a.planes_per_start = planes / R;
-  a.BG = B * G;
+  a.start_stride = start_stride;
+  a.rel_stride = rel_stride;
+  a.B = B;
+  a.G = G;
   a.S = S;
   a.A = A;
   a.blk = blk;

@@ -1,13 +1,15 @@
 // K3: KV block write.  New rows [L, B, T, G*128] (K and V) land at rows
-// [start, start+T) of the grouped planes [L, B, G, S, 128]; for an int8
+// [start[b], start[b]+T) of batch row b of the grouped planes
+// [L, B, G, S, 128] (start is one value for every row, or one a row: the
+// batched engine's R requests are 2R rows, each at its own length); for an int8
 // cache each 128-lane group row is quantized on the way (one f32 scale per
 // row into the [L, B, G, S] scale planes), byte for byte as
 // kv.quantize_rows.
 //
 // Replaces write_block (lantern_tpu/ops/pallas/kv_update.py:170), which
 // only copied rows; here the quantization that XLA ran before it is fused
-// into the same launch.  start is read from device memory (no host sync)
-// and clamped to [0, S-T] like lax.dynamic_update_slice.
+// into the same launch.  start is read from device memory (no host sync),
+// per row, and clamped to [0, S-T] like lax.dynamic_update_slice.
 //
 // Bound: HBM bytes, each bf16 row read once and each int8 row and scale
 // written once (50 MB at the rollback path's 32-row block of 32 layers),
@@ -119,13 +121,12 @@ __global__ void __launch_bounds__(THREADS)
 kv_write_kernel(const uint4* __restrict__ kn, const uint4* __restrict__ vn,
                 void* __restrict__ kb, void* __restrict__ vb,
                 float* __restrict__ ksc, float* __restrict__ vsc,
-                const int* __restrict__ start_ptr, int T, int G, int S,
-                int rows) {
+                const int* __restrict__ starts, int start_stride, int B,
+                int T, int G, int S, int rows) {
   const int hl = threadIdx.x & 15;                 // lane in the half-warp
   const int h0 = blockIdx.x * HALVES + (threadIdx.x >> 4);
   const int hw = h0 & ~1;                          // the warp's first half
   const int stride = gridDim.x * HALVES;
-  const int start = min(max(*start_ptr, 0), S - T);
   // the loop bound is uniform over the grid, so every lane of a warp makes
   // the same rounds and takes part in every shuffle
   for (int base = 0; base < rows; base += UNITS * stride) {
@@ -140,6 +141,9 @@ kv_write_kernel(const uint4* __restrict__ kn, const uint4* __restrict__ vn,
       any[u] = base + u * stride + hw < rows;
       const int g = r % G, rest = r / G;
       const int t = rest % T, lb = rest / T;
+      // this row's start (every lane of a half-warp reads the same word)
+      const int start =
+          live[u] ? min(max(starts[(lb % B) * start_stride], 0), S - T) : 0;
       drow[u] = ((size_t)lb * G + g) * S + start + t;
     }
     if (!QUANT) {
@@ -158,8 +162,8 @@ kv_write_kernel(const uint4* __restrict__ kn, const uint4* __restrict__ vn,
 
 template <bool QUANT>
 int launch(const void* k_new, const void* v_new, void* k_buf, void* v_buf,
-           void* k_scale, void* v_scale, const int* start, int T, int G,
-           int S, int rows, cudaStream_t st) {
+           void* k_scale, void* v_scale, const int* starts, int start_stride,
+           int B, int T, int G, int S, int rows, cudaStream_t st) {
   static int cache[lantern::MAX_DEVICES] = {0};
   int wave = 0;
   const cudaError_t e = lantern::wave_blocks(kv_write_kernel<QUANT>, THREADS,
@@ -170,26 +174,32 @@ int launch(const void* k_new, const void* v_new, void* k_buf, void* v_buf,
   kv_write_kernel<QUANT><<<grid, THREADS, 0, st>>>(
       static_cast<const uint4*>(k_new), static_cast<const uint4*>(v_new),
       k_buf, v_buf, static_cast<float*>(k_scale), static_cast<float*>(v_scale),
-      start, T, G, S, rows);
+      starts, start_stride, B, T, G, S, rows);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// starts: int32, one for every batch row (start_stride 0) or one a row
+// (start_stride 1)
 LANTERN_EXPORT int lantern_kv_write(const void* k_new, const void* v_new,
                                     void* k_buf, void* v_buf, void* k_scale,
-                                    void* v_scale, const void* start, int L,
-                                    int B, int T, int G, int S, int quantized,
+                                    void* v_scale, const void* starts,
+                                    int start_stride, int L, int B, int T,
+                                    int G, int S, int quantized,
                                     void* stream) {
   const long long rows = (long long)L * B * T * G;
   // 2^30 rows would be 256 GB of new rows, more than a card holds; below it
   // no row index of the grid-stride loop overflows an int
-  if (L < 1 || B < 1 || T < 1 || G < 1 || T > S || rows > (1LL << 30))
+  if (L < 1 || B < 1 || T < 1 || G < 1 || T > S || rows > (1LL << 30) ||
+      (start_stride != 0 && start_stride != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const auto* sp = static_cast<const int*>(start);
+  const auto* sp = static_cast<const int*>(starts);
   return quantized ? launch<true>(k_new, v_new, k_buf, v_buf, k_scale,
-                                  v_scale, sp, T, G, S, (int)rows, st)
+                                  v_scale, sp, start_stride, B, T, G, S,
+                                  (int)rows, st)
                    : launch<false>(k_new, v_new, k_buf, v_buf, nullptr,
-                                   nullptr, sp, T, G, S, (int)rows, st);
+                                   nullptr, sp, start_stride, B, T, G, S,
+                                   (int)rows, st);
 }

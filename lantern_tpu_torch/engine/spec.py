@@ -24,6 +24,14 @@ Chameleon token prompt (``token_prompt``).
 
 A plain Python loop replaces ``lax.while_loop``; its condition reads three
 scalars back per step.  Everything else stays on the device.
+
+A step is built from per-request pieces that the batched engine
+(``engine/batch.py``) shares: ``static_tree_block`` (the tree of a draft),
+``verify_forward`` (one tree-verify forward of R requests' CFG row pairs),
+``accept`` (one request's acceptance walk), ``advance`` (commit the
+verdict into the request's state and extend its drafter) and
+``next_static_draft``.  ``request_generator`` is a request's random
+stream.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from ..trees import TreeSpec
 
 __all__ = ["SpecDecodeConfig", "SpecState", "SpecResult", "TokenPrompt",
            "make_static_step", "make_dynamic_step", "prefill_request",
-           "generate"]
+           "generate", "request_generator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +128,9 @@ class _Ctx(NamedTuple):
     # (the LlamaGen drafter takes no mask)
     drafter_pv: Optional[torch.Tensor] = None
     levels: tuple = ()                  # drafter.device_levels of the tree
+    # ``ecfg.stop_ids`` on the device, made once at prefill so that a step
+    # copies nothing from the host
+    stops: Optional[torch.Tensor] = None
 
 
 def bind_logits_fn(logits_fn, pos_offsets):
@@ -144,62 +155,133 @@ def _mask_logits(logits, mask):
     return torch.where(mask, torch.finfo(torch.float32).min, logits)
 
 
-def _verify_and_update(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx,
-                       state: SpecState, candidates, node_q, level_probs,
-                       children, inlevel_rank, tree_tokens, tree_mask,
-                       tree_pos, retrieve, max_depth: int):
-    """Tree-verify forward, acceptance, commit and (with the real drafter)
-    the drafter's extension over the accepted rows.  Returns ``(state',
-    root_out)``: the next draft's root hidden [2, 1, H], or with
-    ``ecfg.stale_draft`` the raw cfg-combined logits row [V] at the last
-    accepted node, from which the next stale draft proposes."""
-    N1 = tree_tokens.shape[0]
-    D = candidates.shape[1]
-    dev = tree_tokens.device
-    tok2 = tree_tokens[None, :].expand(2, N1)
-    deferred = ecfg.deferred_commit
-    # committed length as seen by this forward: with deferred commit the
-    # previous step's accepted rows ride in as extra_kv and are committed
-    # by this call
-    eff_len = state.base_kv.length + (state.pn if deferred else 0)
-    positions = tree_pos + eff_len
-    positions = torch.clamp(positions[None, :] - ctx.pos_offsets[:, None],
-                            min=0)
-    ex = None
-    if deferred:
-        # rows past pn land above the committed frontier and are
-        # overwritten by the next commit before any read
-        sel_prev = torch.clamp(state.psel, 0, N1 - 1).long()
-        ex = (state.blk[0][:, :, sel_prev], state.blk[1][:, :, sel_prev],
-              state.pn)
+class TreeBlock(NamedTuple):
+    """One request's draft tree as a verify forward and its acceptance take
+    it (static: the spec's constants and the draft's tokens; dynamic: the
+    draft's own tree)."""
+    tokens: torch.Tensor              # [N+1] node tokens, the root first
+    candidates: torch.Tensor          # [P, D] root paths' tokens, -1 pads
+    node_q: Optional[torch.Tensor]    # [N+1] residual q (sampling, static)
+    level_probs: Optional[tuple]      # per level [rows, V] (sampling, static)
+    children: torch.Tensor            # [N+1, K] child slots, -1 pads
+    inlevel_rank: Optional[torch.Tensor]  # [N+1] (sampling, static)
+    mask: torch.Tensor                # [N+1, N+1] ancestor-or-self
+    pos: torch.Tensor                 # [N+1] node depths
+    retrieve: torch.Tensor            # [P, D] root paths' slots, -1 pads
+    max_depth: int
+
+
+class Verdict(NamedTuple):
+    """One request's acceptance of its tree."""
+    sel_slots: torch.Tensor           # [D] accepted path's slots (pads in
+                                      # range: clamped into the block)
+    alen: torch.Tensor                # [] accepted draft nodes
+    n_acc: torch.Tensor               # [] int32 committed tokens, alen + 1
+    bonus: torch.Tensor               # [] int32 the next root token
+
+
+class StaticTree(NamedTuple):
+    """A static tree's constants on the device, built once per engine."""
+    spec: TreeSpec
+    tree_indices: torch.Tensor
+    retrieve: torch.Tensor
+    mask: torch.Tensor
+    depth: torch.Tensor
+    children: torch.Tensor
+    inlevel: torch.Tensor
+    minus_one: torch.Tensor           # [1] int32, the pad slot's token
+    one: torch.Tensor                 # [1] f32, the root's q
+
+
+def static_tree(spec: TreeSpec, device) -> StaticTree:
+    def t(a, dtype=torch.long):
+        return torch.as_tensor(a).to(device=device, dtype=dtype)
+
+    return StaticTree(spec=spec, tree_indices=t(spec.tree_indices),
+                      retrieve=t(spec.retrieve_indices),
+                      mask=t(spec.attn_mask, torch.bool),
+                      depth=t(spec.depth, torch.int32),
+                      children=t(spec.children), inlevel=t(spec.inlevel_rank),
+                      minus_one=t([-1], torch.int32), one=t([1.0],
+                                                            torch.float32))
+
+
+def static_tree_block(ecfg: SpecDecodeConfig, tree: StaticTree,
+                      state: SpecState) -> TreeBlock:
+    """The static tree filled with the state's root token and draft."""
+    d = state.draft
+    cand_vec = torch.cat([state.root_token.reshape(1).to(torch.int32),
+                          d.ss_token.reshape(-1)])
+    tree_tokens = cand_vec[tree.tree_indices]                     # [N+1]
+    candidates = _safe_gather_ext(torch.cat([tree_tokens, tree.minus_one]),
+                                  tree.retrieve)
+    node_q = level_probs = inlevel = None
+    if ecfg.warp.active:
+        node_q = torch.cat([tree.one, d.ss_prob.reshape(-1)])[
+            tree.tree_indices]
+        level_probs, inlevel = d.level_probs, tree.inlevel
+    return TreeBlock(tokens=tree_tokens, candidates=candidates, node_q=node_q,
+                     level_probs=level_probs, children=tree.children,
+                     inlevel_rank=inlevel, mask=tree.mask, pos=tree.depth,
+                     retrieve=tree.retrieve, max_depth=tree.spec.max_depth)
+
+
+def verify_forward(ecfg: SpecDecodeConfig, cfg: ModelConfig, params: dict,
+                   rope: tuple, base_kv: KVCache, tokens: torch.Tensor,
+                   mask: torch.Tensor, pos: torch.Tensor,
+                   prefix_valid: torch.Tensor, pos_offsets: torch.Tensor,
+                   eff_len: torch.Tensor, extra_kv=None,
+                   defer_block: bool = False):
+    """The tree-verify forward of R requests at once: ``tokens`` [R, N+1]
+    (one tree each, the same ``mask`` and node depths ``pos``), their CFG
+    pairs on batch rows ``2r`` / ``2r + 1`` of ``base_kv``; ``eff_len``
+    ([] or [2R]) is each row's committed length as this forward sees it,
+    ``prefix_valid`` [2R, S] and ``pos_offsets`` [2R] are per row.  The
+    block is written provisionally at each row's length (or, with
+    ``defer_block``, returned).  Returns ``(forward result, raw
+    cfg-combined logits [R, N+1, V])``."""
+    R, N1 = tokens.shape
+    tok2 = tokens.repeat_interleave(2, dim=0)                     # [2R, N+1]
+    positions = pos[None, :] + eff_len.reshape(-1, 1)
+    positions = torch.clamp(positions - pos_offsets[:, None], min=0)
     res = tfm.forward(
-        ctx.params, cfg, tfm.token_embed(ctx.params, tok2), state.base_kv,
-        positions=positions, rope=ctx.rope, block_mask=tree_mask,
-        prefix_valid=ctx.prefix_valid, commit=False, extra_kv=ex,
-        defer_block=deferred)
-    logits_raw = cfg_combine(tfm.logits_head(ctx.params, res.hidden),
-                             ecfg.cfg_scale)[0]
+        params, cfg, tfm.token_embed(params, tok2), base_kv,
+        positions=positions, rope=rope, block_mask=mask,
+        prefix_valid=prefix_valid, commit=False, extra_kv=extra_kv,
+        defer_block=defer_block)
+    return res, cfg_combine(tfm.logits_head(params, res.hidden),
+                            ecfg.cfg_scale)
+
+
+def accept(ecfg: SpecDecodeConfig, ctx: _Ctx, blk: TreeBlock,
+           logits_raw: torch.Tensor, eff_len: torch.Tensor) -> Verdict:
+    """One request's acceptance of its verified tree: the token mask and
+    the request's position constraints on its raw logits [N+1, V], then the
+    greedy walk or the LANTERN rejection-sampling walk (coins and the bonus
+    token drawn from ``ctx.generator``)."""
+    N1 = blk.tokens.shape[0]
+    D = blk.candidates.shape[1]
+    dev = blk.tokens.device
     logits_all = _mask_logits(logits_raw, ctx.logits_mask)
     if ctx.logits_fn is not None:
-        logits_all = ctx.logits_fn(logits_all, tree_pos + eff_len)
-
+        logits_all = ctx.logits_fn(logits_all, blk.pos + eff_len)
     if ecfg.warp.greedy:
-        retrieve_safe = torch.clamp(retrieve, min=0).long()
+        retrieve_safe = torch.clamp(blk.retrieve, min=0).long()
         path_logits = logits_all[retrieve_safe]                  # [P, D, V]
         best, alen, bonus_logits = acc.greedy_verify(
-            path_logits, candidates, ctx.nearest, ecfg.lantern)
+            path_logits, blk.candidates, ctx.nearest, ecfg.lantern)
         bonus = torch.argmax(bonus_logits).to(torch.int32)
         sel_slots = acc.take1(retrieve_safe, best)               # [D]
     else:
         pinned_u = (None if ecfg.pin is None else
-                    torch.full((max_depth, children.shape[1]), ecfg.pin,
-                               dtype=torch.float32, device=dev))
+                    torch.full((blk.max_depth, blk.children.shape[1]),
+                               ecfg.pin, dtype=torch.float32, device=dev))
         walk_path, alen, dist = acc.stochastic_verify_tree(
-            ctx.generator, logits_all, tree_tokens, children,
-            depth=max_depth, warp=ecfg.warp, nearest=ctx.nearest,
-            lantern=ecfg.lantern, node_q=node_q, level_probs=level_probs,
-            node_level_row=inlevel_rank, uniforms=pinned_u,
-            batch_warp=ecfg.walk_batch_warp)
+            ctx.generator, logits_all, blk.tokens, blk.children,
+            depth=blk.max_depth, warp=ecfg.warp, nearest=ctx.nearest,
+            lantern=ecfg.lantern, node_q=blk.node_q,
+            level_probs=blk.level_probs, node_level_row=blk.inlevel_rank,
+            uniforms=pinned_u, batch_warp=ecfg.walk_batch_warp)
         if ecfg.pin is None:
             bonus = categorical(ctx.generator,
                                 torch.log(torch.clamp(dist, min=1e-30)))
@@ -207,99 +289,127 @@ def _verify_and_update(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx,
             bonus = torch.argmax(dist).to(torch.int32)
         sel_slots = torch.zeros((D,), dtype=torch.long, device=dev)
         sel_slots[: walk_path.shape[0]] = walk_path.long()
-
-    n_acc = (alen + 1).to(torch.int32)
     # pads of the slot path are 0, but a gather asserts on the device where
     # the JAX one clamps: keep every data-dependent index in range
-    sel_slots = torch.clamp(sel_slots, 0, N1 - 1)
-    sel_tokens = tree_tokens[sel_slots]
-    if deferred:
-        base_kv = res.kv             # the previous accepted rows, committed
-    else:
-        # rollback: compact the accepted rows of the provisional tree block
-        base_kv = res.kv.accept_path(sel_slots, n_acc, block_size=N1)
+    return Verdict(sel_slots=torch.clamp(sel_slots, 0, N1 - 1), alen=alen,
+                   n_acc=(alen + 1).to(torch.int32), bonus=bonus)
+
+
+def advance(ecfg: SpecDecodeConfig, ctx: _Ctx, state: SpecState,
+            blk: TreeBlock, v: Verdict, logits_raw: torch.Tensor,
+            hidden: torch.Tensor):
+    """Commit a verdict into one request's state: the accepted tokens into
+    its stream (a fixed block of D at ``n_new``), the stop flag, the
+    counters, and (with the EAGLE drafter) the drafter's extension over
+    the accepted rows, whose base hidden states are ``hidden`` [2, N+1, H]
+    (the request's rows of the verify forward).  The base cache is the
+    caller's.  Returns ``(state', root_out)``: the next draft's root hidden
+    [2, 1, H] or, with ``ecfg.stale_draft``, the raw cfg-combined logits row
+    [V] at the last accepted node."""
+    D = v.sel_slots.shape[0]
+    dev = v.sel_slots.device
+    sel_tokens = blk.tokens[v.sel_slots]
     ar_d = torch.arange(D, device=dev)
-    cand_row = torch.where(ar_d < n_acc, sel_tokens,
+    cand_row = torch.where(ar_d < v.n_acc, sel_tokens,
                            torch.zeros_like(sel_tokens)).to(torch.int32)
-    # fixed-size block write at n_new (the buffer is padded by D)
-    idx = state.n_new.long() + ar_d
-    tokens = state.tokens.index_copy(0, idx, cand_row)
+    # fixed-size block write at n_new (the buffer is padded by D); the
+    # start is clamped as lax.dynamic_update_slice clamps it, which only a
+    # finished slot of the batched engine (frozen, or empty at 1 << 30)
+    # reaches
+    n0 = torch.clamp(state.n_new.long(), 0, state.tokens.shape[0] - D)
+    tokens = state.tokens.index_copy(0, n0 + ar_d, cand_row)
     stopped = state.stopped
-    if ecfg.stop_ids:
-        stops = torch.tensor(ecfg.stop_ids, dtype=torch.int32, device=dev)
-        hit = (cand_row[:, None] == stops[None, :]).any(-1) & (ar_d < n_acc)
+    if ctx.stops is not None:
+        hit = ((cand_row[:, None] == ctx.stops[None, :]).any(-1)
+               & (ar_d < v.n_acc))
         stopped = stopped | hit.any()
     draft_kv = state.draft_kv
     if ecfg.stale_draft:
-        root_out = acc.take1(logits_raw, acc.take1(sel_slots, alen))
+        root_out = acc.take1(logits_raw, acc.take1(v.sel_slots, v.alen))
     else:
         # drafter extension over the accepted rows: (next token, base
         # hidden) pairs; the last valid pair carries the bonus token
         next_tok = torch.where(
-            ar_d < alen, sel_tokens[torch.clamp(ar_d + 1, max=D - 1)],
-            bonus).to(torch.int32)
+            ar_d < v.alen, sel_tokens[torch.clamp(ar_d + 1, max=D - 1)],
+            v.bonus).to(torch.int32)
         out_hidden, draft_kv = drf.extend(
             ctx.dparams, ctx.dcfg, ctx.drope, draft_kv,
             next_tok[None, :].expand(2, D),
-            res.hidden.index_select(1, sel_slots), n_acc,
+            hidden.index_select(1, v.sel_slots), v.n_acc,
             prefix_valid=ctx.drafter_pv, pos_offsets=ctx.pos_offsets)
         root_out = out_hidden.index_select(
-            1, torch.clamp(alen, 0, D - 1).long().reshape(1))
-    state = state._replace(
-        base_kv=base_kv, draft_kv=draft_kv, root_token=bonus, tokens=tokens,
-        n_new=state.n_new + n_acc, steps=state.steps + 1,
-        accept_sum=state.accept_sum + n_acc, stopped=stopped)
+            1, torch.clamp(v.alen, 0, D - 1).long().reshape(1))
+    return state._replace(
+        draft_kv=draft_kv, root_token=v.bonus, tokens=tokens,
+        n_new=state.n_new + v.n_acc, steps=state.steps + 1,
+        accept_sum=state.accept_sum + v.n_acc, stopped=stopped), root_out
+
+
+def next_static_draft(ecfg: SpecDecodeConfig, spec: TreeSpec, ctx: _Ctx,
+                      state: SpecState, root_out: torch.Tensor,
+                      committed: torch.Tensor) -> SpecState:
+    """The next static draft from ``advance``'s ``root_out``: stale
+    drafting from the logits row (``committed`` [] is the request's
+    committed base length, the grid constraints' position base), or the
+    drafter's levels."""
+    if ecfg.stale_draft:
+        return state._replace(draft=drf.draft_stale(
+            spec, root_out, committed, ecfg.dwarp, ctx.generator,
+            logits_mask=ctx.logits_mask, logits_fn=ctx.logits_fn,
+            pin=ecfg.pin))
+    new_draft, dkv = _draft_static(ecfg, spec, ctx, state.draft_kv, root_out)
+    return state._replace(draft=new_draft, draft_kv=dkv)
+
+
+def _verify_and_update(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx,
+                       state: SpecState, blk: TreeBlock):
+    """One request's verify forward, acceptance and commit: the base cache
+    by rollback (``accept_path``: kernel K4) or, with ``deferred_commit``,
+    by carrying the block to the next forward.  Returns ``(state',
+    root_out)`` as ``advance`` does."""
+    N1 = blk.tokens.shape[0]
+    deferred = ecfg.deferred_commit
+    # committed length as seen by this forward: with deferred commit the
+    # previous step's accepted rows ride in as extra_kv and are committed
+    # by this call
+    eff_len = state.base_kv.length + (state.pn if deferred else 0)
+    ex = None
     if deferred:
-        state = state._replace(blk=res.block, psel=sel_slots.to(torch.int32),
-                               pn=n_acc)
+        # rows past pn land above the committed frontier and are
+        # overwritten by the next commit before any read
+        sel_prev = torch.clamp(state.psel, 0, N1 - 1).long()
+        ex = (state.blk[0][:, :, sel_prev], state.blk[1][:, :, sel_prev],
+              state.pn)
+    res, logits_raw = verify_forward(
+        ecfg, cfg, ctx.params, ctx.rope, state.base_kv, blk.tokens[None],
+        blk.mask, blk.pos, ctx.prefix_valid, ctx.pos_offsets, eff_len,
+        extra_kv=ex, defer_block=deferred)
+    v = accept(ecfg, ctx, blk, logits_raw[0], eff_len)
+    if deferred:
+        base_kv = res.kv             # the previous accepted rows, committed
+    else:
+        # rollback: compact the accepted rows of the provisional tree block
+        base_kv = res.kv.accept_path(v.sel_slots, v.n_acc, block_size=N1)
+    state, root_out = advance(ecfg, ctx, state, blk, v, logits_raw[0],
+                              res.hidden)
+    state = state._replace(base_kv=base_kv)
+    if deferred:
+        state = state._replace(blk=res.block,
+                               psel=v.sel_slots.to(torch.int32), pn=v.n_acc)
     return state, root_out
 
 
 def make_static_step(ecfg: SpecDecodeConfig, cfg: ModelConfig,
                      spec: TreeSpec, ctx: _Ctx):
     """One EAGLE-1 static-tree speculative step."""
-    dev = ctx.prefix_valid.device
-
-    def t(a, dtype=torch.long):
-        return torch.as_tensor(a).to(device=dev, dtype=dtype)
-
-    tree_indices = t(spec.tree_indices)
-    retrieve = t(spec.retrieve_indices)
-    attn_mask = t(spec.attn_mask, torch.bool)
-    depth_arr = t(spec.depth, torch.int32)
-    children = t(spec.children)
-    inlevel = t(spec.inlevel_rank)
-    sampling = ecfg.warp.active
-    minus_one = torch.full((1,), -1, dtype=torch.int32, device=dev)
-    ones = torch.ones((1,), dtype=torch.float32, device=dev)
+    tree = static_tree(spec, ctx.prefix_valid.device)
 
     def step(state: SpecState) -> SpecState:
-        d = state.draft
-        cand_vec = torch.cat([state.root_token.reshape(1).to(torch.int32),
-                              d.ss_token.reshape(-1)])
-        tree_tokens = cand_vec[tree_indices]                     # [N+1]
-        candidates = _safe_gather_ext(torch.cat([tree_tokens, minus_one]),
-                                      retrieve)
-        if sampling:
-            node_q = torch.cat([ones, d.ss_prob.reshape(-1)])[tree_indices]
-            level_probs = d.level_probs
-        else:
-            node_q, level_probs = None, None
         state, root_out = _verify_and_update(
-            ecfg, cfg, ctx, state, candidates, node_q, level_probs,
-            children, inlevel if sampling else None, tree_tokens, attn_mask,
-            depth_arr, retrieve, spec.max_depth)
-        if ecfg.stale_draft:
-            committed = state.base_kv.length + (
-                state.pn if ecfg.deferred_commit else 0)
-            new_draft = drf.draft_stale(
-                spec, root_out, committed, ecfg.dwarp, ctx.generator,
-                logits_mask=ctx.logits_mask, logits_fn=ctx.logits_fn,
-                pin=ecfg.pin)
-            return state._replace(draft=new_draft)
-        new_draft, dkv = _draft_static(ecfg, spec, ctx, state.draft_kv,
-                                       root_out)
-        return state._replace(draft=new_draft, draft_kv=dkv)
+            ecfg, cfg, ctx, state, static_tree_block(ecfg, tree, state))
+        committed = state.base_kv.length + (
+            state.pn if ecfg.deferred_commit else 0)
+        return next_static_draft(ecfg, spec, ctx, state, root_out, committed)
 
     return step
 
@@ -325,10 +435,12 @@ def make_dynamic_step(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx):
         d: drf.DynamicDraft = state.draft
         candidates = _safe_gather_ext(torch.cat([d.draft_tokens, minus_one]),
                                       d.retrieve_indices)
-        state, root_hidden = _verify_and_update(
-            ecfg, cfg, ctx, state, candidates, None, None, d.children, None,
-            d.draft_tokens, d.tree_mask, d.tree_position_ids,
-            d.retrieve_indices, dcfg.depth + 1)
+        blk = TreeBlock(tokens=d.draft_tokens, candidates=candidates,
+                        node_q=None, level_probs=None, children=d.children,
+                        inlevel_rank=None, mask=d.tree_mask,
+                        pos=d.tree_position_ids, retrieve=d.retrieve_indices,
+                        max_depth=dcfg.depth + 1)
+        state, root_hidden = _verify_and_update(ecfg, cfg, ctx, state, blk)
         new_draft, dkv = _draft_dynamic(ecfg, ctx, state.draft_kv,
                                         root_hidden, state.root_token)
         return state._replace(draft=new_draft, draft_kv=dkv)
@@ -432,6 +544,9 @@ def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
                            drope=tfm.make_rope_tables(dcfg.model, dev))
         if ecfg.mode == "static":
             ctx = ctx._replace(levels=drf.device_levels(spec, dev))
+    if ecfg.stop_ids:
+        ctx = ctx._replace(stops=torch.tensor(ecfg.stop_ids,
+                                              dtype=torch.int32, device=dev))
     base_kv = res.kv
     logits0 = cfg_combine(tfm.logits_head(params, res.hidden[:, -1:]),
                           ecfg.cfg_scale)
@@ -494,6 +609,14 @@ def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
             blk=(zblk, zblk),
             psel=torch.zeros((D,), dtype=torch.int32, device=dev), pn=zero())
     return state, ctx
+
+
+def request_generator(seed: int, device=None) -> torch.Generator:
+    """A request's random stream: a ``torch.Generator`` on ``device`` seeded
+    with ``seed``.  ``generate`` draws from the generator its caller
+    passes; the batched engine's scheduler gives every request this one, so
+    that under sampling a request's tokens are the same batched as alone."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
 
 
 def generate(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,

@@ -3,8 +3,13 @@
 Counterpart of ``lantern_tpu/kv.py``.  The layout, the S padding to a
 multiple of 128 and the int8 granularity (one f32 scale per 128-lane group
 row) are the JAX package's, so the tests can hold the two caches against
-each other byte for byte.  ``length`` is an int32 scalar tensor on the
-cache's device, so the decode loops never read it back to the host.
+each other byte for byte.  ``length`` is an int32 tensor on the cache's
+device, so the decode loops never read it back to the host: a scalar (one
+prefix for every batch row), or ``[B]``, one prefix per batch row, as in
+the batched engine, whose cache folds R requests' CFG pairs into the batch
+axis (``B = 2R``).  The JAX engine keeps one cache per request slot and
+stacks them slot-major under ``vmap``; here every layer's planes stay one
+contiguous ``[B, G, S, W]`` tensor, which the attention kernel reads.
 
 ``KVCache.write`` goes through ``write_block``: on CUDA tensors one launch
 of the hand-written kernel in ``csrc/kv_write.cu`` (replacing
@@ -76,33 +81,55 @@ def fake_quant_rows(grouped: torch.Tensor) -> torch.Tensor:
     return (q.float() * s[..., None]).to(grouped.dtype)
 
 
+def _rows(buf: torch.Tensor) -> torch.Tensor:
+    """A plane ``[L, B, G, S, W]`` (or a scale plane ``[L, B, G, S]``) as a
+    ``[B, S, L, G, (W)]`` view: indexing it with ``(b [B, 1], s [B, n])``
+    takes or puts ``n`` rows of every batch row at that row's own
+    positions."""
+    return buf.movedim((1, 3), (0, 1))
+
+
+def row_starts(start: torch.Tensor, B: int, what: str) -> torch.Tensor:
+    """A per-batch-row index argument: ``[]`` (one value for every row) or
+    ``[B]`` (``length``, ``start``), flattened to ``[1]`` or ``[B]``."""
+    flat = start.reshape(-1)
+    _cuda.require(start.ndim <= 1 and flat.shape[0] in (1, B),
+                  f"{what} must be [] or [{B}] (one per batch row), got "
+                  f"{tuple(start.shape)}")
+    return flat
+
+
 def write_block_plain(k_buf, v_buf, k_scale, v_scale, k_new, v_new, start):
     """K3's plain version.  ``k_new``/``v_new`` [L, B, T, n_kv, hd] land at
-    rows ``[start, start+T)`` of the ``[L, B, G, S, W]`` planes, quantized
-    per group row when the cache is int8 (scales into ``k_scale``/
-    ``v_scale`` [L, B, G, S]).  ``start`` is clamped to ``[0, S-T]`` like
-    ``lax.dynamic_update_slice``.  In place; no host sync."""
-    S = k_buf.shape[3]
+    rows ``[start[b], start[b]+T)`` of batch row ``b`` of the ``[L, B, G,
+    S, W]`` planes, quantized per group row when the cache is int8 (scales
+    into ``k_scale``/``v_scale`` [L, B, G, S]).  ``start`` is ``[]`` or
+    ``[B]``, each clamped to ``[0, S-T]`` like ``lax.dynamic_update_slice``.
+    In place; no host sync."""
+    B, S = k_buf.shape[1], k_buf.shape[3]
     T = k_new.shape[2]
+    dev = k_buf.device
+    s0 = torch.clamp(row_starts(start, B, "kv_write: start").long(), 0, S - T)
+    at = (torch.arange(B, device=dev)[:, None],
+          s0[:, None] + torch.arange(T, device=dev))              # [B, T]
     kg, vg = group_blocks(k_new), group_blocks(v_new)
-    s0 = torch.clamp(start.to(torch.int64), 0, S - T)
-    idx = s0 + torch.arange(T, device=k_buf.device)
     if k_scale is not None:
         kg, ks = quantize_rows(kg)
         vg, vs = quantize_rows(vg)
-        k_scale.index_copy_(3, idx, ks)
-        v_scale.index_copy_(3, idx, vs)
-    k_buf.index_copy_(3, idx, kg.to(k_buf.dtype))
-    v_buf.index_copy_(3, idx, vg.to(v_buf.dtype))
+        _rows(k_scale)[at] = _rows(ks)
+        _rows(v_scale)[at] = _rows(vs)
+    _rows(k_buf)[at] = _rows(kg.to(k_buf.dtype))
+    _rows(v_buf)[at] = _rows(vg.to(v_buf.dtype))
 
 
 def write_block_cuda(k_buf, v_buf, k_scale, v_scale, k_new, v_new, start):
     """K3 on the card: one launch writes (and, for an int8 cache,
     quantizes) the new rows of every layer into both planes and both scale
-    planes.  A half-warp takes one ``(l, b, t, g)`` row of K and of V, in
-    rounds of several rows whose loads are all issued first, over a grid of
-    one wave; the quotients go through the division sequence K2 shares, so
-    the bytes equal ``quantize_rows``'.  ``start`` stays on the device."""
+    planes, batch row ``b`` at its own ``start[b]``.  A half-warp takes one
+    ``(l, b, t, g)`` row of K and of V, in rounds of several rows whose
+    loads are all issued first, over a grid of one wave; the quotients go
+    through the division sequence K2 shares, so the bytes equal
+    ``quantize_rows``'.  ``start`` stays on the device."""
     L, B, G, S, W = k_buf.shape
     T = k_new.shape[2]
     quantized = k_scale is not None
@@ -123,12 +150,14 @@ def write_block_cuda(k_buf, v_buf, k_scale, v_scale, k_new, v_new, start):
             _cuda.require(t.dtype == torch.float32 and t.is_contiguous()
                           and t.shape == (L, B, G, S),
                           "kv_write: scale planes must be f32 [L, B, G, S]")
-    _cuda.require(start.dtype == torch.int32 and start.numel() == 1,
-                  "kv_write: start must be an int32 scalar tensor")
+    starts = row_starts(start, B, "kv_write: start")
+    _cuda.require(starts.dtype == torch.int32,
+                  "kv_write: start must be an int32 tensor")
     _cuda.require(T <= S, f"kv_write: block of {T} rows exceeds S={S}")
     _cuda.library().kv_write(k_new, v_new, k_buf, v_buf,
                              k_scale if quantized else None,
-                             v_scale if quantized else None, start)
+                             v_scale if quantized else None,
+                             starts.contiguous())
     _cuda.LAUNCHES["kv_write"] += 1
 
 
@@ -140,47 +169,41 @@ def write_block(k_buf, v_buf, k_scale, v_scale, k_new, v_new, start):
         write_block_plain(k_buf, v_buf, k_scale, v_scale, k_new, v_new, start)
 
 
-def _starts_rels(start, rel, planes: int, blk: int, S: int):
-    """Normalize K4's index arguments: ``start`` [] or [R] -> int32 [R],
-    ``rel`` [A] or [R, A] -> int32 [R, A]; checks what the host can see."""
+def _starts_rels(start, rel, B: int, blk: int, S: int):
+    """K4's index arguments, checked as far as the host can see them:
+    ``start`` [] or [B] -> [1] or [B]; ``rel`` [A] or [B, A]."""
     _cuda.require(1 <= blk <= S, f"kv_gather: blk={blk} outside [1, S={S}]")
-    starts = start.reshape(-1)
-    R = starts.shape[0]
-    _cuda.require(R >= 1 and planes % R == 0,
-                  f"kv_gather: {R} starts do not tile {planes} planes")
-    rels = rel if rel.ndim == 2 else rel[None]
-    _cuda.require(rels.ndim == 2 and rels.shape[0] in (1, R),
-                  f"kv_gather: rel must be [A] or [{R}, A], got "
+    starts = row_starts(start, B, "kv_gather: start")
+    _cuda.require(rel.ndim == 1 or (rel.ndim == 2 and rel.shape[0] == B),
+                  f"kv_gather: rel must be [A] or [{B}, A], got "
                   f"{tuple(rel.shape)}")
-    A = rels.shape[1]
+    A = rel.shape[-1]
     _cuda.require(1 <= A <= blk, f"kv_gather: {A} rows > blk={blk}")
-    return (starts.to(torch.int32).contiguous(),
-            rels.expand(R, A).to(torch.int32).contiguous())
+    return starts, rel
 
 
 def gather_write_block_plain(k_buf, v_buf, k_scale, v_scale, rel, start,
                              blk: int):
     """K4's plain version: the tree-rollback compaction
-    ``buf[..., start + j, :] = buf[..., start + rel[j], :]`` for ``j < A``
-    on the ``[L, B, G, S, W]`` planes, and the same rows of the
-    ``[L, B, G, S]`` scale planes of an int8 cache.  Every source row is
-    read before any row is written.  ``start`` [] or [R] (``L = R *
-    layers``: slot ``r`` owns planes ``[r * layers, (r+1) * layers)``),
-    ``rel`` [A] or [R, A].  ``rel`` is clamped to ``[0, blk-1]`` and
-    ``start`` to ``[0, S-blk]``, once, for rows and scales alike.  In place;
-    no host sync."""
-    L, S = k_buf.shape[0], k_buf.shape[3]
-    starts, rels = _starts_rels(start, rel, L, blk, S)
-    R, A = rels.shape
-    per = L // R
-    j = torch.arange(A, device=k_buf.device)
-    for r in range(R):
-        s0 = torch.clamp(starts[r].long(), 0, S - blk)
-        src = s0 + torch.clamp(rels[r].long(), 0, blk - 1)
-        for buf in (k_buf, v_buf, k_scale, v_scale):
-            if buf is not None:
-                mine = buf[r * per:(r + 1) * per]
-                mine.index_copy_(3, s0 + j, mine.index_select(3, src))
+    ``buf[..., b, :, start[b] + j, :] = buf[..., b, :, start[b] + rel[b, j],
+    :]`` for ``j < A`` on the ``[L, B, G, S, W]`` planes, and the same rows
+    of the ``[L, B, G, S]`` scale planes of an int8 cache.  Every source row
+    is read before any row is written.  ``start`` [] or [B], ``rel`` [A] or
+    [B, A]: one value (one path) for every batch row, or one each.  ``rel``
+    is clamped to ``[0, blk-1]`` and ``start`` to ``[0, S-blk]``, once, for
+    rows and scales alike.  In place; no host sync."""
+    B, S = k_buf.shape[1], k_buf.shape[3]
+    starts, rel = _starts_rels(start, rel, B, blk, S)
+    dev = k_buf.device
+    A = rel.shape[-1]
+    s0 = torch.clamp(starts.long(), 0, S - blk)[:, None]
+    b = torch.arange(B, device=dev)[:, None]
+    src = (b, s0 + torch.clamp(rel.long(), 0, blk - 1).reshape(-1, A))
+    dst = (b, s0 + torch.arange(A, device=dev))
+    for buf in (k_buf, v_buf, k_scale, v_scale):
+        if buf is not None:
+            view = _rows(buf)
+            view[dst] = view[src]
 
 
 # K4 keeps a window's rows in registers when they fit: RC 16-byte chunks a
@@ -206,15 +229,15 @@ def gather_write_block_cuda(k_buf, v_buf, k_scale, v_scale, rel, start,
                             blk: int):
     """K4 on the card: one launch compacts the accepted rows of every
     layer plane, K and V, and (int8 cache) both scale planes.  One warp
-    owns one ``(plane, batch, group)`` window: it loads the ``A`` source
-    rows and scales (into registers, or its slice of shared memory for a
-    large ``A``: ``k4_staging``), waits at a warp barrier, then stores them,
-    so overlapping sources and destinations read the original rows.
-    ``start`` and ``rel`` stay on the device; the kernel clamps ``rel`` to
-    ``[0, blk-1]`` and ``start`` to ``[0, S-blk]`` exactly as the plain
-    version does, so a ``start`` outside the contract (``start + blk <=
-    S``) moves rows of the last window and never touches memory outside the
-    planes."""
+    owns one ``(plane, batch row, group)`` window: it loads the ``A``
+    source rows and scales of its batch row's path (into registers, or its
+    slice of shared memory for a large ``A``: ``k4_staging``), waits at a
+    warp barrier, then stores them, so overlapping sources and destinations
+    read the original rows.  ``start`` and ``rel`` stay on the device; the
+    kernel clamps ``rel`` to ``[0, blk-1]`` and ``start`` to ``[0, S-blk]``
+    exactly as the plain version does, so a ``start`` outside the contract
+    (``start + blk <= S``) moves rows of the last window and never touches
+    memory outside the planes."""
     L, B, G, S, W = k_buf.shape
     quantized = k_scale is not None
     row_bytes = W * k_buf.element_size()
@@ -239,15 +262,16 @@ def gather_write_block_cuda(k_buf, v_buf, k_scale, v_scale, rel, start,
     for t in (rel, start):
         _cuda.require(t.dtype in (torch.int32, torch.int64),
                       "kv_gather: start and rel must be integer tensors")
-    starts, rels = _starts_rels(start, rel, L, blk, S)
-    A = rels.shape[1]
+    starts, rel = _starts_rels(start, rel, B, blk, S)
+    A = rel.shape[-1]
     staging = k4_staging(A, row_bytes)
     _cuda.require(staging > 0 or A * (row_bytes + 4) <= K4_MAX_STAGE_BYTES,
                   f"kv_gather: {A} rows of {row_bytes} bytes exceed the "
                   f"{K4_MAX_STAGE_BYTES // 1024} KB staging slice")
     _cuda.library().kv_gather(k_buf, v_buf, k_scale if quantized else None,
-                              v_scale if quantized else None, starts, rels,
-                              blk, staging)
+                              v_scale if quantized else None,
+                              starts.to(torch.int32).contiguous(),
+                              rel.to(torch.int32).contiguous(), blk, staging)
     _cuda.LAUNCHES["kv_gather"] += 1
 
 
@@ -263,7 +287,7 @@ def gather_write_block(k_buf, v_buf, k_scale, v_scale, rel, start, blk: int):
 class KVCache:
     k: torch.Tensor        # [L, B, G, S, W]  (model dtype, or int8)
     v: torch.Tensor
-    length: torch.Tensor   # int32 scalar: valid prefix length
+    length: torch.Tensor   # int32 [] or [B]: valid prefix length(s)
     k_scale: Optional[torch.Tensor] = None   # [L, B, G, S] f32 (int8 only)
     v_scale: Optional[torch.Tensor] = None
 
@@ -281,7 +305,10 @@ class KVCache:
 
     @staticmethod
     def create(cfg: ModelConfig, batch: int, max_len: Optional[int] = None,
-               dtype=None, quantized: bool = False, device=None) -> "KVCache":
+               dtype=None, quantized: bool = False, device=None,
+               row_lengths: bool = False) -> "KVCache":
+        """Zeroed planes for ``batch`` rows; ``row_lengths`` gives every row
+        a length of its own (``[batch]``), else one scalar length."""
         from .device import resolve_device
 
         dev = resolve_device(device)
@@ -298,14 +325,31 @@ class KVCache:
         return KVCache(
             k=torch.zeros(shape, dtype=dt, device=dev),
             v=torch.zeros(shape, dtype=dt, device=dev),
-            length=torch.zeros((), dtype=torch.int32, device=dev),
+            length=torch.zeros((batch,) if row_lengths else (),
+                               dtype=torch.int32, device=dev),
             k_scale=scales(), v_scale=scales(),
         )
 
+    def put_rows(self, row0: int, other: "KVCache") -> "KVCache":
+        """Copy ``other``'s batch rows (planes, scales, length) into rows
+        ``[row0, row0 + other's B)`` of this cache, whose length is per row.
+        In place for the planes (``index_copy_`` on the batch axis); returns
+        the cache with the new lengths."""
+        n = other.k.shape[1]
+        rows = torch.arange(row0, row0 + n, device=self.k.device)
+        for mine, theirs in ((self.k, other.k), (self.v, other.v),
+                             (self.k_scale, other.k_scale),
+                             (self.v_scale, other.v_scale)):
+            if mine is not None:
+                mine.index_copy_(1, rows, theirs.to(mine.dtype))
+        return dataclasses.replace(self, length=self.length.index_copy(
+            0, rows, other.length.to(torch.int32).expand(n)))
+
     def write(self, k_new: torch.Tensor, v_new: torch.Tensor,
               advance: bool = True, offset: int = 0) -> "KVCache":
-        """Write a [L, B, T, n_kv, hd] block at ``length + offset``;
-        optionally commit it (advance by T; offset must be 0 then)."""
+        """Write a [L, B, T, n_kv, hd] block at ``length + offset`` (each
+        batch row at its own length when ``length`` is ``[B]``); optionally
+        commit it (advance by T; offset must be 0 then)."""
         if advance and offset != 0:
             raise ValueError("write(advance=True) requires offset == 0: rows "
                              "below the offset would be committed unwritten")
@@ -317,7 +361,8 @@ class KVCache:
             self, length=self.length + (T if advance else 0))
 
     def commit(self, n) -> "KVCache":
-        """Advance length by ``n`` (a tensor or int); rows must be in place."""
+        """Advance length by ``n`` (an int, a scalar tensor or, per batch row,
+        ``[B]``); rows must be in place."""
         return dataclasses.replace(
             self, length=(self.length + n).to(torch.int32))
 
@@ -325,13 +370,14 @@ class KVCache:
                     block_size: int) -> "KVCache":
         """Tree rollback: compact the accepted draft path into the prefix.
 
-        ``rel_indices`` [A]: slots of the accepted path's nodes inside the
-        ``block_size``-row provisional tree block written at ``length``,
-        padded arbitrarily past ``accept_count`` (pads are clamped to
-        ``[0, block_size-1]``, for rows and scales alike).  Moves those
-        rows to ``length, length+1, ...`` (one K4 launch on the card) and
-        advances by ``accept_count``; rows past the new length are garbage
-        that attention masks and later writes cover."""
+        ``rel_indices`` [A] (or [B, A], a path per batch row): slots of the
+        accepted path's nodes inside the ``block_size``-row provisional
+        tree block written at ``length``, padded arbitrarily past
+        ``accept_count`` ([] or [B]; pads are clamped to ``[0,
+        block_size-1]``, for rows and scales alike).  Moves those rows to
+        ``length, length+1, ...`` (one K4 launch on the card) and advances
+        by ``accept_count``; rows past the new length are garbage that
+        attention masks and later writes cover."""
         gather_write_block(self.k, self.v, self.k_scale, self.v_scale,
                            rel_indices, self.length, block_size)
         return self.commit(accept_count)

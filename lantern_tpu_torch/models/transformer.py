@@ -166,10 +166,12 @@ def build_mask(T: int, S: int, cur_len: torch.Tensor,
                block_mask: Optional[torch.Tensor],
                prefix_valid: Optional[torch.Tensor], batch: int):
     """Additive f32 {0, NEG_INF} masks ``(prefix [B, 1, T, S], block
-    [B or 1, 1, T, T])``: key j visible iff j < cur_len and (optionally)
-    prefix_valid[b, j]; the block is ``block_mask`` or causal."""
+    [B or 1, 1, T, T])``: key j of row b visible iff j < cur_len (a scalar,
+    or ``[B]``: one per row) and (optionally) prefix_valid[b, j]; the block
+    is ``block_mask`` or causal."""
     dev = cur_len.device
-    vis = torch.arange(S, device=dev)[None, :] < cur_len          # [1, S]
+    vis = (torch.arange(S, device=dev)[None, :]
+           < cur_len.reshape(-1, 1))                              # [1|B, S]
     if prefix_valid is not None:
         vis = vis & prefix_valid.bool()
     mp = torch.where(vis, 0.0, NEG_INF)
@@ -206,6 +208,10 @@ def forward(
     write_offset: int = 0,
 ) -> ForwardResult:
     """Run the decoder over a new token block against the KV cache.
+
+    ``kv.length`` is one committed length for every batch row, or ``[B]``:
+    each row then reads its own prefix and writes its block at its own
+    length (the batched engine's rows).
 
     ``extra_kv`` ``(k_ex [L, B, A, n_kv, hd], v_ex, n_valid)``: a previous
     block's accepted rows, committed BEFORE the layer loop (one K3 launch)

@@ -35,9 +35,11 @@ class LogitsWarp:
 
 
 def cfg_combine(logits: torch.Tensor, cfg_scale: float) -> torch.Tensor:
-    """[2*B, ..., V] (cond rows first) -> [B, ..., V] =
-    uncond + scale * (cond - uncond)."""
-    cond, uncond = torch.chunk(logits, 2, dim=0)
+    """[2R, ..., V] logits of R (cond, uncond) row pairs, cond on row 2r and
+    uncond on row 2r + 1 (the port's batch layout; for one pair, [2, ...],
+    the JAX form) -> [R, ..., V] = uncond + scale * (cond - uncond)."""
+    pairs = logits.reshape((-1, 2) + tuple(logits.shape[1:]))
+    cond, uncond = pairs[:, 0], pairs[:, 1]
     return uncond + (cond - uncond) * cfg_scale
 
 

@@ -15,8 +15,10 @@ the reference numbers on every path the JAX tests run:
   int8 cache) before the value contraction, and divided once by the f32 sum
   of the unrounded weights.
 
-Masks: key ``j`` of the prefix is visible iff ``j < length`` (its additive
-bias row then applies, 0 or ``NEG_INF`` for padding); block key ``u`` is
+Masks: key ``j`` of batch row ``b``'s prefix is visible iff ``j <
+length[b]`` (``length`` is one value for every row, or ``[B]``: the
+batched engine's rows each sit at their own length; its additive bias row
+then applies, 0 or ``NEG_INF`` for padding); block key ``u`` is
 visible to row ``t`` iff ``block_mask[b, t, u]``.  An optional provisional
 window (``window_mask`` [B or 1, T, window] bool) also shows cache rows
 ``[length, length + window)``: rows written past the committed prefix but
@@ -46,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from ..kv import group_blocks, quantize_rows
+from ..kv import group_blocks, quantize_rows, row_starts
 
 NEG_INF = -1e30
 # K2's geometry on the card: keys per tile; the thread blocks an SM holds
@@ -58,6 +60,12 @@ K2_TILE_KEYS = 64
 K2_BLOCKS_PER_SM = 2
 K2_SPLIT_MIN_ROWS = 256
 K2_MAX_SPLIT = 32
+# the batch rows K2 sizes its prefix splits for: one request's CFG pair.
+# A batched verify forward (2R rows) splits each row's prefix as a lone
+# request's forward does, so a row's sums, and the tokens they decide,
+# never depend on how many requests share the launch (as K1's never
+# depend on its row count)
+K2_SPLIT_BATCH = 2
 
 
 def k2_rows(T: int, pk: int = 1) -> int:
@@ -105,7 +113,7 @@ def tree_attention_plain(q, k_new, v_new, k_cache, v_cache, length,
     """K2's plain version (the JAX dense-fused math, any head grouping).
 
     q/k_new/v_new [B, T, nh, hd]; caches [B, G, S, W] grouped; ``length``
-    int32 scalar tensor; ``block_mask`` [B, T, T] bool; ``prefix_bias``
+    int32 [] or [B]; ``block_mask`` [B, T, T] bool; ``prefix_bias``
     [B, S] f32; ``window_mask`` [B or 1, T, window] bool or None.  Returns
     [B, T, nh, hd] in q's dtype."""
     B, T, nh, hd = q.shape
@@ -125,13 +133,15 @@ def tree_attention_plain(q, k_new, v_new, k_cache, v_cache, length,
     else:
         ku = k_new.reshape(B, T, Gd, pk, hd).permute(0, 2, 3, 1, 4)
         vu = v_new.reshape(B, T, Gd, pk, hd).permute(0, 2, 3, 1, 4)
+    lens = row_starts(length, B, "tree_attention: length").reshape(-1, 1, 1)
     j = torch.arange(S, device=q.device)
-    vis = (j < length)[None, None, :]                             # [1,1,S]
+    vis = j[None, None, :] < lens                                 # [B|1,1,S]
     wm = _window_of(window_mask, B, T)
     if wm is not None:
-        rows = torch.clamp(length + torch.arange(wm.shape[-1],
-                                                 device=q.device), max=S - 1)
-        vis = vis.expand(B, T, S).clone().index_copy_(2, rows.long(), wm)
+        rows = torch.clamp(lens + torch.arange(wm.shape[-1],
+                                               device=q.device), max=S - 1)
+        vis = vis.expand(B, T, S).clone().scatter_(
+            2, rows.long().expand(B, T, wm.shape[-1]), wm)
     mp = torch.where(vis, prefix_bias.float()[:, None, :], NEG_INF)  # [B,T|1,S]
     if block_mask.ndim == 2:
         block_mask = block_mask[None]
@@ -166,8 +176,8 @@ def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
                         block_mask, prefix_bias, scale,
                         k_scale=None, v_scale=None, window_mask=None):
     """K2 on the card, one launch.  Thread blocks per (batch row, head
-    group, row tile, prefix split) stream only the live prefix ``[0,
-    length)`` through the tensor cores with an online softmax, the last
+    group, row tile, prefix split) stream only the row's live prefix ``[0,
+    length[b])`` through the tensor cores with an online softmax, the last
     split also the provisional window's cache rows and the block rows under
     their masks; the last split to finish merges all of them.  Needs W ==
     128 lanes a group holding one head of 128 or two of 64, MHA and bf16
@@ -176,7 +186,8 @@ def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
     _, G, S, _ = k_cache.shape
     return tree_attention_launch(
         q, k_new, v_new, k_cache, v_cache, length, block_mask, prefix_bias,
-        scale, k2_splits(B, G, S, T, _cuda.sm_count(q.device), nh // G),
+        scale, k2_splits(min(B, K2_SPLIT_BATCH), G, S, T,
+                         _cuda.sm_count(q.device), nh // G),
         k_scale=k_scale, v_scale=v_scale, window_mask=window_mask)
 
 
@@ -208,8 +219,9 @@ def tree_attention_launch(q, k_new, v_new, k_cache, v_cache, length,
             _cuda.require(t.dtype == torch.float32 and t.is_contiguous()
                           and t.shape == (B, G, S),
                           "tree_attention: scales must be f32 [B, G, S]")
-    _cuda.require(length.dtype == torch.int32 and length.numel() == 1,
-                  "tree_attention: length must be an int32 scalar tensor")
+    length = row_starts(length, B, "tree_attention: length")
+    _cuda.require(length.dtype == torch.int32,
+                  "tree_attention: length must be an int32 tensor")
     if block_mask.ndim == 2:
         block_mask = block_mask[None].expand(B, T, T)
     mask = block_mask.to(torch.bool).contiguous()
@@ -228,8 +240,8 @@ def tree_attention_launch(q, k_new, v_new, k_cache, v_cache, length,
         tickets = _cuda.tickets(q.device, "tree_attention", units)
     _cuda.library().tree_attention(
         q, k_new, v_new, k_cache, v_cache, k_scale if quant else None,
-        v_scale if quant else None, length, mask, wmask, bias, out, part,
-        tickets, rows, nsplit, float(scale))
+        v_scale if quant else None, length.contiguous(), mask, wmask, bias,
+        out, part, tickets, rows, nsplit, float(scale))
     _cuda.LAUNCHES["tree_attention"] += 1
     return out
 

@@ -120,34 +120,56 @@ def test_gather_write_block_plain_matches_pallas_interpret(dtype, start, blk,
     np.testing.assert_array_equal(raw(vt), raw(vj))
 
 
+def slots_to_rows(a, R):
+    """JAX's slot-major stacked planes ``[R * layers, 2, ...]`` (the
+    batched engine's ``custom_vmap`` layout) -> the port's ``[layers, 2R,
+    ...]``, slot ``r`` on batch rows ``2r`` and ``2r + 1``."""
+    a = np.asarray(a)
+    layers = a.shape[0] // R
+    a = a.reshape((R, layers) + a.shape[1:]).swapaxes(0, 1)
+    return a.reshape((layers, R * a.shape[2]) + a.shape[3:])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
 def test_gather_write_block_plain_per_slot_matches_pallas_interpret(dtype):
-    """R = 3 request slots folded into the plane axis, each with its own
-    start and accepted path."""
+    """R = 3 request slots, each with its own start and accepted path: the
+    JAX kernel folds the slots into the plane axis (``start [R]``, ``rel
+    [R, A]``); the port folds them into the batch axis (``start [2R]``,
+    ``rel [2R, A]``, each slot's repeated for its two rows).  Byte for
+    byte, a start past ``S - blk`` and pads outside the block included: the
+    JAX kernel takes them clamped, as ``KVCache.accept_path`` clamps ``rel``
+    and ``dynamic_update_slice`` a start; the port clamps them itself."""
     rng = np.random.default_rng(5)
-    R, layers, blk = 3, 2, 24
-    kb, vb = _gather_planes(rng, dtype, L=R * layers, B=2)
-    starts = np.asarray([0, 13, 112], np.int32)
-    rels = np.asarray([[2, 0, 5, 23], [0, 1, 2, 3], [23, 11, 7, 0]], np.int32)
-    kj, vj = jkvu.gather_write_block(kb, vb, jnp.asarray(rels),
-                                     jnp.asarray(starts), blk, interpret=True)
-    kt, vt = tt(kb), tt(vb)
-    tkv.gather_write_block(kt, vt, None, None, torch.from_numpy(rels),
-                           torch.from_numpy(starts), blk)
-    np.testing.assert_array_equal(raw(kt), raw(kj))
-    np.testing.assert_array_equal(raw(vt), raw(vj))
+    R, layers, blk, S = 3, 2, 24, 192
+    kb, vb = _gather_planes(rng, dtype, L=R * layers, B=2, S=S)
+    starts = np.asarray([0, 13, 180], np.int32)       # 180 + 24 > 192
+    rels = np.asarray([[2, 0, 5, 23], [0, 1, 2, 3], [23, 11, 40, -2]],
+                      np.int32)
+    kj, vj = jkvu.gather_write_block(
+        kb, vb, jnp.asarray(np.clip(rels, 0, blk - 1)),
+        jnp.asarray(np.clip(starts, 0, S - blk)), blk, interpret=True)
+    kt, vt = (tt(slots_to_rows(x, R)) for x in (kb, vb))
+    tkv.gather_write_block(
+        kt, vt, None, None, torch.from_numpy(rels).repeat_interleave(2, 0),
+        torch.from_numpy(starts).repeat_interleave(2), blk)
+    np.testing.assert_array_equal(raw(kt), raw(tt(slots_to_rows(kj, R))))
+    np.testing.assert_array_equal(raw(vt), raw(tt(slots_to_rows(vj, R))))
 
 
 def test_gather_write_block_rejects_bad_arguments():
-    kb = torch.zeros((4, 1, 1, 64, 128))
+    kb = torch.zeros((4, 2, 1, 64, 128))
     st = torch.tensor(0, dtype=torch.int32)
     with pytest.raises(ValueError, match="rows > blk"):
         tkv.gather_write_block(kb, kb.clone(), None, None,
                                torch.zeros(9, dtype=torch.int32), st, 8)
-    with pytest.raises(ValueError, match="do not tile"):
+    with pytest.raises(ValueError, match=r"start must be \[\] or \[2\]"):
         tkv.gather_write_block(kb, kb.clone(), None, None,
                                torch.zeros((3, 2), dtype=torch.int32),
                                torch.zeros(3, dtype=torch.int32), 8)
+    with pytest.raises(ValueError, match=r"rel must be \[A\] or \[2, A\]"):
+        tkv.gather_write_block(kb, kb.clone(), None, None,
+                               torch.zeros((3, 2), dtype=torch.int32),
+                               torch.zeros(2, dtype=torch.int32), 8)
     with pytest.raises(ValueError, match="blk=65"):
         tkv.gather_write_block(kb, kb.clone(), None, None,
                                torch.zeros(2, dtype=torch.int32), st, 65)
@@ -562,8 +584,12 @@ def test_sample_without_replacement_matches_jax_given_the_same_noise():
     pytest.param("int8", 4, 5, 2560, 32, id="lane-R4-int8"),
 ])
 def test_kv_gather_cuda_matches_plain(cuda, dtype, R, A, S, G):
+    """K4 against its plain version on R request slots of two batch rows
+    each (``start [2R]``, ``rel [2R, A]``; R = 1 passes the scalar and
+    ``[A]`` forms), byte for byte, a clamped start and clamped pads
+    included."""
     g = torch.Generator(device=cuda).manual_seed(R * 100 + A)
-    L, B, W, blk = 4 * R, 2, 128, 32
+    L, B, W, blk = 4, 2 * R, 128, 32
     if dtype == "int8":
         planes = [torch.randint(-127, 128, (L, B, G, S, W), generator=g,
                                 device=cuda, dtype=torch.int8) for _ in range(2)]
@@ -582,6 +608,10 @@ def test_kv_gather_cuda_matches_plain(cuda, dtype, R, A, S, G):
     else:                  # A = blk: every row of the block is rewritten
         rels = [[(7 * j + 3 + r) % blk for j in range(blk)] for r in range(4)]
     rels = torch.tensor(rels[:R], dtype=torch.int32, device=cuda)
+    if R == 1:
+        starts, rels = starts[0], rels[0]
+    else:
+        starts, rels = starts.repeat_interleave(2), rels.repeat_interleave(2, 0)
     ref = [None if p is None else p.clone() for p in planes]
     tkv.gather_write_block_cuda(*planes, rels, starts, blk)
     tkv.gather_write_block_plain(*ref, rels, starts, blk)
