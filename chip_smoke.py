@@ -89,13 +89,27 @@ Phases (any failure exits non-zero and prints no result line):
    of the batched step.  Last a ragged Lumina
    batch (full width, 4 layers, prompts of 16, 9 and 4 text tokens on 3
    slots under one grid FSM, pinned): each stream must equal its lone run
-   under its own FSM, with derived launch counts.  Each phase prints its
-   seconds.
+   under its own FSM, with derived launch counts;
+9. sessions (``phase_session``, after the batched XL path): the XL
+   ``LlamaGenSession`` around the XL lane's int8 weights with a VQ-16 codec
+   at its published width makes an image from a caption (``generate`` +
+   ``decode_ids``; a 256x256 uint8 image within one level of the CPU
+   decode of the same codes); K2 with a tree mask per slot at the batched
+   dynamic verify's shape against its plain version (every row taking
+   row 0's mask must fail), with its times and SDPA's; ``generate_batch``
+   over 6 captions on 4 slots in static, dynamic (pinned) and lockstep AR
+   mode, each request equal to its lone ``generate``; a Lumina
+   ``ChameleonSession`` (4 layers, full width) takes a 16x16 grid through
+   ``generate`` and ``decode_generated`` with the Chameleon VQGAN at its
+   published config.  Every path's launch counts equal the derived ones.
+   ``--session-only`` runs the build and this phase alone.
 
-The line before the last two is ``{"kernels": [...]}`` (``launches`` are
-the rollback path's, the one Lumina path that runs all four kernels; every
-path's counts are under ``launches_by_path``; each kernel's XL record is
-under ``xl``, its per-row record at the XL batch under ``batched``); then
+Each phase prints its seconds.  The line before the last two is
+``{"kernels": [...]}`` (``launches`` are the rollback path's, the one Lumina
+path that runs all four kernels; every path's counts are under
+``launches_by_path``; each kernel's XL record is under ``xl``, its per-row
+record at the XL batch under ``batched``, and K2's per-slot-mask record
+under ``dynamic_batched``); then
 the ``nvidia-smi`` name/power-limit line; the last line is the device
 record.
 """
@@ -146,6 +160,12 @@ RAGGED_TEXTS = [list(range(60000, 60016)), list(range(61000, 61009)),
                 list(range(62000, 62004))]
 RAGGED_LAYERS = 4
 RAGGED_GRID = 8
+# the session phase: the batched modes serve the first 6 batch captions on
+# 4 slots, 32 tokens each; the Lumina session's prompt (hash_tokenize)
+SESSION_REQUESTS = 6
+SESSION_SLOTS = 4
+SESSION_TOKENS = 32
+LUMINA_PROMPT = "a watercolor painting of a harbor town in the morning fog"
 
 
 def log(msg: str) -> None:
@@ -1455,7 +1475,8 @@ def phase_forward_llamagen(torch):
 
 
 def spec_launches(layers: int, prompt, steps: int, verify_rows: int,
-                  path_rows: int, levels, deferred: bool, slots: int = 1):
+                  path_rows: int, levels, deferred: bool, slots: int = 1,
+                  stale: bool = False):
     """``(totals, per verify step)``: the kernel launches of one spec run
     with the EAGLE drafter, derived from its shapes: a prefill (base forward
     over the ``prompt`` rows, drafter ``extend`` over them, first draft) and
@@ -1469,7 +1490,9 @@ def spec_launches(layers: int, prompt, steps: int, verify_rows: int,
     request's prompt rows (one prefill each), a step's base forward and
     lm_head take the ``slots`` requests' rows together (one K2 a layer, one
     K3, one K4), and the drafter runs per slot (``slots`` times its
-    single-request launches)."""
+    single-request launches).  With ``stale`` drafting there are no
+    drafter launches: no ``extend``, and a draft is read off the verify
+    forward's logits."""
     from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
 
     def k1(rows):
@@ -1488,11 +1511,12 @@ def spec_launches(layers: int, prompt, steps: int, verify_rows: int,
         return out
 
     def extend(T):                       # fc_w + a one-layer forward
-        return add({"int8_matmul": k1(T)}, forward(T, 1))
+        return add() if stale else add({"int8_matmul": k1(T)},
+                                       forward(T, 1))
 
-    draft = add({"int8_matmul": k1(1)},
-                *[add({"int8_matmul": 2 * k1(n)}, forward(n, 1))
-                  for n in levels])
+    draft = add() if stale else add(
+        {"int8_matmul": k1(1)},
+        *[add({"int8_matmul": 2 * k1(n)}, forward(n, 1)) for n in levels])
     prefill = add(*[add(forward(p, layers), {"int8_matmul": k1(1)},
                         extend(p), draft)
                     for p in (prompt if isinstance(prompt, list)
@@ -2201,6 +2225,406 @@ def phase_ragged(torch, card: str):
     return {"lumina_ragged": launches}
 
 
+class StepCounter:
+    """Counts ``BatchedEngine.step`` calls while active: the sessions build
+    their engine inside ``generate_batch``."""
+
+    def __enter__(self):
+        from lantern_tpu_torch.engine.batch import BatchedEngine
+
+        self.n, self.cls, self.orig = 0, BatchedEngine, BatchedEngine.step
+
+        def counted(eng, batch):
+            self.n += 1
+            return self.orig(eng, batch)
+        BatchedEngine.step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.orig
+
+
+def ar_launches(layers: int, prompt_rows: int, n_tokens: int, chunks):
+    """The kernel launches of lockstep AR (``ar.generate_many``): per chunk
+    of ``r`` requests a prefill of ``r`` CFG pairs over ``prompt_rows`` rows
+    and the head over their last rows, then ``n_tokens`` one-row forwards of
+    the ``r`` pairs and their heads (one K2 a layer and one K3 a forward
+    for all rows)."""
+    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
+
+    def k1(rows):
+        return -(-2 * rows // K1_MAX_ROWS)
+
+    out = {"int8_matmul": 0, "tree_attention": 0, "kv_write": 0,
+           "kv_gather": 0}
+    for r in chunks:
+        out["int8_matmul"] += (4 * layers * k1(r * prompt_rows) + k1(r)
+                               + n_tokens * (4 * layers * k1(r) + k1(r)))
+        out["tree_attention"] += (1 + n_tokens) * layers
+        out["kv_write"] += 1 + n_tokens
+    return out
+
+
+def random_tree_masks(torch, R: int, T: int, seed: int):
+    """R random dynamic-tree ancestor-or-self masks of T nodes ([R, T, T]
+    bool on the card; node i's parent drawn from the nodes before it)."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(R):
+        a = torch.eye(T, dtype=torch.bool)
+        for i in range(1, T):
+            a[i] |= a[int(torch.randint(0, i, (1,), generator=g))]
+        out.append(a)
+    return torch.stack(out).cuda()
+
+
+def k2_row_masks(torch, timer, card: str) -> dict:
+    """K2 at the batched dynamic verify's shape: 4 slots (B = 8 rows), T =
+    59 (the XL dynamic tree), 10 groups of two heads of 64, S = 512, int8
+    KV, a different random tree mask in each slot (repeated to its two
+    rows) and a length per row, against its plain version; every row
+    taking row 0's mask must fail the tolerance.  Times: median of 15 with
+    a cold L2, the plain version, and SDPA over the same masks (the
+    dequantized plane), which the port never calls."""
+    import torch.nn.functional as F
+
+    from lantern_tpu_torch.kv import group_blocks, quantize_rows
+    from lantern_tpu_torch.ops.tree_attention import (
+        NEG_INF, tree_attention_cuda, tree_attention_plain)
+
+    R, T, G, S, W, hd = SESSION_SLOTS, 59, 10, 512, 128, 64
+    B, nh = 2 * R, G * W // hd
+    gen = torch.Generator(device="cuda").manual_seed(59)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    q, kn, vn = (randn(B, T, nh, hd) for _ in range(3))
+    kc, ks = quantize_rows(randn(B, G, S, W))
+    vc, vs = quantize_rows(randn(B, G, S, W))
+    mask = random_tree_masks(torch, R, T, 59).repeat_interleave(2, dim=0)
+    if any(torch.equal(mask[0], mask[2 * r]) for r in range(1, R)):
+        fail("K2 per-row masks: two slots drew the same tree")
+    lens = torch.tensor([300, 300, 0, 0, 211, 211, S - T, S - T],
+                        dtype=torch.int32, device="cuda")
+    bias = torch.zeros((B, S), device="cuda")
+    bias[1::2, :7] = NEG_INF                       # left-padded uncond rows
+    kw = dict(k_scale=ks, v_scale=vs)
+    args = (q, kn, vn, kc, vc, lens, mask, bias, hd ** -0.5)
+    got = tree_attention_cuda(*args, **kw)
+    ref = tree_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-2 * ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    what = (f"K2 tree_attention batched dynamic verify pk=2 B={B} T={T} "
+            f"G={G} S={S} int8 KV, a tree mask per slot and a length per "
+            f"row")
+    if not (err <= tol and torch.isfinite(got.float()).all()):
+        fail(f"{what}: max err {err} > tol {tol}")
+    bad = tree_attention_plain(q, kn, vn, kc, vc, lens,
+                               mask[:1].expand(B, T, T).contiguous(), bias,
+                               hd ** -0.5, **kw)
+    werr = (bad.float() - ref.float()).abs().max().item()
+    if werr <= tol:
+        fail(f"{what}: tol {tol} does not separate every row taking row "
+             f"0's mask (err {werr})")
+    ms = timer(lambda: tree_attention_cuda(*args, **kw))
+    plain = timer(lambda: tree_attention_plain(*args, **kw), reps=5)
+
+    def heads(x):                # [B, G, n, 128] -> [B, nh, n, hd]
+        return x.reshape(B, G, -1, W // hd, hd).transpose(2, 3).reshape(
+            B, nh, -1, hd)
+    kq, kqs = quantize_rows(group_blocks(kn))
+    vq, vqs = quantize_rows(group_blocks(vn))
+    kd = heads(torch.cat([kc.float() * ks[..., None],
+                          kq.float() * kqs[..., None]], 2).bfloat16())
+    vd = heads(torch.cat([vc.float() * vs[..., None],
+                          vq.float() * vqs[..., None]], 2).bfloat16())
+    vis = ((torch.arange(S, device="cuda")[None] < lens[:, None].long())
+           & (bias == 0))
+    am = torch.cat([vis[:, None, None].expand(B, 1, T, S), mask[:, None]], -1)
+    qh = q.transpose(1, 2)
+    lib = timer(lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=am, scale=hd ** -0.5))
+    live = int(lens.long().sum())
+    nbytes = (4 * B * T * G * W * 2 + 2 * G * live * (W + 4) + B * T * T
+              + live * 4 + B * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * G * T * (live + B * T) * W)
+    log(f"{what}: max_abs_err {err:.3e} (tol {tol:.3e} = 2e-2 * max|ref|; "
+        f"every row at row 0's mask errs {werr:.3e}) ms {ms:.4f} plain_ms "
+        f"{plain:.4f} library_ms {lib:.4f} (SDPA over the whole dequantized "
+        f"plane, the same masks) bound_ms {b_ms:.4f} ({b_by}) [{card}]")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err,
+                shape=f"batched dynamic verify: B={B} T={T} G={G} S={S} pk=2 "
+                      f"int8 KV, a tree mask per slot")
+
+
+def phase_session(torch, card: str, xl: dict, timer):
+    """The session layer on the card, as users call it (prompt in, image
+    out), and the batched modes it reaches:
+
+    - the XL session: ``LlamaGenSession`` around the XL lane's int8 weights
+      and passthrough drafter (full width and depth) with a VQ-16 codec at
+      its published width (codebook 16384x8, ch 128, ``ch_mult`` (1, 1, 2,
+      2, 4), z 256; random weights from a seed): one caption through
+      ``generate`` (static, ``ckpts/bench_tree_XL.json``, stale drafting,
+      rollback commit) and ``decode_ids``: a [1, 256, 256, 3] uint8 image
+      that is not constant, equal within one uint8 level to the same codes
+      decoded on the CPU; derived launch counts;
+    - K2 with a tree mask per slot at the batched dynamic verify's shape
+      (``k2_row_masks``);
+    - ``generate_batch`` over 6 captions on 4 slots, 32 tokens each, int8
+      KV, top-2000 sampling: static (every request's tokens and steps equal
+      its lone ``generate`` of seed ``seed + i``), dynamic (EAGLE-2 under
+      the batch, pinned at 0.5: equal to the lone pinned runs) and
+      lockstep AR (equal to the lone AR runs); no request may fail; derived
+      launch counts (a dynamic batched step: one K2 a base layer, one K4);
+    - the Lumina session: ``ChameleonSession`` at Lumina-7B width, 4 layers,
+      int8 weights and KV, a ``hash_tokenize`` prompt, the 16x16 grid
+      through ``generate`` (static, the calibrated Lumina tree) and
+      ``decode_generated`` with the Chameleon VQGAN at its published config
+      (codebook 8192x256, ch 128, attention at 32 px): a [256, 256, 3]
+      uint8 image; the grammar holds; derived launch counts.
+
+    Prints seconds per call, images/s, each codec's decode ms, aggregate
+    tok/s of each batched mode against the same requests alone, and
+    compression C.  Returns ``(launches by path, the K2 record)``."""
+    import dataclasses
+
+    import numpy as np
+
+    from lantern_tpu_torch import configs, trees
+    from lantern_tpu_torch.engine.session import (ChameleonSession,
+                                                  LlamaGenSession)
+    from lantern_tpu_torch.models import chameleon as cham
+    from lantern_tpu_torch.models import drafter as drf
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.models import vqgan
+    from lantern_tpu_torch.models.item_processor import hash_tokenize
+    from lantern_tpu_torch.ops import _cuda
+    from lantern_tpu_torch.ops.quant import quantize_params
+    from lantern_tpu_torch.ops.vq_distance import nearest_latents
+
+    cfg, dcfg = xl["cfg"], xl["dcfg"]
+    L, Tc = cfg.num_layers, cfg.cls_token_num
+    tree_path = os.path.join("ckpts", "bench_tree_XL.json")
+    tree = trees.get_tree(tree_path)
+    levels = [len(lv.child_flat_idx) for lv in tree.levels]
+    vq_cfg = vqgan.vq16_config(codebook_size=cfg.vocab_size)
+    vq = vqgan.init_vqgan_params(torch.Generator(device="cuda").manual_seed(2),
+                                 vq_cfg, device="cuda")
+    sess = LlamaGenSession(cfg, dcfg, xl["params"], xl["dparams"],
+                           vq_cfg=vq_cfg, vq_params=vq,
+                           passthrough_drafter=True, device="cuda")
+    lant = dict(lantern_k=10, lantern_delta=5.0, cfg_scale=3.0, top_k=2000,
+                temperature=1.0)
+    launches = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = dict(_cuda.LAUNCHES)
+        return out, time.perf_counter() - t
+
+    def all_four(name):
+        idle = [k for k, n in launches[name].items() if not n]
+        if idle:
+            fail(f"{name}: kernels {idle} were not launched on the path")
+
+    # warm-up (allocator, cuBLAS, cuDNN's convolution algorithms)
+    sess.generate(XL_CAPTION, max_new=8, mode="static", tree=tree_path,
+                  seed=1, **lant)
+    sess.decode_ids(np.arange(256) % cfg.vocab_size)
+
+    (toks, st), t_gen = run("session_xl", lambda: sess.generate(
+        XL_CAPTION, mode="static", tree=tree_path, seed=11, **lant))
+    if toks.shape != (256,) or not ((toks >= 0)
+                                    & (toks < cfg.vocab_size)).all():
+        fail(f"XL session: {toks.shape} tokens, want 256 in the vocab")
+    want, _ = spec_launches(L, Tc, st.steps, tree.num_nodes, tree.path_len,
+                            levels, deferred=False, stale=True)
+    if launches["session_xl"] != want:
+        fail(f"XL session launched {launches['session_xl']}, but its shapes "
+             f"give {want}")
+    all_four("session_xl")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    img = sess.decode_ids(toks)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t
+    if img.shape != (1, 256, 256, 3) or img.dtype != np.uint8:
+        fail(f"XL session: decode_ids gave {img.shape} {img.dtype}, want "
+             f"(1, 256, 256, 3) uint8")
+    if img.min() == img.max():
+        fail("XL session: the decoded image is constant")
+    vq_cpu = tree_map(lambda x: x.cpu(), vq)
+    t = time.perf_counter()
+    ref = vqgan.to_uint8(vqgan.decode_code(vq_cpu, vq_cfg,
+                                           torch.as_tensor(toks[None]), 16))
+    t_cpu = time.perf_counter() - t
+    diff = int(np.abs(img.astype(int) - ref.astype(int)).max())
+    if diff > 1:
+        fail(f"XL session: the card's image differs from the CPU decode of "
+             f"the same codes by {diff} uint8 levels (want <= 1)")
+    log(f"XL session [{card}] LlamaGenSession.generate (static, "
+        f"{tree.num_nodes}-row calibrated tree, stale drafting, rollback, "
+        f"LANTERN k=10 delta=5, top-2000, cfg 3.0, int8 weights, bf16 KV): "
+        f"256 tokens in {t_gen:.3f} s ({256 / t_gen:.2f} tok/s, "
+        f"{st.steps} steps, compression C {st.step_compression:.3f}); "
+        f"VQ-16 decode_ids (codebook {vq_cfg.codebook_size}x"
+        f"{vq_cfg.codebook_dim}, ch {vq_cfg.ch}, z {vq_cfg.z_channels}) "
+        f"{t_dec * 1e3:.2f} ms -> {img.shape} uint8, pixel std "
+        f"{img.std():.2f}; the CPU decode of the same codes "
+        f"({t_cpu:.2f} s) within {diff} uint8 level(s); "
+        f"{1.0 / (t_gen + t_dec):.3f} images/s; launches "
+        f"{launches['session_xl']} = the derived counts")
+
+    rec = k2_row_masks(torch, timer, card)
+
+    caps = BATCH_CAPTIONS[:SESSION_REQUESTS]
+    n_tok = SESSION_TOKENS
+    common = dict(max_new=n_tok, kv_quant=True, **lant)
+    for mode, kw in (("static", dict(tree=tree_path)),
+                     ("dynamic", dict(pin=0.5)), ("ar", {})):
+        name = f"session_{mode}_batch"
+        with StepCounter() as steps:
+            done, t_b = run(name, lambda: sess.generate_batch(
+                caps, slots=SESSION_SLOTS, mode=mode, seed=100, **common,
+                **kw))
+        for r in done:
+            if r.error is not None:
+                fail(f"{name}: request {r.uid} failed: {r.error}")
+        t = time.perf_counter()
+        singles = [sess.generate(c, mode=mode, seed=100 + i, **common, **kw)
+                   for i, c in enumerate(caps)]
+        torch.cuda.synchronize()
+        t_alone = time.perf_counter() - t
+        for r, (a_toks, a_st) in zip(done, singles):
+            if not (np_equal(r.tokens, a_toks)
+                    and (mode == "ar" or r.steps == a_st.steps)):
+                fail(f"{name}: request {r.uid} batched ({r.steps} steps) "
+                     f"differs from its lone run ({a_st.steps} steps); "
+                     f"tokens equal {np_equal(r.tokens, a_toks)}")
+        chunks = [min(SESSION_SLOTS, len(caps) - lo)
+                  for lo in range(0, len(caps), SESSION_SLOTS)]
+        if mode == "static":
+            want, per = spec_launches(
+                L, [Tc] * len(caps), steps.n, tree.num_nodes, tree.path_len,
+                levels, deferred=False, slots=SESSION_SLOTS, stale=True)
+        elif mode == "dynamic":
+            want, per = spec_launches(
+                L, [Tc] * len(caps), steps.n, dcfg.total_tokens,
+                dcfg.depth + 2, [dcfg.top_k] * dcfg.depth, deferred=False,
+                slots=SESSION_SLOTS)
+        else:
+            want, per = ar_launches(L, Tc, n_tok, chunks), None
+        if launches[name] != want:
+            fail(f"{name} launched {launches[name]}, but its shapes give "
+                 f"{want}")
+        if mode != "ar":
+            all_four(name)
+        if mode != "ar" and launches[name]["kv_gather"] != steps.n:
+            fail(f"{name}: K4 ran {launches[name]['kv_gather']} times in "
+                 f"{steps.n} batched steps")
+        toks_all = len(caps) * n_tok
+        comp = (sum(r.accept_sum for r in done)
+                / max(sum(r.steps for r in done), 1))
+        log(f"{name} [{card}] generate_batch({len(caps)} captions, slots="
+            f"{SESSION_SLOTS}, mode={mode!r}{', pin=0.5' if kw.get('pin') else ''}"
+            f", {n_tok} tokens, int8 KV): {t_b:.3f} s, aggregate "
+            f"{toks_all / t_b:.2f} tok/s"
+            f"{'' if mode == 'ar' else f' in {steps.n} batched steps'}; "
+            f"alone {t_alone:.3f} s, {toks_all / t_alone:.2f} tok/s; "
+            f"batched/alone {t_alone / t_b:.3f}; compression C {comp:.3f}; "
+            f"every request equals its lone run; launches {launches[name]} "
+            f"= the derived counts"
+            f"{'' if per is None else f'; a batched step {per}'}")
+
+    # the Lumina session: Lumina-7B width at 4 layers, 16 x 16 grid
+    grid = 16
+    max_new, max_seq_len = lane_dims(grid)
+    lcfg = dataclasses.replace(configs.chameleon_7b_config(
+        max_seq_len=max_seq_len, swin_norm=True), num_layers=RAGGED_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lparams = quantize_params(tfm.fuse_params(
+        tfm.init_params(gen, lcfg, device="cuda")))
+    cb = torch.randn((8192, 8), generator=gen, device="cuda")
+    lparams["nearest_latents"] = torch.as_tensor(cham.shift_nearest_table(
+        nearest_latents(cb, k=11), lcfg.vocab_size), device="cuda")
+    ldcfg = configs.drafter_config(lcfg, num_layers=1)
+    ld = drf.init_drafter_params(
+        torch.Generator(device="cuda").manual_seed(101), ldcfg,
+        lparams["embed"])
+    H = lcfg.hidden_size
+    fc = torch.zeros((2 * H, H), dtype=lcfg.torch_dtype, device="cuda")
+    fc[H:] = torch.eye(H, dtype=lcfg.torch_dtype, device="cuda")
+    ld["fc_w"] = fc
+    ld["layers"] = {k: v * 0 for k, v in ld["layers"].items()}
+    ld = quantize_params(tfm.fuse_params(ld))
+    cvq_cfg = vqgan.chameleon_vq_config()
+    cvq = vqgan.init_vqgan_params(
+        torch.Generator(device="cuda").manual_seed(3), cvq_cfg, device="cuda")
+    lsess = ChameleonSession(lcfg, ldcfg, lparams, ld, family="lumina",
+                             grid=(grid, grid), vq_cfg=cvq_cfg, vq_params=cvq,
+                             tokenizer=hash_tokenize,
+                             passthrough_drafter=True, device="cuda")
+    ltree_path = os.path.join("ckpts", "bench_tree_lumina.json")
+    ltree = trees.get_tree(ltree_path)
+    lkw = dict(mode="static", tree=ltree_path, kv_quant=True, **lant)
+    lsess.generate(LUMINA_PROMPT, max_new=8, seed=1, **lkw)      # warm-up
+    lsess.decode_generated(np.full((max_new,), 4))
+    (ltoks, lst), t_lgen = run("session_lumina", lambda: lsess.generate(
+        LUMINA_PROMPT, seed=12, **lkw))
+    body = ltoks[:max_new - 1].reshape(grid, grid + 1)
+    if ltoks.shape != (max_new,) or not (
+            (body[:, grid] == cham.LUMINA_NEWLINE_ID).all()
+            and ltoks[-1] == cham.IMAGE_END_ID):
+        fail(f"Lumina session: {ltoks.shape} tokens break the grid grammar")
+    n_prompt = len(hash_tokenize(LUMINA_PROMPT)) + 3
+    want, _ = spec_launches(lcfg.num_layers, n_prompt, lst.steps,
+                            ltree.num_nodes, ltree.path_len,
+                            [len(lv.child_flat_idx) for lv in ltree.levels],
+                            deferred=False, stale=True)
+    if launches["session_lumina"] != want:
+        fail(f"Lumina session launched {launches['session_lumina']}, but its "
+             f"shapes give {want}")
+    all_four("session_lumina")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    limg = lsess.decode_generated(ltoks)
+    torch.cuda.synchronize()
+    t_ldec = time.perf_counter() - t
+    if limg.shape != (256, 256, 3) or limg.dtype != np.uint8:
+        fail(f"Lumina session: decode_generated gave {limg.shape} "
+             f"{limg.dtype}, want (256, 256, 3) uint8")
+    log(f"Lumina session [{card}] ChameleonSession (Lumina-7B width, "
+        f"{lcfg.num_layers} layers, int8 weights and KV, a {n_prompt}-row "
+        f"hash_tokenize prompt, {grid}x{grid} grid, the calibrated "
+        f"{ltree.num_nodes}-row tree, stale drafting, rollback): {max_new} "
+        f"tokens in {t_lgen:.3f} s ({max_new / t_lgen:.2f} tok/s, "
+        f"{lst.steps} steps, compression C {lst.step_compression:.3f}); "
+        f"Chameleon VQGAN decode_generated (codebook "
+        f"{cvq_cfg.codebook_size}x{cvq_cfg.codebook_dim}, ch {cvq_cfg.ch}, "
+        f"attention at level {cvq_cfg.attn_levels}) {t_ldec * 1e3:.2f} ms -> "
+        f"{limg.shape} uint8, pixel std {limg.std():.2f}; "
+        f"{1.0 / (t_lgen + t_ldec):.3f} images/s; launches "
+        f"{launches['session_lumina']} = the derived counts")
+    return launches, rec
+
+
+def tree_map(fn, tree):
+    """``fn`` over the tensors of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def profile(what: str, fn, card: str) -> None:
     """Device time by kernel over one short run (torch.profiler), and the
     share of the run's wall time the card was busy: the union of the
@@ -2264,6 +2688,9 @@ def main() -> int:
     ap.add_argument("--sweep-splits", action="store_true",
                     help="after the build, time K1 and K2 over split counts "
                          "and stop (prints no result line)")
+    ap.add_argument("--session-only", action="store_true",
+                    help="after the build, run only the session phase "
+                         "(prints no result line)")
     args = ap.parse_args()
 
     import torch
@@ -2302,6 +2729,11 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t:.1f} s")
         return out
 
+    if args.session_only:
+        timed("session", phase_session, torch, tag,
+              timed("build_xl", build_xl, torch), timer)
+        log("session-only run: build and session phases passed")
+        return 0
     records = timed("kernels", phase_kernels, torch, timer, tag, args.grid)
     timed("forward", phase_forward, torch)
     timed("forward_llamagen", phase_forward_llamagen, torch)
@@ -2312,6 +2744,9 @@ def main() -> int:
     xl = timed("build_xl", build_xl, torch)
     launches.update(timed("xl", phase_xl, torch, tag, xl))
     launches.update(timed("batched_xl", phase_batched, torch, tag, xl))
+    session_launches, k2_dynamic = timed("session", phase_session, torch,
+                                         tag, xl, timer)
+    launches.update(session_launches)
     del xl
     launches.update(timed("ragged_lumina", phase_ragged, torch, tag))
 
@@ -2342,6 +2777,7 @@ def main() -> int:
                         "batched": {k: bt[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "shape")}})
+    kernels[1]["dynamic_batched"] = k2_dynamic
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

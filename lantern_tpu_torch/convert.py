@@ -9,7 +9,8 @@ conditioning adapters ``cond`` (a label ``table``, or the caption MLP's
 ``fc1``, ``fc2`` and ``uncond``; never quantized);
 ``convert_drafter_params`` carries an EAGLE drafter's pytree (``fc_w`` or
 ``fc_w_q``/``fc_w_s``, ``fc_b``, the shared ``embed``, no ``norm`` or
-``lm_head``).  Leaves arrive as
+``lm_head``); ``convert_vqgan_params`` carries a VQ-GAN codec (HWIO conv
+kernels to OIHW).  Leaves arrive as
 numpy arrays (``np.asarray`` of each JAX leaf); bfloat16 leaves (numpy's
 ``ml_dtypes`` bfloat16) are moved bit for bit.
 """
@@ -97,3 +98,23 @@ def convert_drafter_params(dparams: dict, device=None,
     if embed is not None:
         out["embed"] = embed
     return out
+
+
+def convert_vqgan_params(vq_params, device=None):
+    """Convert a ``lantern_tpu`` VQ-GAN parameter tree (numpy leaves, NHWC
+    convs with HWIO kernels) to the port's tree (OIHW kernels): the same
+    nesting of dicts and lists, every 4-D conv kernel ``w`` transposed, every
+    other leaf copied."""
+    dev = resolve_device(device)
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        a = np.asarray(node)
+        if key == "w" and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)                   # HWIO -> OIHW
+        return to_tensor(a, dev)
+
+    return walk(vq_params)

@@ -4,7 +4,8 @@ Counterpart of ``lantern_tpu/engine/batch.py``.  Single-request decode reads
 every base weight once a verify step; batching R requests amortizes that
 read R ways, which is what continuous batching buys a server.
 
-Design (static EAGLE-1 trees; see the JAX module for the vmap form):
+Design (static EAGLE-1 and dynamic EAGLE-2 trees; see the JAX module for
+the vmap form):
 
 - **One base forward for all slots.**  The base cache folds the slots into
   its batch axis, ``B = 2R``: slot ``r`` owns rows ``2r`` (cond) and
@@ -26,6 +27,12 @@ Design (static EAGLE-1 trees; see the JAX module for the vmap form):
   time, R times the single-request drafter's launches).  A slot draws from
   its generator in the single-request engine's order, so its tokens equal
   a lone run's.
+- **Dynamic trees.**  Each slot drafts a tree of its own shape
+  (``draft_dynamic``), but every tree has ``total_tokens`` nodes, so the
+  verify forward stays one launch of K2 a layer: it takes the slots'
+  ancestor masks as one ``[2R, N+1, N+1]`` block mask and their node
+  depths as ``[R, N+1]`` positions.  The commit is one K4 launch with a
+  start and a path per row, as in static mode.
 - **Freezing.**  A finished slot (``n_new >= max_new`` or stopped; an empty
   slot carries ``n_new = 1 << 30``) still rides through the forward and
   the glue, and its result is masked back: its cheap leaves and its KV
@@ -35,9 +42,8 @@ Design (static EAGLE-1 trees; see the JAX module for the vmap form):
 - No step reads anything back to the host, so ``step_many(n)`` is n steps
   without a sync; ``slot_status`` is one fetch.
 
-Not ported here: dynamic (EAGLE-2) mode under the batch (ROADMAP item
-12b), ``deferred_commit`` (the JAX engine rejects it too), and the mesh
-(item 18).
+Not ported here: ``deferred_commit`` (the JAX engine rejects it too) and
+the mesh (item 18).
 """
 
 from __future__ import annotations
@@ -81,8 +87,12 @@ def _clone_state(state: SpecState) -> SpecState:
         dkv = KVCache(k=c(dkv.k), v=c(dkv.v), length=c(dkv.length),
                       k_scale=c(dkv.k_scale), v_scale=c(dkv.v_scale))
     d = state.draft
-    draft = drf.StaticDraft(ss_token=c(d.ss_token), ss_prob=c(d.ss_prob),
-                            level_probs=tuple(c(p) for p in d.level_probs))
+    if isinstance(d, drf.DynamicDraft):
+        draft = drf.DynamicDraft(*(c(x) for x in d))
+    else:
+        draft = drf.StaticDraft(ss_token=c(d.ss_token), ss_prob=c(d.ss_prob),
+                                level_probs=tuple(c(p) for p in
+                                                  d.level_probs))
     return state._replace(
         base_kv=None, draft_kv=dkv, draft=draft, root_token=c(state.root_token),
         tokens=c(state.tokens), n_new=torch.full_like(state.n_new, EMPTY),
@@ -99,11 +109,14 @@ def _freeze(active: torch.Tensor, old: SpecState,
         return torch.where(active, b, a)
 
     d0, d1 = old.draft, new.draft
-    draft = drf.StaticDraft(
-        ss_token=sel(d0.ss_token, d1.ss_token),
-        ss_prob=sel(d0.ss_prob, d1.ss_prob),
-        level_probs=tuple(sel(a, b) for a, b in zip(d0.level_probs,
-                                                    d1.level_probs)))
+    if isinstance(d0, drf.DynamicDraft):
+        draft = drf.DynamicDraft(*(sel(a, b) for a, b in zip(d0, d1)))
+    else:
+        draft = drf.StaticDraft(
+            ss_token=sel(d0.ss_token, d1.ss_token),
+            ss_prob=sel(d0.ss_prob, d1.ss_prob),
+            level_probs=tuple(sel(a, b) for a, b in zip(d0.level_probs,
+                                                        d1.level_probs)))
     dkv = new.draft_kv
     if dkv is not None:
         dkv = dataclasses.replace(dkv, length=sel(old.draft_kv.length,
@@ -119,12 +132,14 @@ def _freeze(active: torch.Tensor, old: SpecState,
 
 @dataclasses.dataclass
 class BatchedEngine:
-    """R-slot continuous-batching speculative decoder (static trees).
+    """R-slot continuous-batching speculative decoder (static or dynamic
+    trees, ``ecfg.mode``).
 
-    ``tree``: the static draft tree; ``dparams``/``dcfg``: the EAGLE
-    drafter, needed unless ``ecfg.stale_draft``; ``logits_fn``: a grid FSM
-    (each slot binds its own start, ``spec.bind_logits_fn``); ``device``:
-    ``None`` is ``cuda``."""
+    ``tree``: the static draft tree (unused in dynamic mode);
+    ``dparams``/``dcfg``: the EAGLE drafter, needed unless
+    ``ecfg.stale_draft``; ``logits_fn``: a grid FSM (each slot binds its
+    own start, ``spec.bind_logits_fn``); ``device``: ``None`` is
+    ``cuda``."""
 
     ecfg: SpecDecodeConfig
     cfg: ModelConfig
@@ -142,14 +157,16 @@ class BatchedEngine:
             raise ValueError("deferred_commit is unsupported in BatchedEngine "
                              "(as in the JAX engine): the batched step "
                              "commits by rollback")
-        if self.ecfg.mode != "static":
-            raise ValueError(f"BatchedEngine runs static trees only; mode="
-                             f"{self.ecfg.mode!r} under the batch is ROADMAP "
-                             f"item 12b")
+        if self.ecfg.mode not in ("static", "dynamic"):
+            raise ValueError(f"mode must be 'static' or 'dynamic', got "
+                             f"{self.ecfg.mode!r}")
+        if self.ecfg.mode == "dynamic" and self.ecfg.stale_draft:
+            raise ValueError("stale_draft requires mode='static'")
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {self.num_slots}")
         self.device = resolve_device(self.device)
-        self._tree = spec.static_tree(self.tree, self.device)
+        self._tree = (spec.static_tree(self.tree, self.device)
+                      if self.ecfg.mode == "static" else None)
         self._rope = tfm.make_rope_tables(self.cfg, self.device)
 
     # ------------------------------------------------------------------
@@ -211,12 +228,21 @@ class BatchedEngine:
         ecfg, tree = self.ecfg, self._tree
         R = self.num_slots
         kv = batch.base_kv
-        blocks = [spec.static_tree_block(ecfg, tree, st)
-                  for st in batch.states]
+        if tree is not None:
+            blocks = [spec.static_tree_block(ecfg, tree, st)
+                      for st in batch.states]
+            mask, pos = tree.mask, tree.depth
+        else:
+            # every slot's own tree, one node count: one [2R, N+1, N+1]
+            # block mask and [R, N+1] depths for the single verify forward
+            blocks = [spec.dynamic_tree_block(self.dcfg, st)
+                      for st in batch.states]
+            mask = torch.stack([b.mask for b in blocks])
+            pos = torch.stack([b.pos for b in blocks])
         N1 = blocks[0].tokens.shape[0]
         res, logits_raw = spec.verify_forward(
             ecfg, self.cfg, self.params, self._rope, kv,
-            torch.stack([b.tokens for b in blocks]), tree.mask, tree.depth,
+            torch.stack([b.tokens for b in blocks]), mask, pos,
             batch.prefix_valid, batch.pos_offsets, kv.length)
         verdicts = [spec.accept(ecfg, batch.ctxs[r], blocks[r], logits_raw[r],
                                 kv.length[2 * r]) for r in range(R)]
@@ -235,8 +261,11 @@ class BatchedEngine:
             new, root_out = spec.advance(ecfg, ctx, old, blocks[r],
                                          verdicts[r], logits_raw[r],
                                          res.hidden[2 * r:2 * r + 2])
-            new = spec.next_static_draft(ecfg, self.tree, ctx, new, root_out,
-                                         kv.length[2 * r])
+            if tree is not None:
+                new = spec.next_static_draft(ecfg, self.tree, ctx, new,
+                                             root_out, kv.length[2 * r])
+            else:
+                new = spec.next_dynamic_draft(ecfg, ctx, new, root_out)
             batch.states[r] = _freeze(active[r], old, new)
         batch.base_kv = kv
         return batch

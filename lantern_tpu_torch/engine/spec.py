@@ -29,8 +29,9 @@ A step is built from per-request pieces that the batched engine
 (``engine/batch.py``) shares: ``static_tree_block`` (the tree of a draft),
 ``verify_forward`` (one tree-verify forward of R requests' CFG row pairs),
 ``accept`` (one request's acceptance walk), ``advance`` (commit the
-verdict into the request's state and extend its drafter) and
-``next_static_draft``.  ``request_generator`` is a request's random
+verdict into the request's state and extend its drafter),
+``next_static_draft`` and, in dynamic mode, ``dynamic_tree_block`` and
+``next_dynamic_draft``.  ``request_generator`` is a request's random
 stream.
 """
 
@@ -233,16 +234,21 @@ def verify_forward(ecfg: SpecDecodeConfig, cfg: ModelConfig, params: dict,
                    eff_len: torch.Tensor, extra_kv=None,
                    defer_block: bool = False):
     """The tree-verify forward of R requests at once: ``tokens`` [R, N+1]
-    (one tree each, the same ``mask`` and node depths ``pos``), their CFG
-    pairs on batch rows ``2r`` / ``2r + 1`` of ``base_kv``; ``eff_len``
-    ([] or [2R]) is each row's committed length as this forward sees it,
-    ``prefix_valid`` [2R, S] and ``pos_offsets`` [2R] are per row.  The
-    block is written provisionally at each row's length (or, with
-    ``defer_block``, returned).  Returns ``(forward result, raw
-    cfg-combined logits [R, N+1, V])``."""
+    (one tree each), their CFG pairs on batch rows ``2r`` / ``2r + 1`` of
+    ``base_kv``.  The trees' ancestor ``mask`` and node depths ``pos`` are
+    shared ([N+1, N+1] and [N+1]: a static tree) or per request ([R, N+1,
+    N+1] and [R, N+1]: dynamic trees of one node count, each repeated to
+    its two rows); ``eff_len`` ([] or [2R]) is each row's committed length
+    as this forward sees it, ``prefix_valid`` [2R, S] and ``pos_offsets``
+    [2R] are per row.  The block is written provisionally at each row's
+    length (or, with ``defer_block``, returned).  Returns ``(forward
+    result, raw cfg-combined logits [R, N+1, V])``."""
     R, N1 = tokens.shape
     tok2 = tokens.repeat_interleave(2, dim=0)                     # [2R, N+1]
-    positions = pos[None, :] + eff_len.reshape(-1, 1)
+    if mask.ndim == 3:
+        mask = mask.repeat_interleave(2, dim=0)                   # [2R, ...]
+    pos = pos[None, :] if pos.ndim == 1 else pos.repeat_interleave(2, dim=0)
+    positions = pos + eff_len.reshape(-1, 1)
     positions = torch.clamp(positions - pos_offsets[:, None], min=0)
     res = tfm.forward(
         params, cfg, tfm.token_embed(params, tok2), base_kv,
@@ -424,26 +430,36 @@ def _draft_static(ecfg: SpecDecodeConfig, spec: TreeSpec, ctx: _Ctx,
         levels=ctx.levels)
 
 
+def dynamic_tree_block(dcfg: DrafterConfig, state: SpecState) -> TreeBlock:
+    """The tree a dynamic draft carries (tokens, ancestor mask, depths,
+    root paths, children)."""
+    d: drf.DynamicDraft = state.draft
+    minus_one = torch.full((1,), -1, dtype=torch.int32,
+                           device=d.draft_tokens.device)
+    candidates = _safe_gather_ext(torch.cat([d.draft_tokens, minus_one]),
+                                  d.retrieve_indices)
+    return TreeBlock(tokens=d.draft_tokens, candidates=candidates,
+                     node_q=None, level_probs=None, children=d.children,
+                     inlevel_rank=None, mask=d.tree_mask,
+                     pos=d.tree_position_ids, retrieve=d.retrieve_indices,
+                     max_depth=dcfg.depth + 1)
+
+
+def next_dynamic_draft(ecfg: SpecDecodeConfig, ctx: _Ctx, state: SpecState,
+                       root_hidden: torch.Tensor) -> SpecState:
+    """The next dynamic draft from ``advance``'s root hidden."""
+    new_draft, dkv = _draft_dynamic(ecfg, ctx, state.draft_kv, root_hidden,
+                                    state.root_token)
+    return state._replace(draft=new_draft, draft_kv=dkv)
+
+
 def make_dynamic_step(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx):
     """One EAGLE-2 dynamic-tree speculative step: the draft carries its own
-    tree (tokens, ancestor mask, depths, root paths, children)."""
-    minus_one = torch.full((1,), -1, dtype=torch.int32,
-                           device=ctx.prefix_valid.device)
-    dcfg = ctx.dcfg
-
+    tree."""
     def step(state: SpecState) -> SpecState:
-        d: drf.DynamicDraft = state.draft
-        candidates = _safe_gather_ext(torch.cat([d.draft_tokens, minus_one]),
-                                      d.retrieve_indices)
-        blk = TreeBlock(tokens=d.draft_tokens, candidates=candidates,
-                        node_q=None, level_probs=None, children=d.children,
-                        inlevel_rank=None, mask=d.tree_mask,
-                        pos=d.tree_position_ids, retrieve=d.retrieve_indices,
-                        max_depth=dcfg.depth + 1)
-        state, root_hidden = _verify_and_update(ecfg, cfg, ctx, state, blk)
-        new_draft, dkv = _draft_dynamic(ecfg, ctx, state.draft_kv,
-                                        root_hidden, state.root_token)
-        return state._replace(draft=new_draft, draft_kv=dkv)
+        state, root_hidden = _verify_and_update(
+            ecfg, cfg, ctx, state, dynamic_tree_block(ctx.dcfg, state))
+        return next_dynamic_draft(ecfg, ctx, state, root_hidden)
 
     return step
 

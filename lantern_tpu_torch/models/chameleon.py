@@ -1,5 +1,6 @@
-"""Chameleon-family (Lumina-mGPT) glue: the token prompt, image token
-ranges, the nearest-table shift and the Lumina grid FSM.
+"""Chameleon-family (Anole / Lumina-mGPT) glue: the token prompts, image
+token ranges, vocab translation, the nearest-table shift and the Lumina
+grid FSM.
 
 Counterpart of ``lantern_tpu/models/chameleon.py`` (plus ``TokenPrompt``,
 which the JAX package keeps in ``engine/spec.py``, and the two grid-token
@@ -19,6 +20,7 @@ IMAGE_TOKEN_START = 4
 IMAGE_TOKEN_END = 8195          # inclusive
 IMAGE_END_ID = 8196             # end-of-image
 IMAGE_START_ID = 8197           # begin-of-image
+ANOLE_EOT = 8710                # end-of-turn before image
 LUMINA_NEWLINE_ID = 8803
 VOCAB = 65536
 LATENTS_PER_PATCH = 2           # VQGAN downsamples 16x; 32px patch = 2 latents
@@ -54,6 +56,60 @@ def shift_nearest_table(table: np.ndarray, vocab_size: int = VOCAB) -> np.ndarra
     n = table.shape[0]
     out[IMAGE_TOKEN_OFFSET: IMAGE_TOKEN_OFFSET + n] = table + IMAGE_TOKEN_OFFSET
     return out
+
+
+def bpe_to_img(tokens: np.ndarray) -> np.ndarray:
+    """BPE image-token ids -> VQ codes (contiguous-offset scheme)."""
+    return np.asarray(tokens) - IMAGE_TOKEN_OFFSET
+
+
+def img_to_bpe(codes: np.ndarray) -> np.ndarray:
+    return np.asarray(codes) + IMAGE_TOKEN_OFFSET
+
+
+def vocab_map_tables(vocab_map: dict) -> tuple[np.ndarray, np.ndarray]:
+    """img->bpe / bpe->img tables from a real tokenizer vocab map with
+    IMGIMG-style names, for checkpoints whose mapping is not the contiguous
+    offset: ``(img2bpe [n_codes], bpe2img [max bpe + 1], -1 off images)``."""
+    chr_map = {chr(ord("A") + i): str(i) for i in range(10)}
+    img_tokens = sorted(v for k, v in vocab_map.items()
+                        if k.startswith("IMGIMG"))
+    name_of = {v: k for k, v in vocab_map.items()}
+    bpe2img = {}
+    for tok in img_tokens:
+        name = name_of[tok]
+        code = int("".join(chr_map.get(c, c)
+                           for c in name[len("IMGIMG"):-1]))
+        bpe2img[tok] = code
+    n_codes = max(bpe2img.values()) + 1
+    img2bpe = np.zeros((n_codes,), np.int32)
+    bpe2img_arr = np.full((max(bpe2img) + 1,), -1, np.int32)
+    for b, c in bpe2img.items():
+        img2bpe[c] = b
+        bpe2img_arr[b] = c
+    return img2bpe, bpe2img_arr
+
+
+def anole_token_prompt(text_tokens: Sequence[int]) -> TokenPrompt:
+    """Anole cond/uncond prompt pair (host tensors): cond = [0] + text +
+    [end-of-turn, image-start]; uncond = left pads + [0, image-start],
+    its positions restarting (pads at 0, the image start at 1).  Only the
+    uncond row's pads are invisible."""
+    cond = [0] + list(text_tokens) + [ANOLE_EOT, IMAGE_START_ID]
+    L = len(cond)
+    uncond = [PAD_ID] * (L - 2) + [0, IMAGE_START_ID]
+    tokens = np.stack([cond, uncond]).astype(np.int32)
+    uncond_pos = np.zeros((L,), np.int64)
+    uncond_pos[-1] = 1
+    positions = np.stack([np.arange(L), uncond_pos]).astype(np.int32)
+    valid = np.ones_like(tokens, dtype=bool)
+    valid[1, : L - 2] = False
+    return TokenPrompt(
+        tokens=torch.from_numpy(tokens),
+        positions=torch.from_numpy(positions),
+        valid=torch.from_numpy(valid),
+        pos_diff=torch.tensor(L - 2, dtype=torch.int32),
+    )
 
 
 def lumina_token_prompt(text_tokens: Sequence[int],

@@ -21,3 +21,13 @@ def nearest_latents(codebook: torch.Tensor, k: int | None = None,
     d2.fill_diagonal_(float("inf"))
     idx = torch.topk(-d2, k, dim=-1).indices
     return idx.to(torch.int32).cpu().numpy()
+
+
+def save_table(path: str, table: np.ndarray) -> None:
+    """uint16 .npy, the reference's on-disk format
+    (``ckpts/<model>/vq_distances/top_<k>_indices.npy``)."""
+    np.save(path, np.asarray(table).astype(np.uint16))
+
+
+def load_table(path: str) -> np.ndarray:
+    return np.load(path).astype(np.int32)

@@ -112,10 +112,12 @@ def ecfgs(kind: str, **kw):
                                    **common))
 
 
-def _pair(kw, seed, nearest=False):
-    """Base and drafter params of both packages on one tiny config."""
+def _pair(kw, seed, nearest=False, dkw=()):
+    """Base and drafter params of both packages on one tiny config
+    (``dkw``: the drafter's dynamic-tree geometry, as items)."""
     cfg_j, cfg_t = jc.tiny_config(**kw), tc.tiny_config(**kw)
-    dcfg_j, dcfg_t = jc.drafter_config(cfg_j), tc.drafter_config(cfg_t)
+    dcfg_j = jc.drafter_config(cfg_j, **dict(dkw))
+    dcfg_t = tc.drafter_config(cfg_t, **dict(dkw))
     pj = jtfm.fuse_params(jtfm.init_params(jax.random.key(seed), cfg_j))
     dj = jtfm.fuse_params(jdrf.init_drafter_params(
         jax.random.key(seed + 1), dcfg_j, pj["embed"]))
@@ -485,10 +487,127 @@ def _single_greedy(label, labels):
 
 
 def test_batched_engine_rejects_dynamic_and_deferred(label):
-    with pytest.raises(ValueError, match="12b"):
-        port_engine(label, ecfgs("greedy", mode="dynamic")[1], 2)
+    """Dynamic mode runs (below); what the JAX engine rejects still
+    raises: dynamic trees without the drafter, and deferred commit."""
+    with pytest.raises(ValueError, match="stale_draft"):
+        port_engine(label, ecfgs("greedy", mode="dynamic",
+                                 stale_draft=True)[1], 2)
     with pytest.raises(ValueError, match="deferred_commit"):
         port_engine(label, ecfgs("greedy", deferred_commit=True)[1], 2)
+    with pytest.raises(ValueError, match="deferred_commit"):
+        port_engine(label, ecfgs("greedy", mode="dynamic",
+                                 deferred_commit=True)[1], 2)
+
+
+# ------------------------------------------- batched dynamic (EAGLE-2) mode
+
+# the geometry of tests/test_batching.py's dynamic case
+DYN = (("total_tokens", 10), ("depth", 2), ("top_k", 4))
+
+
+@pytest.fixture(scope="module")
+def dynamic_lane():
+    return _pair(dict(cond_kind="label", **LABEL_KW), 0, nearest=True,
+                 dkw=DYN)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dynamic(mode: str):
+    lane = _pair(dict(cond_kind="label", **LABEL_KW), 0, nearest=True,
+                 dkw=DYN)
+    cfg_j = lane["cfg"][0]
+    reqs = [jsched.Request(uid=lab, cond=jnp.asarray([lab]),
+                           uncond=jnp.asarray([cfg_j.num_classes]),
+                           seed=100 + i) for i, lab in enumerate(LABELS)]
+    return jax_run(lane, ecfgs(mode, mode="dynamic")[0], reqs, 2)
+
+
+@pytest.mark.parametrize("use_native", LOOPS)
+@pytest.mark.parametrize("mode", ["greedy", "pinned"])
+def test_batched_dynamic_matches_jax(dynamic_lane, mode, use_native):
+    """EAGLE-2 under the batch (the port of ``tests/test_batching.py``'s
+    dynamic case): 5 label requests on 2 slots, each slot drafting its own
+    tree; tokens and steps equal the JAX engine's."""
+    eng = port_engine(dynamic_lane, ecfgs(mode, mode="dynamic")[1], 2)
+    done = Scheduler(eng, use_native=use_native).run(
+        label_requests(dynamic_lane["cfg"][1]))
+    assert [r.uid for r in done] == LABELS
+    same_as(done, _jax_dynamic(mode))
+
+
+def test_batched_dynamic_frozen_slots(dynamic_lane):
+    """Dynamic mode on 3 slots with slot 1 empty: the empty slot stays at
+    ``n_new = 1 << 30`` and length 0; a finished slot's state and cache
+    length stay put through further steps; each stream and step count
+    equals ``spec.generate`` alone (sampled, so each slot's generator is
+    drawn in a lone run's order while its neighbours' trees differ)."""
+    et = ecfgs("sampling", mode="dynamic")[1]
+    cfg_t = dynamic_lane["cfg"][1]
+    uncond = torch.tensor([cfg_t.num_classes])
+    eng = port_engine(dynamic_lane, et, 3)
+    pres = {s: eng.prefill(torch.tensor([lab]), uncond,
+                           tspec.request_generator(70 + s, "cpu"))
+            for s, lab in ((0, 2), (2, 8))}
+    batch = eng.empty_batch(pres[0])
+    for s, p in pres.items():
+        batch = eng.insert(batch, s, p)
+    while True:
+        batch = eng.step(batch)
+        n_new, steps, _ = eng.slot_status(batch)
+        if n_new[0] >= MAX_NEW and n_new[2] >= MAX_NEW:
+            break
+    lens = batch.base_kv.length.clone()
+    toks = [eng.slot_tokens(batch, s) for s in (0, 2)]
+    batch = eng.step_many(batch, 3)
+    n_new2, steps2, _ = eng.slot_status(batch)
+    np.testing.assert_array_equal(n_new2, n_new)
+    np.testing.assert_array_equal(steps2, steps)
+    assert n_new[1] == EMPTY and steps[1] == 0
+    assert torch.equal(batch.base_kv.length, lens)
+    assert lens[2] == lens[3] == 0
+    for s, lab, got in ((0, 2, toks[0]), (2, 8, toks[1])):
+        np.testing.assert_array_equal(got, eng.slot_tokens(batch, s))
+        alone = tspec.generate(
+            dynamic_lane["p"][1], et, cfg_t, None, None,
+            tspec.request_generator(70 + s, "cpu"), device="cpu",
+            dparams=dynamic_lane["d"][1], dcfg=dynamic_lane["dcfg"][1],
+            cond=torch.tensor([lab]), uncond=uncond)
+        np.testing.assert_array_equal(got, alone.tokens.numpy())
+        assert steps[s] == alone.steps
+
+
+def test_verify_forward_per_slot_masks_equal_lone_forwards(dynamic_lane):
+    """``verify_forward`` with a mask and depths per slot gives each slot
+    the logits of its own single-request verify forward."""
+    cfg_t = dynamic_lane["cfg"][1]
+    et = ecfgs("greedy", mode="dynamic")[1]
+    eng = port_engine(dynamic_lane, et, 2)
+    uncond = torch.tensor([cfg_t.num_classes])
+    first = eng.prefill(torch.tensor([0]), uncond)
+    mask0 = tspec.dynamic_tree_block(eng.dcfg, first[0]).mask
+    # the first label whose tree differs in shape from label 0's
+    other = next(p for p in (eng.prefill(torch.tensor([lab]), uncond)
+                             for lab in range(1, 10))
+                 if not torch.equal(
+                     tspec.dynamic_tree_block(eng.dcfg, p[0]).mask, mask0))
+    pres = [first, other]
+    blocks = [tspec.dynamic_tree_block(eng.dcfg, st) for st, _ in pres]
+    batch = eng.empty_batch(pres[0])
+    for i, p in enumerate(pres):
+        batch = eng.insert(batch, i, p)
+    kv = batch.base_kv
+    _, got = tspec.verify_forward(
+        et, cfg_t, eng.params, eng._rope, kv,
+        torch.stack([b.tokens for b in blocks]),
+        torch.stack([b.mask for b in blocks]),
+        torch.stack([b.pos for b in blocks]), batch.prefix_valid,
+        batch.pos_offsets, kv.length.clone())
+    for r, ((st, ctx), b) in enumerate(zip(pres, blocks)):
+        _, want = tspec.verify_forward(
+            et, cfg_t, eng.params, eng._rope, st.base_kv, b.tokens[None],
+            b.mask, b.pos, ctx.prefix_valid, ctx.pos_offsets,
+            st.base_kv.length)
+        torch.testing.assert_close(got[r], want[0], **F32)
 
 
 # ---------------------------------------------- the per-row kernel forms
@@ -729,6 +848,56 @@ def test_k2_cuda_per_row_length_matches_plain(cuda, hd, quant):
     tol = 2e-2 * ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= tol
     wrong = tta.tree_attention_plain(q, kn, vn, kc, vc, lens[0], mask, bias,
+                                     hd ** -0.5, **kw)
+    assert (wrong.float() - ref.float()).abs().max().item() > tol
+
+
+def dynamic_tree_masks(g, R, T, device):
+    """R random dynamic-tree ancestor-or-self masks of T nodes ([R, T, T]
+    bool; node i's parent drawn from the nodes before it)."""
+    out = []
+    for _ in range(R):
+        parent = [0] + [int(torch.randint(0, i, (1,), generator=g))
+                        for i in range(1, T)]
+        a = torch.eye(T, dtype=torch.bool)
+        for i in range(1, T):
+            a[i] |= a[parent[i]]
+        out.append(a)
+    return torch.stack(out).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_k2_cuda_per_row_masks_matches_plain(cuda, quant):
+    """K2 at the batched dynamic verify's shape (4 slots, B = 8 rows, T =
+    59, G = 10, S = 512, pk = 2): a different tree mask in each slot,
+    repeated to its two rows, and a length per row, against its plain
+    version; every row taking row 0's mask is a wrong variant the tolerance
+    must separate."""
+    g = torch.Generator().manual_seed(59 + quant)
+    gc = torch.Generator(device=cuda).manual_seed(59 + quant)
+    R, T, S, G, W, hd = 4, 59, 512, 10, 128, 64
+    B, nh = 2 * R, G * W // hd
+    q, kn, vn = (torch.randn((B, T, nh, hd), generator=gc, device=cuda)
+                 .bfloat16() for _ in range(3))
+    kc, vc = (torch.randn((B, G, S, W), generator=gc, device=cuda).bfloat16()
+              for _ in range(2))
+    kw = {}
+    if quant:
+        (kc, ks), (vc, vs) = tkv.quantize_rows(kc), tkv.quantize_rows(vc)
+        kw = dict(k_scale=ks, v_scale=vs)
+    mask = dynamic_tree_masks(g, R, T, cuda).repeat_interleave(2, dim=0)
+    bias = torch.zeros((B, S), device=cuda)
+    bias[1::2, :7] = tta.NEG_INF
+    lens = torch.tensor([300, 300, 0, 0, 211, 211, S - T, S - T],
+                        dtype=torch.int32, device=cuda)
+    args = (q, kn, vn, kc, vc, lens, mask, bias, hd ** -0.5)
+    got = tta.tree_attention_cuda(*args, **kw)
+    ref = tta.tree_attention_plain(*args, **kw)
+    tol = 2e-2 * ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    wrong = tta.tree_attention_plain(q, kn, vn, kc, vc, lens,
+                                     mask[:1].expand(B, T, T), bias,
                                      hd ** -0.5, **kw)
     assert (wrong.float() - ref.float()).abs().max().item() > tol
 
