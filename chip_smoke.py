@@ -9,6 +9,8 @@ Run from the repository root on a machine with one NVIDIA H100:
                                            # short first run, no result line
     python3 chip_smoke.py --sweep-splits   # K1 and K2 timed over split
                                            # counts, no result line
+    python3 chip_smoke.py --tools-only     # the build and the tools phase
+                                           # (10 below), no result line
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -102,14 +104,31 @@ Phases (any failure exits non-zero and prints no result line):
    ``ChameleonSession`` (4 layers, full width) takes a 16x16 grid through
    ``generate`` and ``decode_generated`` with the Chameleon VQGAN at its
    published config.  Every path's launch counts equal the derived ones.
-   ``--session-only`` runs the build and this phase alone.
+   ``--session-only`` runs the build and this phase alone;
+10. tools (``phase_tools``, after the sessions): K1 at the autotune
+   verify's rows (M = 80-120) and K2 at the autotune and teacher-forcing
+   blocks against their plain versions with times; ``autotune_total_tokens``
+   on XL and Lumina-7B (the pick equal to the weighted argmin of the times
+   it read, derived launch counts a forward); pinned XL static runs with
+   ``lantern_rt`` equal to their static counterparts; the XL calibrations
+   (``measure_rank_probs`` with derived launch counts,
+   ``measure_drafter_accept_probs``), ``optimize_tree`` and a json tree;
+   ``measure_rank_probs`` card vs CPU on a tiny bf16 model;
+   ``measure_stale_accept_probs`` on Lumina-7B over the 16x16 grid;
+   ``generate_codebook`` at 16384x8 against the CPU's distances; and
+   ``python -m lantern_tpu_torch generate_images`` as subprocesses (XL
+   single over the calibrated tree, ``--slots 2 --total-tokens -1``,
+   ``--model-type base --slots 2``; Lumina at 256 px), every PNG and
+   statistics file checked.  ``--tools-only`` runs the build and this
+   phase alone.
 
 Each phase prints its seconds.  The line before the last two is
 ``{"kernels": [...]}`` (``launches`` are the rollback path's, the one Lumina
 path that runs all four kernels; every path's counts are under
 ``launches_by_path``; each kernel's XL record is under ``xl``, its per-row
-record at the XL batch under ``batched``, and K2's per-slot-mask record
-under ``dynamic_batched``); then
+record at the XL batch under ``batched``, K2's per-slot-mask record
+under ``dynamic_batched``, and K1's and K2's tools-phase records under
+``tools``); then
 the ``nvidia-smi`` name/power-limit line; the last line is the device
 record.
 """
@@ -166,6 +185,16 @@ SESSION_REQUESTS = 6
 SESSION_SLOTS = 4
 SESSION_TOKENS = 32
 LUMINA_PROMPT = "a watercolor painting of a harbor town in the morning fog"
+# the tools phase: the verify rows K1 takes at autotune's candidate tree
+# sizes (M = 2L, two launches a matmul past 64 rows); the calibration's
+# rollout and tree budget; the tokens of the runtime-point runs and of each
+# CLI request (64 tokens: a 128 px image)
+AUTOTUNE_M = (80, 96, 100, 112, 120)
+CALIB_TOKENS = 256
+CALIB_NODES, CALIB_DEPTH = 25, 6
+RT_TOKENS = 64
+CLI_TOKENS = 64
+CLI_CAPTIONS = "a red fox in snow|an owl on a tree branch|a lighthouse at night"
 
 
 def log(msg: str) -> None:
@@ -2616,6 +2645,494 @@ def phase_session(torch, card: str, xl: dict, timer):
     return launches, rec
 
 
+def k2_tool_case(torch, timer, card: str, what: str, G: int, hd: int, S: int,
+                 T: int, length: int, mask, quant: bool = False) -> dict:
+    """K2 at one shape of the tools' forwards (B = 2, no padding in the
+    prefix; a bf16 cache, or int8 with scales): against its plain version
+    (tol 2e-2 * max|ref|; a mask entry flipped must fail it), times of the
+    kernel, the plain version and SDPA (over the dequantized prefix and the
+    block as the kernel quantizes it), and the bound from the pairs the
+    mask lets through."""
+    import torch.nn.functional as F
+
+    from lantern_tpu_torch.kv import group_blocks, quantize_rows
+    from lantern_tpu_torch.ops.tree_attention import (tree_attention_cuda,
+                                                      tree_attention_plain)
+
+    B, W = 2, 128
+    nh = G * W // hd
+    gen = torch.Generator(device="cuda").manual_seed(T * 7 + length)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    q, kn, vn = (randn(B, T, nh, hd) for _ in range(3))
+    kw = {}
+    if quant:
+        (kc, ks), (vc, vs) = (quantize_rows(randn(B, G, S, W))
+                              for _ in range(2))
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = randn(B, G, S, W), randn(B, G, S, W)
+    mask = mask.expand(B, T, T).contiguous()
+    bias = torch.zeros((B, S), device="cuda")
+    ln = torch.tensor(length, dtype=torch.int32, device="cuda")
+    args = (q, kn, vn, kc, vc, ln, mask, bias, hd ** -0.5)
+    got = tree_attention_cuda(*args, **kw)
+    ref = tree_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-2 * ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    if not (err <= tol and torch.isfinite(got.float()).all()):
+        fail(f"{what}: max err {err} > tol {tol}")
+    m2 = mask.clone()
+    m2[:, 1, 0] = ~m2[:, 1, 0]                    # row 1 sees two keys
+    werr = (tree_attention_plain(q, kn, vn, kc, vc, ln, m2, bias, hd ** -0.5,
+                                 **kw).float() - ref.float()).abs().max().item()
+    if werr <= tol:
+        fail(f"{what}: tol {tol} does not separate a flipped mask entry "
+             f"(err {werr})")
+    ms = timer(lambda: tree_attention_cuda(*args, **kw))
+    plain = timer(lambda: tree_attention_plain(*args, **kw), reps=5)
+
+    def heads(x):                # [B, G, n, 128] -> [B, nh, n, hd]
+        return x.reshape(B, G, -1, W // hd, hd).transpose(2, 3).reshape(
+            B, nh, -1, hd)
+    if quant:
+        kq, kqs = quantize_rows(group_blocks(kn))
+        vq, vqs = quantize_rows(group_blocks(vn))
+        kd = heads(torch.cat([kc[:, :, :length].float() * ks[:, :, :length, None],
+                              kq.float() * kqs[..., None]], 2).bfloat16())
+        vd = heads(torch.cat([vc[:, :, :length].float() * vs[:, :, :length, None],
+                              vq.float() * vqs[..., None]], 2).bfloat16())
+    else:
+        kd = torch.cat([heads(kc[:, :, :length]), kn.transpose(1, 2)], dim=2)
+        vd = torch.cat([heads(vc[:, :, :length]), vn.transpose(1, 2)], dim=2)
+    am = torch.cat([torch.ones((B, 1, T, length), dtype=torch.bool,
+                               device="cuda"), mask[:, None]], dim=-1)
+    qh = q.transpose(1, 2)
+    lib = timer(lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=am, scale=hd ** -0.5))
+    pairs = B * T * length + int(mask.sum())          # visible (row, key)
+    row = W + 4 if quant else 2 * W                   # cache bytes a row
+    nbytes = 4 * B * T * nh * hd * 2 + 2 * B * G * length * row + B * T * T
+    b_ms, b_by = bound(nbytes, 4.0 * nh * hd * pairs)
+    log(f"{what}: max_abs_err {err:.3e} (tol {tol:.3e} = 2e-2 * max|ref|; a "
+        f"flipped mask entry errs {werr:.3e}) ms {ms:.4f} plain_ms "
+        f"{plain:.4f} library_ms {lib:.4f} (SDPA, {nh} heads of {hd}) "
+        f"bound_ms {b_ms:.4f} ({b_by}) [{card}]")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, shape=what)
+
+
+def lumina_int8(torch, num_layers: int = 32):
+    """Lumina-7B (Chameleon geometry, swin norm, S = 4096) with random int8
+    weights from seed 5 and a shifted nearest table, on the card."""
+    from lantern_tpu_torch import configs
+    from lantern_tpu_torch.models import chameleon as cham
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops.quant import quantize_params
+    from lantern_tpu_torch.ops.vq_distance import nearest_latents
+
+    cfg = configs.chameleon_7b_config(swin_norm=True).replace(
+        num_layers=num_layers)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = quantize_params(tfm.fuse_params(
+        tfm.init_params(gen, cfg, device="cuda")))
+    cb = torch.randn((8192, 8), generator=gen, device="cuda")
+    params["nearest_latents"] = torch.as_tensor(cham.shift_nearest_table(
+        nearest_latents(cb, k=11), cfg.vocab_size), device="cuda")
+    return cfg, params
+
+
+def phase_tools(torch, card: str, xl: dict, timer):
+    """The tuning tools and the CLI on the card:
+
+    - K1 at the autotune verify's rows (M = 2L = 80-120: two launches a
+      matmul) for Lumina's and XL's weight shapes, and K2 at the autotune
+      blocks (T = 40-60 at length 128; XL pk = 2, Lumina pk = 1, bf16
+      cache) and the teacher-forcing blocks (XL T = 376 at length 0; the
+      Lumina teacher's 512-row segment holding 19 prompt rows and 273
+      tokens), each against its plain version with times, SDPA and bound;
+    - ``autotune_total_tokens`` on XL (int8, full depth) and Lumina-7B
+      (int8, full depth): each candidate's ms, the pick equal to the
+      weighted argmin of the times it read, and each candidate's verify
+      forward launching the derived K1 / K2 / K3 counts;
+    - pinned (0.9) XL static runs: ``lantern_rt`` at the static point, and a
+      wide spec (k 10) at a narrowed point (4, 0.3), each token for token
+      equal to its static counterpart;
+    - ``measure_rank_probs`` (derived launch counts) and
+      ``measure_drafter_accept_probs`` on XL at full depth with the
+      passthrough drafter, one 256-token rollout; ``optimize_tree`` on the
+      accept matrix, written as a json tree;
+    - ``measure_rank_probs`` card vs CPU on a tiny bf16 LlamaGen (K2 takes
+      bf16 activations only, so no f32 config reaches the card): every
+      entry within 2 / n;
+    - ``measure_stale_accept_probs`` on Lumina-7B (full depth) over the
+      16x16 grid: [8, 10], entries in (0, 1], rows summing to at most 1
+      (plus the 1e-4 floor of empty entries);
+    - ``generate_codebook`` at 16384x8, k = 1001, against the CPU's f64
+      distances on 64 sampled rows (ties allowed: the card's neighbors'
+      distances equal the CPU's sorted ones);
+    - ``python -m lantern_tpu_torch generate_images`` as subprocesses: XL
+      with 3 captions, ``--random-weights --quant int8 --kv-quant --lantern``
+      single over the calibrated tree, ``--slots 2 --total-tokens -1``,
+      ``--model-type base --slots 2`` (64 tokens a request: 128 px), then
+      Lumina ``--target-size 256`` (273 tokens); every PNG and stats file
+      is checked.
+
+    Returns ``(launches by path, records for the kernels line)``."""
+    import dataclasses
+
+    import numpy as np
+
+    from lantern_tpu_torch import trees
+    from lantern_tpu_torch.engine import autotune as at
+    from lantern_tpu_torch.engine import calibrate as cal
+    from lantern_tpu_torch.engine import spec
+    from lantern_tpu_torch.models import chameleon as cham
+    from lantern_tpu_torch.ops import _cuda
+    from lantern_tpu_torch.ops.acceptance import LanternSpec
+    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
+    from lantern_tpu_torch.ops.sampling import LogitsWarp
+
+    out_root = os.path.join("build", "tools")
+    os.makedirs(out_root, exist_ok=True)
+    launches, rec = {}, {}
+
+    def k1(rows):
+        return -(-2 * rows // K1_MAX_ROWS)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, dict(_cuda.LAUNCHES)
+
+    # --- the new kernel shapes ------------------------------------------
+    t_k = time.perf_counter()
+    kp = KernelPhase(torch, timer, card)
+    k1_err, reps = 0.0, {}
+    for lane, shapes in (("Lumina autotune ", K1_SHAPES),
+                         ("XL autotune ", K1_SHAPES_XL)):
+        for name, (K, N) in shapes.items():
+            if name == "fc_w":
+                continue
+            err, r, _, _ = kp.k1_shape(name, K, N, AUTOTUNE_M,
+                                       100 if name == "w_gu" else None, lane)
+            k1_err = max(k1_err, err)
+            if r:
+                reps[lane] = dict(r, max_abs_err=err)
+    rec["int8_matmul"] = dict(reps["Lumina autotune "], max_abs_err=k1_err)
+    causal = {}
+
+    def tril(T, live=None):
+        if (T, live) not in causal:
+            m = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                      device="cuda"))
+            if live is not None:
+                m &= torch.arange(T, device="cuda")[None] < live
+            causal[(T, live)] = m[None]
+        return causal[(T, live)]
+    k2 = []
+    for T in at.CANDIDATES:
+        k2.append(k2_tool_case(
+            torch, timer, card, f"K2 XL autotune verify pk=2 B=2 G=10 S=512 "
+            f"T={T} length=128 bf16 KV", 10, 64, 512, T, 128, tril(T)))
+        k2.append(k2_tool_case(
+            torch, timer, card, f"K2 Lumina autotune verify pk=1 B=2 G=32 "
+            f"S=4096 T={T} length=128 bf16 KV", 32, 128, 4096, T, 128,
+            tril(T)))
+    n_xl = xl["cfg"].cls_token_num + CALIB_TOKENS
+    k2.append(k2_tool_case(
+        torch, timer, card, f"K2 XL teacher forcing pk=2 B=2 G=10 S=384 "
+        f"T={n_xl} length=0 bf16 KV", 10, 64, 384, n_xl, 0, tril(n_xl)))
+    n_lum = len(TEXT) + 3 + 16 * 17 + 1
+    k2.append(k2_tool_case(
+        torch, timer, card, f"K2 Lumina teacher forcing pk=1 B=2 G=32 S=512 "
+        f"T=512 ({n_lum} live rows) length=0 int8 KV", 32, 128, 512, 512, 0,
+        tril(512, n_lum), quant=True))
+    rec["tree_attention"] = dict(k2[4], max_abs_err=max(r["max_abs_err"]
+                                                        for r in k2))
+    log(f"tools kernels: K1 at M = {AUTOTUNE_M}, K2 at {len(k2)} shapes in "
+        f"{time.perf_counter() - t_k:.1f} s")
+
+    # --- autotune ----------------------------------------------------------
+    def tune(name, cfg, params):
+        seen = {}
+        orig = at.time_verify_forward
+
+        def recording(params, cfg, length, prefix=128, iters=20, rope=None):
+            seen[length] = orig(params, cfg, length, prefix, iters, rope)
+            return seen[length]
+        at.time_verify_forward = recording
+        try:
+            t = time.perf_counter()
+            best = at.autotune_total_tokens(params, cfg)
+            dt = time.perf_counter() - t
+        finally:
+            at.time_verify_forward = orig
+        score = {c: seen[c] / w for c, w in zip(at.CANDIDATES, at.WEIGHTS)}
+        if best != min(score, key=score.get):
+            fail(f"autotune {name}: picked {best}, the weighted argmin of "
+                 f"{score} is {min(score, key=score.get)}")
+        L = cfg.num_layers
+        for c in at.CANDIDATES:
+            fwd = at.verify_forward(params, cfg, c)
+            logits, _, got = counted(fwd)
+            want = {"int8_matmul": 4 * L * k1(c) + k1(c),
+                    "tree_attention": L, "kv_write": 1, "kv_gather": 0}
+            if got != want:
+                fail(f"autotune {name} L={c}: the verify forward launched "
+                     f"{got}, its shapes give {want}")
+            if not bool(torch.isfinite(logits).all()):
+                fail(f"autotune {name} L={c}: non-finite logits")
+        launches[f"autotune_{name}"] = got
+        log(f"autotune {name} [{card}] verify forward [2, L] + head over a "
+            f"128-row prefix, 20 timed runs each: " + ", ".join(
+                f"L={c} {seen[c] * 1e3:.3f} ms (weighted "
+                f"{score[c] * 1e3:.3f})" for c in at.CANDIDATES)
+            + f"; picked total_tokens={best} = the weighted argmin; "
+            f"{dt:.1f} s; launches a forward at L=60 {got} = the derived "
+            f"counts (K1 {k1(60)} launches a matmul)")
+        return best
+
+    cfg, params = xl["cfg"], xl["params"]
+    rec["autotune_xl"] = tune("XL", cfg, params)
+    lcfg, lparams = lumina_int8(torch)
+    rec["autotune_lumina"] = tune("Lumina-7B", lcfg, lparams)
+
+    # --- the operating point as device tensors ----------------------------
+    cond, uncond, pv = xl["caption"](XL_CAPTION)
+    tree = trees.get_tree(os.path.join("ckpts", "bench_tree_XL.json"))
+    base = spec.SpecDecodeConfig(
+        warp=LogitsWarp(temperature=1.0, top_k=2000), cfg_scale=3.0,
+        lantern=LanternSpec(k=10, delta=5.0), max_new=RT_TOKENS,
+        walk_batch_warp=True, stale_draft=True, deferred_commit=True,
+        pin=0.9)
+
+    def run_rt(ecfg, rt):
+        g = torch.Generator(device="cuda").manual_seed(10)
+        return spec.generate(params, ecfg, cfg, tree, None, g,
+                             cond=cond, uncond=uncond, prefix_valid=pv,
+                             lantern_rt=rt)
+    narrow = LanternSpec(k=4, delta=0.3)
+    pairs = {
+        "static point": (run_rt(base, None), run_rt(
+            base, base.lantern.runtime(device="cuda"))),
+        "narrowed point (4, 0.3)": (
+            run_rt(dataclasses.replace(base, lantern=narrow), None),
+            run_rt(base, base.lantern.runtime(4, 0.3, device="cuda")))}
+    for what, (a, b) in pairs.items():
+        if not (torch.equal(a.tokens, b.tokens) and a.steps == b.steps
+                and a.accept_sum == b.accept_sum):
+            fail(f"lantern_rt at the {what}: steps {a.steps} / {b.steps}, "
+                 f"accepted {a.accept_sum} / {b.accept_sum}")
+    a0, a1 = (pairs[k][0] for k in pairs)
+    differ = int((a0.tokens != a1.tokens).sum())
+    log(f"lantern_rt [{card}] pinned (0.9) XL static runs (stale + "
+        f"deferred, {RT_TOKENS} tokens): the runtime point equals the static "
+        f"spec token for token at (10, 5.0) (C {a0.step_compression:.3f}) "
+        f"and, from a k=10 spec, at (4, 0.3) (C {a1.step_compression:.3f}); "
+        f"the two points' streams differ in {differ} of {RT_TOKENS} tokens")
+
+    # --- calibration on XL ---------------------------------------------------
+    dcfg, dparams = xl["dcfg"], xl["dparams"]
+    warp = LogitsWarp(temperature=1.0, top_k=2000)
+    Tc, L = cfg.cls_token_num, cfg.num_layers
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rank, t_rank, got = counted(lambda: cal.measure_rank_probs(
+        params, dparams, cfg, dcfg, cond, uncond, g,
+        num_tokens=CALIB_TOKENS, warp=warp))
+    n, Dp = CALIB_TOKENS, Tc - 1 + CALIB_TOKENS
+    want = {"int8_matmul": (4 * L * k1(Tc) + 1 + n * (4 * L + 1)
+                            + 4 * L * k1(Tc + n) + k1(Dp) + 4 * k1(Dp)
+                            + k1(Dp)),
+            "tree_attention": (1 + n) * L + L + 1,
+            "kv_write": 1 + n + 1 + 1, "kv_gather": 0}
+    if got != want:
+        fail(f"measure_rank_probs XL launched {got}, its shapes give {want}")
+    if rank.shape != (10,) or not ((rank > 0) & (rank <= 1)).all():
+        fail(f"measure_rank_probs XL: {rank}")
+    launches["calibrate_rank_xl"] = got
+    g = torch.Generator(device="cuda").manual_seed(22)
+    acc_p, t_acc, got = counted(lambda: cal.measure_drafter_accept_probs(
+        params, dparams, cfg, dcfg, cond, uncond, g, params["nearest_latents"],
+        LanternSpec(k=10, delta=5.0), num_tokens=CALIB_TOKENS, warp=warp))
+    if (acc_p.shape != (6, 10) or not ((acc_p > 0) & (acc_p <= 1)).all()
+            or (acc_p.sum(1) > 1 + 10e-4).any()):
+        fail(f"measure_drafter_accept_probs XL: {acc_p}")
+    if min(got["int8_matmul"], got["tree_attention"], got["kv_write"]) == 0:
+        fail(f"measure_drafter_accept_probs XL launched {got}")
+    launches["calibrate_accept_xl"] = got
+    paths = trees.optimize_tree(acc_p, CALIB_NODES, CALIB_DEPTH)
+    tree_json = os.path.join(out_root, "calibrated_tree_XL.json")
+    with open(tree_json, "w") as f:
+        json.dump({"paths": [list(p) for p in paths]}, f)
+    ctree = trees.get_tree(tree_json)
+    log(f"calibrate XL [{card}] (36 layers, int8, passthrough drafter, one "
+        f"{CALIB_TOKENS}-token rollout, top-2000, cfg 3.0): "
+        f"measure_rank_probs {t_rank:.1f} s -> "
+        f"{np.round(rank, 4).tolist()} (launches = the derived counts); "
+        f"measure_drafter_accept_probs (LANTERN k=10 delta=5) {t_acc:.1f} s "
+        f"-> depth x rank {np.round(acc_p, 4).tolist()}; optimize_tree "
+        f"({CALIB_NODES} nodes, depth <= {CALIB_DEPTH}) -> {len(paths)} "
+        f"paths, {ctree.num_nodes} rows, depth {ctree.max_depth}, written to "
+        f"{tree_json}")
+    rec["calibrated_tree"] = dict(paths=[list(p) for p in paths])
+
+    # --- card vs CPU: measure_rank_probs on a tiny bf16 LlamaGen -----------
+    from lantern_tpu_torch import configs
+    from lantern_tpu_torch.models import drafter as drf
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops.quant import quantize_params
+
+    tcfg = configs.tiny_config(vocab_size=512, hidden_size=256, num_layers=2,
+                               num_heads=4, cond_kind="caption",
+                               block_size=36, max_seq_len=64,
+                               dtype="bfloat16")
+    tdcfg = configs.drafter_config(tcfg)
+    gen = torch.Generator().manual_seed(8)
+    tp_ = tfm.init_params(gen, tcfg, device="cpu")
+    tp_["lm_head"] = tp_["lm_head"] * 40          # sharp rows: clear ranks
+    tp_ = quantize_params(tfm.fuse_params(tp_))
+    td = drf.init_drafter_params(gen, tdcfg, tp_["embed"])
+    H = tcfg.hidden_size
+    td["fc_w"] = torch.cat([torch.zeros((H, H)), torch.eye(H)]).to(
+        tcfg.torch_dtype)
+    td["layers"] = {k: v * 0 for k, v in td["layers"].items()}
+    td = quantize_params(tfm.fuse_params(td))
+    c0 = torch.randn((1, tcfg.cls_token_num, tcfg.caption_dim),
+                     generator=torch.Generator().manual_seed(9))
+    probs = {}
+    for dev in ("cpu", "cuda"):
+        p, dp = on_device(tp_, dev), on_device(td, dev)
+        u0 = p["cond"]["uncond"][None].float()
+        probs[dev] = cal.measure_rank_probs(
+            p, dp, tcfg, tdcfg, c0.to(dev), u0, None, max_rank=6,
+            warp=LogitsWarp(temperature=0.0))
+    n_t = tcfg.block_size - 1
+    diff = np.abs(probs["cuda"] - probs["cpu"]).max()
+    if diff > 2.0 / n_t:
+        fail(f"measure_rank_probs card vs CPU: {probs['cuda']} vs "
+             f"{probs['cpu']} (max diff {diff} > 2/{n_t})")
+    log(f"measure_rank_probs card vs CPU [{card}] tiny bf16 LlamaGen "
+        f"(int8 weights, passthrough drafter, greedy, {n_t + 1} tokens): "
+        f"card {np.round(probs['cuda'], 4).tolist()}, CPU "
+        f"{np.round(probs['cpu'], 4).tolist()}; max diff {diff:.4f} (tol "
+        f"2/{n_t}: two ranks may move with bf16 rounding)")
+
+    # --- measure_stale_accept_probs on Lumina-7B, 16x16 ----------------------
+    grid = 16
+    ltp = cham.lumina_token_prompt(TEXT, grid=(grid, grid))
+    fsm = cham.LuminaGridFSM(w=grid, h=grid, image_start_idx=len(TEXT),
+                             vocab_size=lcfg.vocab_size)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    stale, t_stale, got = counted(lambda: cal.measure_stale_accept_probs(
+        lparams, lcfg, ltp, g, grid * (grid + 1) + 1,
+        lparams["nearest_latents"], LanternSpec(k=10, delta=5.0),
+        warp=warp, logits_fn=fsm, kv_quant=True))
+    if (stale.shape != (8, 10) or not ((stale > 0) & (stale <= 1)).all()
+            or (stale.sum(1) > 1 + 10e-4).any()):
+        fail(f"measure_stale_accept_probs Lumina: {stale}")
+    if min(got["int8_matmul"], got["tree_attention"], got["kv_write"]) == 0:
+        fail(f"measure_stale_accept_probs Lumina launched {got}")
+    launches["calibrate_stale_lumina"] = got
+    log(f"calibrate Lumina-7B [{card}] (32 layers, int8 weights and KV, "
+        f"16x16 grid, FSM, top-2000, cfg 3.0, LANTERN k=10 delta=5): "
+        f"measure_stale_accept_probs {t_stale:.1f} s -> depth x rank "
+        f"{np.round(stale, 4).tolist()}; row sums "
+        f"{np.round(stale.sum(1), 4).tolist()}; launches {got}")
+    del lparams
+    torch.cuda.empty_cache()
+
+    # --- generate_codebook at 16384x8, k = 1001 ------------------------------
+    from lantern_tpu_torch.entrypoints import generate_codebook as gcb
+
+    ap = argparse.ArgumentParser()
+    gcb.add_args(ap)
+    cargs = ap.parse_args(["--model", "random", "--k", "1001", "--save-path",
+                           os.path.join(out_root, "vq_distances")])
+    t = time.perf_counter()
+    gcb.run(cargs, device="cuda")
+    t_cb = time.perf_counter() - t
+    table = np.load(os.path.join(out_root, "vq_distances",
+                                 "top_1001_indices.npy"))
+    cb = gcb.codebook_of(cargs).astype(np.float64)
+    rows = np.random.default_rng(3).choice(cb.shape[0], 64, replace=False)
+    worst, same = 0.0, 0
+    for r in rows:
+        d = ((cb - cb[r]) ** 2).sum(1)
+        d[r] = np.inf
+        want_d = np.sort(d)[:1001]
+        got_d = d[table[r].astype(np.int64)]
+        worst = max(worst, float(np.abs(got_d - want_d).max()
+                                 / max(want_d[-1], 1e-12)))
+        same += int((table[r] == np.argsort(d, kind="stable")[:1001]).sum())
+    if table.shape != (16384, 1001) or table.dtype != np.uint16 or worst > 1e-4:
+        fail(f"generate_codebook: {table.shape} {table.dtype}; neighbor "
+             f"distances off the CPU's by {worst} (relative)")
+    log(f"generate_codebook [{card}] 16384x8 random codebook, k=1001: "
+        f"{t_cb:.2f} s (nearest_latents on the card + the uint16 .npy); on "
+        f"64 sampled rows the neighbors' distances equal the CPU's sorted f64 "
+        f"ones within {worst:.1e} (relative), {same / (64 * 1001):.4f} of "
+        f"the ids equal (ties and f32 rounding may swap the others)")
+
+    # --- the CLI as users run it ----------------------------------------------
+    def cli(tag, *argv, n_prompts=3):
+        out = os.path.join(out_root, tag)
+        cmd = [sys.executable, "-m", "lantern_tpu_torch", "generate_images",
+               "--random-weights", "--output-dir", out, *argv]
+        t = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t
+        if r.returncode:
+            fail(f"CLI {tag}: exit {r.returncode}: {r.stderr[-3000:]}")
+        st = json.load(open(os.path.join(
+            out, f"global_statistics_0_{n_prompts}.json")))
+        if sorted(st) != sorted(f"prompt_{i}" for i in range(n_prompts)):
+            fail(f"CLI {tag}: statistics for {sorted(st)}")
+        for key, v in st.items():
+            if "error" in v or not v["step_compression"] >= 1.0:
+                fail(f"CLI {tag}: {key} {v}")
+        cfgs = json.load(open(os.path.join(out, "generation_configs.json")))
+        shapes = []
+        for i in range(n_prompts):
+            data = open(os.path.join(out, f"prompt_{i}.png"), "rb").read()
+            if data[:8] != b"\x89PNG\r\n\x1a\n":
+                fail(f"CLI {tag}: prompt_{i}.png is not a PNG")
+            w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(
+                data[20:24], "big")
+            shapes.append((h, w))
+        auto = [ln for ln in r.stdout.splitlines() if "autotuned" in ln]
+        log(f"CLI {tag} [{card}] python -m lantern_tpu_torch generate_images "
+            f"{' '.join(argv)}: {dt:.1f} s (process included); C "
+            + ", ".join(f"{v['step_compression']:.3f}" for v in st.values())
+            + f"; latency " + ", ".join(f"{v['latency']:.2f}"
+                                        for v in st.values())
+            + f" s; PNGs {shapes}; {len(cfgs)} config keys"
+            + (f"; {auto[0]}" if auto else ""))
+        return st, auto
+
+    common = ["--prompts", CLI_CAPTIONS, "--quant", "int8", "--kv-quant",
+              "--lantern", "--lantern-k", "10", "--lantern-delta", "5.0",
+              "--cfg", "3.0", "--max-new", str(CLI_TOKENS)]
+    st_cal, _ = cli("xl_calibrated", *common, "--tree-choices", tree_json)
+    rec["calibrated_tree"]["C"] = [v["step_compression"]
+                                   for v in st_cal.values()]
+    _, auto = cli("xl_slots_autotune", *common, "--slots", "2",
+                  "--total-tokens", "-1")
+    if not auto:
+        fail("CLI --total-tokens -1 printed no autotuned total_tokens")
+    cli("xl_base_slots", *common, "--model-type", "base", "--slots", "2")
+    cli("lumina", "--model", "lumina_mgpt", "--target-size", "256",
+        "--prompts", LUMINA_PROMPT, "--quant", "int8", "--kv-quant",
+        "--cfg", "3.0", n_prompts=1)
+    return launches, rec
+
+
 def tree_map(fn, tree):
     """``fn`` over the tensors of a nested dict / list tree."""
     if isinstance(tree, dict):
@@ -2691,6 +3208,9 @@ def main() -> int:
     ap.add_argument("--session-only", action="store_true",
                     help="after the build, run only the session phase "
                          "(prints no result line)")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="after the build, run only the tools phase "
+                         "(prints no result line)")
     args = ap.parse_args()
 
     import torch
@@ -2734,6 +3254,11 @@ def main() -> int:
               timed("build_xl", build_xl, torch), timer)
         log("session-only run: build and session phases passed")
         return 0
+    if args.tools_only:
+        timed("tools", phase_tools, torch, tag,
+              timed("build_xl", build_xl, torch), timer)
+        log("tools-only run: build and tools phases passed")
+        return 0
     records = timed("kernels", phase_kernels, torch, timer, tag, args.grid)
     timed("forward", phase_forward, torch)
     timed("forward_llamagen", phase_forward_llamagen, torch)
@@ -2747,6 +3272,8 @@ def main() -> int:
     session_launches, k2_dynamic = timed("session", phase_session, torch,
                                          tag, xl, timer)
     launches.update(session_launches)
+    tools_launches, tools = timed("tools", phase_tools, torch, tag, xl, timer)
+    launches.update(tools_launches)
     del xl
     launches.update(timed("ragged_lumina", phase_ragged, torch, tag))
 
@@ -2778,6 +3305,10 @@ def main() -> int:
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "shape")}})
     kernels[1]["dynamic_batched"] = k2_dynamic
+    for k, name in enumerate(("int8_matmul", "tree_attention")):
+        kernels[k]["tools"] = {key: tools[name][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

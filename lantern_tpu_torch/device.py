@@ -14,3 +14,10 @@ def resolve_device(device=None) -> torch.device:
             "lantern_tpu_torch: CUDA device requested but torch.cuda is not "
             "available; pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): a host clock
+    read after it measures the work, not its enqueue."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

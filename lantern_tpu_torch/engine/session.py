@@ -39,7 +39,7 @@ import torch
 
 from .. import trees
 from ..configs import DrafterConfig, ModelConfig
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from ..models import chameleon as cham
 from ..models import drafter as drf
 from ..models import transformer as tfm
@@ -63,11 +63,6 @@ class GenStats:
     latency: float
     steps: int
     tokens: int
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _passthrough(dparams: dict, cfg: ModelConfig) -> dict:
@@ -245,7 +240,7 @@ class LlamaGenSession:
                               cfg_scale, warp, gen, prefix_valid=pv,
                               kv_quant=kv_quant, device=self.device)
             toks = res.tokens.cpu().numpy()
-            _sync(self.device)
+            synchronize(self.device)
             return toks, GenStats(1.0, time.perf_counter() - t0, max_new,
                                   max_new)
         ecfg = _ecfg(warp, drafter_top_k, cfg_scale, lantern_k, lantern_delta,
@@ -259,7 +254,7 @@ class LlamaGenSession:
                             dcfg=self.dcfg, cond=cond, uncond=uncond,
                             prefix_valid=pv)
         toks = res.tokens.cpu().numpy()[:max_new]
-        _sync(self.device)
+        synchronize(self.device)
         dt = time.perf_counter() - t0
         return toks, GenStats(res.step_compression, dt, int(res.steps),
                               max_new)
@@ -344,7 +339,7 @@ class LlamaGenSession:
                 [request_generator(seed + i, self.device) for i in good],
                 prefix_valid=None if pvs[0] is None else torch.stack(pvs),
                 kv_quant=kv_quant, device=self.device).cpu().numpy()
-            _sync(self.device)
+            synchronize(self.device)
             dt = time.perf_counter() - t0
             for row, i in enumerate(good):
                 out.append(Request(uid=i, seed=seed + i, tokens=toks[row],
@@ -551,7 +546,7 @@ class ChameleonSession:
                 logits_mask=mask, logits_fn=logits_fn, kv_quant=kv_quant,
                 stop_ids=stop_ids, device=self.device)
             toks = res.tokens.cpu().numpy()
-            _sync(self.device)
+            synchronize(self.device)
             dt = time.perf_counter() - t0
             if stop_ids:
                 toks = toks[: int(res.n_valid)]
@@ -568,7 +563,7 @@ class ChameleonSession:
                             dcfg=self.dcfg)
         n_out = int(res.n_valid) if stop_ids else max_new
         toks = res.tokens.cpu().numpy()[:n_out]
-        _sync(self.device)
+        synchronize(self.device)
         dt = time.perf_counter() - t0
         return toks, GenStats(res.step_compression, dt, int(res.steps), n_out)
 
@@ -660,7 +655,7 @@ class ChameleonSession:
                     logits_mask=mask, logits_fn=logits_fn, kv_quant=kv_quant,
                     device=self.device)
                 toks = toks.cpu().numpy()
-                _sync(self.device)
+                synchronize(self.device)
                 dt = time.perf_counter() - t0
                 for row, (i, _) in enumerate(chunk):
                     out.append(Request(uid=i, seed=seed + i,

@@ -132,6 +132,9 @@ class _Ctx(NamedTuple):
     # ``ecfg.stop_ids`` on the device, made once at prefill so that a step
     # copies nothing from the host
     stops: Optional[torch.Tensor] = None
+    # the LANTERN operating point as device tensors (``acc.LanternRT``);
+    # None is ``ecfg.lantern``'s static (k, delta)
+    lantern_rt: Optional[acc.LanternRT] = None
 
 
 def bind_logits_fn(logits_fn, pos_offsets):
@@ -275,7 +278,8 @@ def accept(ecfg: SpecDecodeConfig, ctx: _Ctx, blk: TreeBlock,
         retrieve_safe = torch.clamp(blk.retrieve, min=0).long()
         path_logits = logits_all[retrieve_safe]                  # [P, D, V]
         best, alen, bonus_logits = acc.greedy_verify(
-            path_logits, blk.candidates, ctx.nearest, ecfg.lantern)
+            path_logits, blk.candidates, ctx.nearest, ecfg.lantern,
+            rt=ctx.lantern_rt)
         bonus = torch.argmax(bonus_logits).to(torch.int32)
         sel_slots = acc.take1(retrieve_safe, best)               # [D]
     else:
@@ -287,7 +291,8 @@ def accept(ecfg: SpecDecodeConfig, ctx: _Ctx, blk: TreeBlock,
             depth=blk.max_depth, warp=ecfg.warp, nearest=ctx.nearest,
             lantern=ecfg.lantern, node_q=blk.node_q,
             level_probs=blk.level_probs, node_level_row=blk.inlevel_rank,
-            uniforms=pinned_u, batch_warp=ecfg.walk_batch_warp)
+            uniforms=pinned_u, rt=ctx.lantern_rt,
+            batch_warp=ecfg.walk_batch_warp)
         if ecfg.pin is None:
             bonus = categorical(ctx.generator,
                                 torch.log(torch.clamp(dist, min=1e-30)))
@@ -644,18 +649,22 @@ def generate(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
              dcfg: Optional[DrafterConfig] = None,
              cond: Optional[torch.Tensor] = None,
              uncond: Optional[torch.Tensor] = None,
-             prefix_valid: Optional[torch.Tensor] = None) -> SpecResult:
+             prefix_valid: Optional[torch.Tensor] = None,
+             lantern_rt: Optional[acc.LanternRT] = None) -> SpecResult:
     """Full speculative generation for one request (CFG cond/uncond as the
     batch pair), conditioned on a token prompt or on an embedding prefix
     (see ``prefill_request``).  ``dparams``/``dcfg``: the EAGLE drafter,
     needed unless ``ecfg.stale_draft``; ``spec``: the static tree, unused
-    in dynamic mode."""
+    in dynamic mode.  ``lantern_rt`` (``acc.LanternSpec.runtime``, device
+    tensors) overrides the static operating point without a host read;
+    ``ecfg.lantern.k`` still bounds the neighbor-table width."""
     max_steps = max_steps or ecfg.max_new
     state, ctx = prefill_request(params, ecfg, cfg, spec, token_prompt,
                                  generator, logits_mask=logits_mask,
                                  logits_fn=logits_fn, device=device,
                                  dparams=dparams, dcfg=dcfg, cond=cond,
                                  uncond=uncond, prefix_valid=prefix_valid)
+    ctx = ctx._replace(lantern_rt=lantern_rt)
     step = (make_static_step(ecfg, cfg, spec, ctx) if ecfg.mode == "static"
             else make_dynamic_step(ecfg, cfg, ctx))
     n_new = steps = 0

@@ -1,13 +1,16 @@
 """Speculative-decoding acceptance rules (counterpart of
 ``lantern_tpu/ops/acceptance.py``): greedy tree verification with optional
-LANTERN relaxation, and the EAGLE-1 rejection-sampling tree walk.
+LANTERN relaxation, the path-table rejection-sampling verifier
+(``stochastic_verify``, EAGLE-2 and EAGLE-1 multi-draft) and the engine's
+tree walk (``stochastic_verify_tree``).
 
 The functions are written with tensor ops only (no host reads), in the
 same order as the JAX code, so each branch can be compared line by line.
-``stochastic_verify_tree`` takes ``uniforms`` to pin its coin flips; with
-``uniforms=None`` it draws them from a ``torch.Generator``.  The traced
-operating point (``LanternRT``) and the path-table ``stochastic_verify``
-are not ported yet.
+The stochastic verifiers take ``uniforms`` to pin their coin flips; with
+``uniforms=None`` they draw them from a ``torch.Generator``.  ``rt``
+(``LanternSpec.runtime``) is the operating point as device tensors: it
+narrows the static ``LanternSpec`` without a host read, so one engine
+serves a whole (k, delta) sweep.
 """
 
 from __future__ import annotations
@@ -35,37 +38,76 @@ class LanternSpec(NamedTuple):
     def enabled(self) -> bool:
         return self.k > 0
 
+    def runtime(self, k_eff=None, delta_eff=None,
+                device=None) -> "LanternRT":
+        """The operating point as device tensors (defaults: the static
+        one).  ``k_eff`` must not exceed ``k``, the table width."""
+        k = self.k if k_eff is None else k_eff
+        d = self.delta if delta_eff is None else delta_eff
+        return LanternRT(k=torch.as_tensor(k, dtype=torch.int32,
+                                           device=device),
+                         delta=torch.as_tensor(d, dtype=torch.float32,
+                                               device=device))
+
+
+class LanternRT(NamedTuple):
+    """(k, delta) as device tensors; shapes stay those of the static
+    ``LanternSpec.k`` table width."""
+
+    k: torch.Tensor         # int32 [], <= spec.k
+    delta: torch.Tensor     # f32 []
+
 
 def _neighbor_budget_index(cumsum_neighbors: torch.Tensor, px: torch.Tensor,
-                           delta: float) -> torch.Tensor:
+                           delta, k_eff=None) -> torch.Tensor:
     """Largest neighbor index whose cumulative prob stays within the TVD
-    budget (delta, or (delta-1)*p(x) when delta > 1); -1 if none."""
-    if delta > 1.0:
-        ok = cumsum_neighbors <= (delta - 1.0) * px[..., None]
+    budget (delta, or (delta-1)*p(x) when delta > 1); -1 if none.
+    ``delta`` is a Python float or a device scalar; ``k_eff`` (a device
+    scalar) masks neighbors past the effective table width."""
+    if isinstance(delta, (int, float)):
+        if delta > 1.0:
+            ok = cumsum_neighbors <= (delta - 1.0) * px[..., None]
+        else:
+            ok = cumsum_neighbors <= delta
     else:
-        ok = cumsum_neighbors <= delta
+        d = delta.to(torch.float32)
+        ok = torch.where(d > 1.0,
+                         cumsum_neighbors <= (d - 1.0) * px[..., None],
+                         cumsum_neighbors <= d)
     idx = torch.arange(cumsum_neighbors.shape[-1],
-                       device=cumsum_neighbors.device).expand_as(ok)
+                       device=cumsum_neighbors.device)
+    if k_eff is not None:
+        ok = ok & (idx < k_eff)
+    idx = idx.expand_as(ok)
     return torch.where(ok, idx, torch.full_like(idx, -1)).amax(dim=-1)
 
 
+def _budget(cum, px, lantern: LanternSpec, rt: Optional[LanternRT]):
+    if rt is None:
+        return _neighbor_budget_index(cum, px, lantern.delta)
+    return _neighbor_budget_index(cum, px, rt.delta, k_eff=rt.k)
+
+
 def relaxed_prob(probs: torch.Tensor, token: torch.Tensor,
-                 nearest: torch.Tensor, lantern: LanternSpec):
+                 nearest: torch.Tensor, lantern: LanternSpec,
+                 rt: Optional[LanternRT] = None):
     """LANTERN-inflated acceptance probability of ``token`` under ``probs``
-    [..., V]; returns ``(p_relaxed, budget_idx)``."""
+    [..., V]; returns ``(p_relaxed, budget_idx)``.  ``rt`` narrows the
+    budget to ``rt.k`` neighbors and ``rt.delta``."""
     token = token.long()
     px = torch.gather(probs, -1, token[..., None])[..., 0]
     neigh = nearest[token][..., : lantern.k].long()
     np_ = torch.gather(probs, -1, neigh)
     cum = torch.cumsum(np_, dim=-1)
-    j = _neighbor_budget_index(cum, px, lantern.delta)
+    j = _budget(cum, px, lantern, rt)
     gain = torch.gather(cum, -1, torch.clamp(j, min=0)[..., None])[..., 0]
     return torch.where(j >= 0, px + gain, px), j
 
 
 def greedy_verify(path_logits: torch.Tensor, candidates: torch.Tensor,
                   nearest: Optional[torch.Tensor] = None,
-                  lantern: LanternSpec = LanternSpec()):
+                  lantern: LanternSpec = LanternSpec(),
+                  rt: Optional[LanternRT] = None):
     """Strict (or LANTERN-relaxed) greedy tree verification over the
     [P, D, V] path logits.  Returns ``(best_path, accept_len,
     bonus_logits)``."""
@@ -77,7 +119,7 @@ def greedy_verify(path_logits: torch.Tensor, candidates: torch.Tensor,
         if nearest is None:
             raise ValueError("lantern acceptance requires a nearest-latent table")
         probs = torch.softmax(path_logits[:, :-1], dim=-1)
-        px_rel, _ = relaxed_prob(probs, xi_safe, nearest, lantern)
+        px_rel, _ = relaxed_prob(probs, xi_safe, nearest, lantern, rt)
         onehot = torch.nn.functional.one_hot(xi_safe, V).bool()
         probs = torch.where(onehot, px_rel[..., None], probs)
         top = torch.argmax(probs, dim=-1)
@@ -92,13 +134,181 @@ def greedy_verify(path_logits: torch.Tensor, candidates: torch.Tensor,
     return best.to(torch.int32), accept_len.to(torch.int32), bonus_logits
 
 
-def _lantern_zero_mask(nearest, x, jstar, lantern: LanternSpec, V: int):
+def _lantern_zero_mask(nearest, x, jstar, lantern: LanternSpec,
+                       rt: Optional[LanternRT], V: int):
     """[V] bool mask of the drafted token's aggregated neighbors to zero on
     rejection (the reference zeroes ``k + 1`` slots while aggregating over
-    ``k`` — kept as the reference has it)."""
+    ``k`` — kept as the reference has it); ``rt`` keeps the first
+    ``rt.k + 1`` of them."""
     neigh1 = take1(nearest, x)[: lantern.k + 1].long()
     mask = torch.zeros((V,), dtype=torch.bool, device=nearest.device)
-    return mask.index_fill(0, neigh1, True) & (jstar >= 0)
+    if rt is None:
+        return mask.index_fill(0, neigh1, True) & (jstar >= 0)
+    in_k = torch.arange(lantern.k + 1, device=nearest.device) <= rt.k
+    return mask.index_put((neigh1,), in_k & (jstar >= 0))
+
+
+def _dedup_mask(tokens: torch.Tensor, eligible: torch.Tensor) -> torch.Tensor:
+    """dup[j] = some eligible j' < j carries the same token (the
+    reference's sequential ``candidates_set`` dedup, vectorized)."""
+    P = tokens.shape[0]
+    same = tokens[None, :] == tokens[:, None]                 # [j, j']
+    earlier = torch.tril(torch.ones((P, P), dtype=torch.bool,
+                                    device=tokens.device), -1)
+    return (same & earlier & eligible[None, :]).any(dim=1)
+
+
+class _LevelState(NamedTuple):
+    done: torch.Tensor          # bool: no acceptance happened at some level
+    accept_len: torch.Tensor    # accepted candidates incl. root (starts 1)
+    best: torch.Tensor          # path index
+    sample_dist: torch.Tensor   # [V] residual distribution (if adjusted)
+    adjusted: torch.Tensor      # bool: sample_dist holds a residual
+
+
+def stochastic_verify(
+    generator: Optional[torch.Generator],
+    path_logits: torch.Tensor,              # [P, D, V]
+    candidates: torch.Tensor,               # [P, D], -1 padded
+    warp: LogitsWarp,
+    nearest: Optional[torch.Tensor] = None,
+    lantern: LanternSpec = LanternSpec(),
+    q_probs: Optional[torch.Tensor] = None,        # [P, D]
+    level_probs: Optional[Sequence[torch.Tensor]] = None,
+    p_indices: Optional[torch.Tensor] = None,      # [P, D]
+    b_indices: Optional[torch.Tensor] = None,      # [P, D, S]
+    tree_tokens: Optional[torch.Tensor] = None,    # [N+1]
+    uniforms: Optional[torch.Tensor] = None,       # [D-1, P]
+    rt: Optional[LanternRT] = None,
+):
+    """Multi-round speculative rejection sampling over the path table.
+
+    EAGLE-2 (``q_probs=None``): the proposal q is 1, a token is accepted
+    with probability p(x).  EAGLE-1 multi-draft: q comes from the drafter's
+    residual probabilities; on rejection the drafter's distribution at the
+    parent node (``level_probs`` rows by ``p_indices``) minus its
+    already-drafted siblings (``b_indices`` slots into ``tree_tokens``) is
+    subtracted from p.  ``uniforms`` row ``i - 1`` pins level ``i``'s coins.
+    Returns ``(best_path, accept_len, sample_dist [V])``."""
+    P, D, V = path_logits.shape
+    dev = path_logits.device
+    multidraft = q_probs is not None
+    if lantern.enabled and nearest is None:
+        raise ValueError("lantern acceptance requires a nearest-latent table")
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    state = _LevelState(
+        done=false,
+        accept_len=torch.ones((), dtype=torch.long, device=dev),
+        best=torch.zeros((), dtype=torch.long, device=dev),
+        sample_dist=torch.zeros((V,), dtype=torch.float32, device=dev),
+        adjusted=false)
+    for i in range(1, D):
+        level_u = (uniforms[i - 1] if uniforms is not None
+                   else uniform(generator, (P,), dev))
+        state = _run_level(state, i, level_u, path_logits, candidates, warp,
+                           nearest, lantern, q_probs, level_probs, p_indices,
+                           b_indices, tree_tokens, multidraft, rt)
+    # the bonus distribution: the residual if the last processed level
+    # adjusted p and the walk ended early, else the warped base
+    # distribution at the last accepted position
+    full = state.accept_len == D
+    base_logits = take1(path_logits.flatten(0, 1),
+                        state.best * D + state.accept_len - 1)
+    base_dist = torch.softmax(warp_logits(base_logits, warp), dim=-1)
+    use_residual = state.adjusted & (~full)
+    sample_dist = torch.where(use_residual, state.sample_dist, base_dist)
+    return (state.best.to(torch.int32), (state.accept_len - 1).to(torch.int32),
+            sample_dist)
+
+
+def _run_level(state: _LevelState, i: int, uniforms: torch.Tensor,
+               path_logits, candidates, warp, nearest, lantern, q_probs,
+               level_probs, p_indices, b_indices, tree_tokens,
+               multidraft: bool, rt: Optional[LanternRT] = None):
+    """One level of ``stochastic_verify``: the candidates at depth ``i`` of
+    the paths that share the accepted prefix, tried in path order (the
+    JAX ``fori_loop`` over P, unrolled over tensors)."""
+    P, D, V = path_logits.shape
+    dev = path_logits.device
+    candidates = candidates.long()
+    active = (~state.done) & (state.accept_len == i)
+    pos = torch.arange(D, device=dev)
+    prefix_region = pos[None, :] < state.accept_len
+    prefix_eq = torch.where(prefix_region,
+                            candidates == take1(candidates, state.best)[None],
+                            torch.ones_like(prefix_region))
+    is_eq = prefix_eq.all(dim=1)                               # [P]
+    fi = torch.argmax(is_eq.to(torch.int32))                   # first match
+    gtp = torch.softmax(warp_logits(take1(path_logits[:, i - 1], fi), warp),
+                        dim=-1)
+    tokens = candidates[:, i]
+    eligible = is_eq & (tokens >= 0)
+    tryable = eligible & ~_dedup_mask(tokens, eligible)
+
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    accepted, adjusted = false, false
+    best = torch.zeros((), dtype=torch.long, device=dev)
+    for j in range(P):
+        do_try = tryable[j] & (~accepted)
+        if multidraft:
+            do_try = do_try & (q_probs[j, i] > 0)
+        x = torch.clamp(tokens[j], min=0)
+        px = take1(gtp, x)
+        if lantern.enabled:
+            neigh = take1(nearest, x)[: lantern.k].long()
+            cum = torch.cumsum(gtp[neigh], dim=0)
+            jstar = _budget(cum[None, :], px[None], lantern, rt)[0]
+            px = torch.where(jstar >= 0,
+                             px + take1(cum, torch.clamp(jstar, min=0)), px)
+        qx = q_probs[j, i] if multidraft else 1.0
+        accept_now = do_try & (uniforms[j] <= px / qx)
+        reject_now = do_try & (~accept_now)
+
+        if multidraft:
+            # subtract the drafter's sibling-masked distribution at the
+            # parent node; indices clamp as a JAX gather does
+            lp = level_probs[i - 1]
+            q = take1(lp, torch.clamp(p_indices[j, i].long(), 0,
+                                      lp.shape[0] - 1))
+            sib_slots = b_indices[j, i].long()                  # [S]
+            sib_tok = torch.where(
+                sib_slots >= 0,
+                tree_tokens.long()[torch.clamp(sib_slots, min=0)],
+                torch.full_like(sib_slots, -1))
+            sib_mask = torch.zeros((V,), dtype=torch.bool, device=dev)
+            sib_mask = sib_mask.index_put(
+                (torch.clamp(sib_tok, min=0),), sib_tok >= 0,
+                accumulate=True)
+            has_sib = (sib_slots >= 0).any()
+            q = torch.where(sib_mask, torch.zeros_like(q), q)
+            q = torch.where(has_sib, q / torch.clamp(q.sum(), min=1e-30), q)
+            if lantern.enabled:
+                q = torch.where(
+                    _lantern_zero_mask(nearest, x, jstar, lantern, rt, V),
+                    torch.zeros_like(q), q)
+            new_gtp = torch.clamp(gtp - q, min=0.0)
+        else:
+            new_gtp = gtp.index_fill(0, x[None], 0.0)
+            if lantern.enabled:
+                new_gtp = torch.where(
+                    _lantern_zero_mask(nearest, x, jstar, lantern, rt, V),
+                    torch.zeros_like(new_gtp), new_gtp)
+        ssum = new_gtp.sum()
+        new_gtp = torch.where(ssum == 0, torch.ones_like(new_gtp), new_gtp)
+        new_gtp = new_gtp / torch.clamp(new_gtp.sum(), min=1e-30)
+
+        gtp = torch.where(reject_now, new_gtp, gtp)
+        accepted = accepted | accept_now
+        best = torch.where(accept_now, torch.full_like(best, j), best)
+        adjusted = adjusted | reject_now
+
+    acc = active & accepted
+    return _LevelState(
+        done=state.done | (active & ~accepted),
+        accept_len=torch.where(acc, state.accept_len + 1, state.accept_len),
+        best=torch.where(acc, best, state.best),
+        sample_dist=torch.where(active, gtp, state.sample_dist),
+        adjusted=torch.where(active, adjusted, state.adjusted))
 
 
 def stochastic_verify_tree(
@@ -114,12 +324,14 @@ def stochastic_verify_tree(
     level_probs: Optional[Sequence[torch.Tensor]] = None,
     node_level_row: Optional[torch.Tensor] = None,  # [N+1]
     uniforms: Optional[torch.Tensor] = None,     # [depth, C]
+    rt: Optional[LanternRT] = None,
     batch_warp: Optional[bool] = None,
 ):
-    """Multi-round rejection sampling as a direct tree walk.  Returns
-    ``(accepted_slots [depth+1], accept_len, sample_dist [V])``;
-    ``accepted_slots[0] == 0`` and entries past ``accept_len`` are
-    garbage."""
+    """Multi-round rejection sampling as a direct tree walk: the same
+    result as ``stochastic_verify`` over the tree's path table, in
+    O(depth x children) steps.  Returns ``(accepted_slots [depth+1],
+    accept_len, sample_dist [V])``; ``accepted_slots[0] == 0`` and entries
+    past ``accept_len`` are garbage."""
     N1, V = node_logits.shape
     C = children.shape[1]
     dev = node_logits.device
@@ -172,8 +384,7 @@ def stochastic_verify_tree(
             if lantern.enabled:
                 neigh = take1(nearest, x)[: lantern.k].long()
                 cum = torch.cumsum(gtp[neigh], dim=0)
-                jstar = _neighbor_budget_index(cum[None, :], px[None],
-                                               lantern.delta)[0]
+                jstar = _budget(cum[None, :], px[None], lantern, rt)[0]
                 px = torch.where(jstar >= 0,
                                  px + take1(cum, torch.clamp(jstar, min=0)),
                                  px)
@@ -198,14 +409,14 @@ def stochastic_verify_tree(
                     q = q / torch.clamp(q.sum(), min=1e-30)
                 if lantern.enabled:
                     q = torch.where(
-                        _lantern_zero_mask(nearest, x, jstar, lantern, V),
+                        _lantern_zero_mask(nearest, x, jstar, lantern, rt, V),
                         torch.zeros_like(q), q)
                 new_gtp = torch.clamp(gtp - q, min=0.0)
             else:
                 new_gtp = gtp.index_fill(0, x[None], 0.0)
                 if lantern.enabled:
                     new_gtp = torch.where(
-                        _lantern_zero_mask(nearest, x, jstar, lantern, V),
+                        _lantern_zero_mask(nearest, x, jstar, lantern, rt, V),
                         torch.zeros_like(new_gtp), new_gtp)
             ssum = new_gtp.sum()
             new_gtp = torch.where(ssum == 0, torch.ones_like(new_gtp),

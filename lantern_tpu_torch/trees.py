@@ -1,5 +1,5 @@
 """Draft-tree specifications and the host-side tree-buffer compiler
-(the port's own copy of ``lantern_tpu/trees.py``, without ``optimize_tree``).
+(the port's own copy of ``lantern_tpu/trees.py``, ``optimize_tree`` included).
 
 A *draft tree* is a prefix-closed set of paths; each path element is the rank of
 the chosen child among its parent's top-k drafter proposals.  Example:
@@ -363,6 +363,55 @@ def compile_tree(tree_paths: Sequence[Sequence[int]], topk: int = TOPK) -> TreeS
         levels=tuple(levels),
         num_internal=num_internal,
     )
+
+
+def optimize_tree(
+    rank_probs: Sequence[float],
+    num_nodes: int,
+    max_depth: int = 8,
+) -> List[Path]:
+    """The expected-accept-length-optimal static tree shape for a node
+    budget.
+
+    Model: the r-th ranked draft child of a correct node is itself correct
+    with probability ``rank_probs[r]`` (``engine.calibrate``), independently
+    across depth, so a node reached by ranks (r1..rd) adds its path
+    probability ``prod rank_probs[ri]`` to the expected accepted tokens.
+    The sum over a fixed budget is largest for the ``num_nodes``
+    most probable nodes, a set that is prefix-closed because a child's
+    probability never exceeds its parent's: best-first expansion is optimal.
+
+    ``rank_probs`` may also be a 2-D ``[depth][rank]`` matrix whose row d
+    holds the probabilities of depth-(d+1) nodes (a drafter whose proposals
+    decay with depth); depths beyond the matrix reuse its last row.
+
+    Returns a path list for ``compile_tree`` / ``get_tree``.
+    """
+    import heapq
+
+    probs = np.asarray(rank_probs, dtype=float)
+    if probs.ndim == 1:
+        probs = probs[None]                       # one row, reused per depth
+    if probs.size == 0 or num_nodes < 1:
+        raise ValueError("need at least one rank probability and one node")
+    if ((probs <= 0) | (probs > 1)).any():
+        raise ValueError(f"rank_probs must be in (0, 1], got {probs.tolist()}")
+    R = probs.shape[1]
+
+    def row(depth):                               # depth-(d+1) node probs
+        return probs[min(depth, probs.shape[0] - 1)]
+
+    # heap of (-path_prob, path), seeded with the depth-1 candidates
+    heap = [(-row(0)[r], (r,)) for r in range(R)]
+    heapq.heapify(heap)
+    chosen: List[Path] = []
+    while heap and len(chosen) < num_nodes:
+        neg_p, path = heapq.heappop(heap)
+        chosen.append(list(path))
+        if len(path) < max_depth:
+            for r in range(R):
+                heapq.heappush(heap, (neg_p * row(len(path))[r], path + (r,)))
+    return sort_paths(chosen)
 
 
 def _compile_fit(paths) -> TreeSpec:
