@@ -11,6 +11,8 @@ Run from the repository root on a machine with one NVIDIA H100:
                                            # counts, no result line
     python3 chip_smoke.py --tools-only     # the build and the tools phase
                                            # (10 below), no result line
+    python3 chip_smoke.py --train-only     # the build and the train phase
+                                           # (11 below), no result line
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -121,6 +123,15 @@ Phases (any failure exits non-zero and prints no result line):
    ``--model-type base --slots 2``; Lumina at 256 px), every PNG and
    statistics file checked.  ``--tools-only`` runs the build and this
    phase alone.
+11. train (``phase_train``, after the tools): no kernel runs in training
+   (the kernels refuse autograd); a tiny f32 drafter and finetune step card
+   vs CPU; at LlamaGen-XL's full width and depth ``generate_train_data``
+   (4 self-generated samples on 2 slots with derived K2 and K3 counts, and
+   the CLI over their codes in a subprocess), ``train_drafter`` on them
+   (the loss must fall), a finetune step of the whole base (save, restore
+   and resume equal) and the trained drafter serving static and dynamic
+   beside the passthrough drafter (derived launch counts, C printed).
+   ``--train-only`` runs the build and this phase alone.
 
 Each phase prints its seconds.  The line before the last two is
 ``{"kernels": [...]}`` (``launches`` are the rollback path's, the one Lumina
@@ -195,6 +206,14 @@ CALIB_NODES, CALIB_DEPTH = 25, 6
 RT_TOKENS = 64
 CLI_TOKENS = 64
 CLI_CAPTIONS = "a red fox in snow|an owl on a tree branch|a lighthouse at night"
+# the train phase: self-generated samples and their slots, the samples the
+# CLI recomputes from their codes, the drafter's epochs and learning rate,
+# the finetune's steps and learning rate, and the tokens the trained
+# drafter serves
+TRAIN_SAMPLES, TRAIN_SLOTS, TRAIN_CLI_SAMPLES = 4, 2, 2
+TRAIN_EPOCHS, TRAIN_LR = 30, 1e-3
+FT_STEPS, FT_LR = 4, 1e-4
+TRAIN_SERVE_TOKENS = 64
 
 
 def log(msg: str) -> None:
@@ -3133,6 +3152,514 @@ def phase_tools(torch, card: str, xl: dict, timer):
     return launches, rec
 
 
+def _tree_to(tree, dev):
+    """A copy on ``dev`` of a nested dict of tensors (a copy on the CPU
+    too: the train steps update their parameters in place)."""
+    return {k: (_tree_to(v, dev) if isinstance(v, dict)
+                else v.to(dev, copy=True)) for k, v in tree.items()}
+
+
+def _adam_close(got, want, lr_steps: float) -> tuple[float, float]:
+    """``(largest difference, share of elements beyond 1e-3 * lr_steps)``
+    of two parameter lists after ``lr_steps`` = lr x steps of Adam: a
+    gradient near 0 that differs between two runs can turn into a step of
+    about lr either way, so those few elements may differ by up to
+    2 x lr_steps."""
+    worst, n_off, n = 0.0, 0, 0
+    for a, b in zip(got, want):
+        d = (a.float() - b.float()).abs()
+        worst = max(worst, float(d.max()))
+        n_off += int((d > 1e-3 * lr_steps).sum())
+        n += d.numel()
+    return worst, n_off / n
+
+
+def train_card_vs_cpu(torch) -> str:
+    """Phase 11a: a tiny f32 LlamaGen (caption prefix, TF32 off, no kernel
+    involved): the drafter's ``loss_and_metrics`` and its gradients, three
+    drafter ``train_step`` s, ``forward_train`` and one finetune
+    ``train_step`` on the card against the CPU."""
+    import numpy as np
+
+    from lantern_tpu_torch import configs
+    from lantern_tpu_torch.models import drafter as drf
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.train import drafter_train as dt
+    from lantern_tpu_torch.train import finetune as ft
+    from lantern_tpu_torch.train.optim import flatten, unflatten
+
+    cfg = configs.tiny_config(cond_kind="caption", vocab_size=64,
+                              hidden_size=64, num_heads=4, block_size=16)
+    dcfg = configs.drafter_config(cfg)
+    gen = torch.Generator().manual_seed(0)
+    base = tfm.init_params(gen, cfg, device="cpu")
+    dparams = drf.init_drafter_params(gen, dcfg, base["embed"])
+    rng = np.random.default_rng(0)
+    B, T, H = 4, 24, cfg.hidden_size
+    hid = rng.normal(size=(B, T, H)).astype(np.float32)
+    av = np.ones((B, T), np.float32)
+    av[1, -5:] = 0
+    batch = {"tokens": rng.integers(0, 64, (B, T)).astype(np.int32),
+             "hidden": hid, "target": np.tanh(hid[:, ::-1].copy()),
+             "loss_mask": (rng.random((B, T)) > 0.2).astype(np.float32),
+             "attn_valid": av}
+    fbatch = {"tokens": rng.integers(0, 64, (B, 16)).astype(np.int32),
+              "cond": rng.normal(size=(B, cfg.cls_token_num,
+                                       cfg.caption_dim)).astype(np.float32),
+              "loss_mask": np.ones((B, 16), np.float32)}
+    tcfg = dt.TrainConfig(lr=5e-3, noise="none", warmup_steps=1,
+                          total_steps=3, head_chunk=7, rollout_depth=2)
+    fcfg = ft.FinetuneConfig(lr=5e-3, warmup_steps=1, total_steps=10)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        dp, bp = _tree_to(dparams, dev), _tree_to(base, dev)
+        rope = tfm.make_rope_tables(dcfg.model, dev)
+        bt = dt.to_device(batch, dev)
+        paths, leaves = dt.trainable(dp)
+        live = [x.detach().requires_grad_() for x in leaves]
+        loss, m = dt.loss_and_metrics(unflatten(dp, paths, live), dcfg, rope,
+                                      bp["lm_head"], bt, tcfg)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, live,
+                                                      allow_unused=True)
+                 if g is not None]
+        st = dt.init_train_state(dp, tcfg)
+        losses = []
+        for _ in range(3):
+            st, mt = dt.train_step(st, dcfg, tcfg, rope, bp["lm_head"], bt)
+            losses.append(float(mt.loss))
+        frope = tfm.make_rope_tables(cfg, dev)
+        fb = {k: torch.as_tensor(v, device=dev) for k, v in fbatch.items()}
+        emb = torch.cat([tfm.cond_embed(bp, cfg, fb["cond"]),
+                         tfm.token_embed(bp, fb["tokens"])], dim=1)
+        h = tfm.forward_train(bp, cfg, emb, torch.arange(emb.shape[1],
+                                                         device=dev), frope)
+        fst, fm = ft.train_step(ft.init_state(bp, fcfg), cfg, fcfg, frope, fb)
+        res[dev] = dict(loss=float(loss.detach()), top=m.top_acc.cpu(),
+                        grads=grads,
+                        losses=losses, dparams=[x.cpu() for x in
+                                                flatten(st.dparams)[1]],
+                        h=h.detach().cpu(), fm={k: float(v)
+                                                for k, v in fm.items()},
+                        params=[x.cpu() for x in flatten(fst.params)[1]])
+    c, g = res["cpu"], res["cuda"]
+    worst = {"loss": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+             "grads": max(float((a - b).abs().max()) / max(
+                 float(b.abs().max()), 1e-30)
+                 for a, b in zip(g["grads"], c["grads"])),
+             "losses": max(abs(a - b) / abs(b) for a, b in zip(
+                 g["losses"], c["losses"])),
+             "dparams": _adam_close(g["dparams"], c["dparams"], 5e-3 * 3),
+             "forward_train": float((g["h"] - c["h"]).abs().max()),
+             "finetune": max(abs(g["fm"][k] - c["fm"][k]) / abs(c["fm"][k])
+                             for k in ("loss", "grad_norm")),
+             "ft_params": _adam_close(g["params"], c["params"], 5e-3)}
+    # f32 on both sides: reduction orders differ, nothing else; parameters
+    # within 2 lr x steps, and all but 0.1 % of them within 1e-3 lr x steps
+    tol = {"loss": 1e-5, "grads": 1e-4, "losses": 1e-5,
+           "dparams": (2 * 5e-3 * 3, 1e-3), "forward_train": 1e-4,
+           "finetune": 1e-5, "ft_params": (2 * 5e-3, 1e-3)}
+    if not torch.equal(g["top"], c["top"]):
+        fail(f"train (a): top-k counts card {g['top']} vs CPU {c['top']}")
+    bad = {k: v for k, v in worst.items()
+           if not (v[0] <= tol[k][0] and v[1] <= tol[k][1]
+                   if isinstance(v, tuple) else v <= tol[k])}
+    if bad:
+        fail(f"train (a): card vs CPU beyond tolerance: {bad} (tolerances "
+             f"{tol})")
+    return (f"loss rel {worst['loss']:.1e}, grads {worst['grads']:.1e} of "
+            f"the largest, 3 drafter steps' losses {worst['losses']:.1e} rel "
+            f"and params {worst['dparams'][0]:.1e} (share beyond 1e-3 lr x "
+            f"steps {worst['dparams'][1]:.1e}), forward_train "
+            f"{worst['forward_train']:.1e}, finetune loss/grad_norm "
+            f"{worst['finetune']:.1e} rel and params "
+            f"{worst['ft_params'][0]:.1e} (share "
+            f"{worst['ft_params'][1]:.1e}); tolerances {tol}")
+
+
+def phase_train(torch, card: str, xl: dict):
+    """Phase 11, training on the card at LlamaGen-XL's full width and depth
+    (36 layers x 1280, 20 heads of 64, vocab 16384, a 120-row caption, 256
+    image tokens):
+    (a) ``train_card_vs_cpu``;
+    (b) ``generate_train_data`` in process through its ``run``:
+        ``TRAIN_SAMPLES`` self-generated samples on ``--slots 2``, random
+        bf16 weights (seed 0), ``RandomT5`` captions; its K2 and K3 launch
+        counts equal the derived ones (K1 and K4 never run: dense weights,
+        no tree), and every ``.npz`` holds 375 rows of 1280 with the loss
+        mask over the 256 image rows; then ``python -m lantern_tpu_torch
+        generate_train_data --codes-dir`` on the first two samples' codes
+        and captions, whose hiddens must equal the in-process ones;
+    (c) ``train_drafter`` in process on those samples (one drafter layer,
+        the frozen 1280 x 16384 head, ``--bs 2 --max-len 384 --data-noise
+        none``): the summed loss of the last epoch must be below the
+        first's; then the step's time and peak memory;
+    (d) a finetune ``train_step`` of the whole XL base (remat on, bf16
+        params, f32 first moment) on two samples' tokens with their caption
+        prefix, the caption's pad rows holding the params' ``uncond``
+        features (the norm of the gradient with them zero, the inference
+        layout, is printed beside): finite losses that fall on the repeated
+        batch, grad norm,
+        step time, tokens/s and peak memory; then save, restore and resume:
+        the restored step and parameters equal, the resumed step's loss the
+        live one's;
+    (e) the trained drafter (detached, fused and int8 like the lane's)
+        serving the lane's int8 base: static (drafter + deferred, the
+        calibrated tree) and dynamic (EAGLE-2 + rollback) ``spec.generate``
+        of ``TRAIN_SERVE_TOKENS`` tokens, beside the passthrough drafter on
+        the same caption and seed; launch counts equal the derived ones,
+        and the step compressions are recorded (no threshold: random
+        weights).
+    Returns the launch counts of (b) and (e)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from lantern_tpu_torch.engine import spec
+    from lantern_tpu_torch.entrypoints import generate_train_data as gtd
+    from lantern_tpu_torch.entrypoints import train_drafter as tdr
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops import _cuda
+    from lantern_tpu_torch.ops.quant import quantize_params
+    from lantern_tpu_torch.train import drafter_train as dt
+    from lantern_tpu_torch.train import finetune as ft
+    from lantern_tpu_torch.train.optim import flatten, global_norm, unflatten
+    from lantern_tpu_torch.utils.checkpoint import restore_pytree
+    from lantern_tpu_torch.utils.t5 import RandomT5, flip_for_left_padding
+
+    t = time.perf_counter()
+    log(f"train (a) [{card}] tiny f32 LlamaGen card vs CPU: "
+        f"{train_card_vs_cpu(torch)}; {time.perf_counter() - t:.1f} s")
+
+    cfg, dcfg = xl["cfg"], xl["dcfg"]
+    L, Tc, n_img, H = (cfg.num_layers, cfg.cls_token_num, cfg.block_size,
+                       cfg.hidden_size)
+    root = os.path.join("build", "train")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    captions = BATCH_CAPTIONS[:TRAIN_SAMPLES]
+
+    def parse(mod, argv):
+        ap = argparse.ArgumentParser()
+        mod.add_args(ap)
+        return ap.parse_args(argv)
+
+    # --- (b) generate_train_data ----------------------------------------------
+    args = parse(gtd, ["--random-weights", "--self-generate", "--prompts",
+                       "|".join(captions), "--num-samples",
+                       str(TRAIN_SAMPLES), "--slots", str(TRAIN_SLOTS),
+                       "--save-dir", data])
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    gtd.run(args, device="cuda")
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t
+    gen_launch = dict(_cuda.LAUNCHES)
+    # per lockstep call a prefill and one forward a token; then one teacher
+    # forward a sample; each forward K2 once a layer and K3 once
+    forwards = -(-TRAIN_SAMPLES // TRAIN_SLOTS) * (1 + n_img) + TRAIN_SAMPLES
+    want = {"int8_matmul": 0, "tree_attention": L * forwards,
+            "kv_write": forwards, "kv_gather": 0}
+    if gen_launch != want:
+        fail(f"generate_train_data launched {gen_launch}, derived {want}")
+    names = sorted(os.listdir(data))
+    if names != [f"sample_{i:06d}.npz" for i in range(TRAIN_SAMPLES)]:
+        fail(f"generate_train_data wrote {names}")
+    samples = [dt.load_sample(os.path.join(data, n)) for n in names]
+    rows = Tc + n_img - 1
+    for i, s in enumerate(samples):
+        lm = s["loss_mask"]
+        if (s["tokens"].shape != (rows,) or s["hidden"].shape != (rows, H)
+                or s["target"].shape != (rows, H)
+                or not np.isfinite(s["hidden"]).all()
+                or lm.sum() != n_img or lm[Tc - 1:].min() != 1.0
+                or not np.array_equal(s["target"][:-1], s["hidden"][1:])):
+            fail(f"sample {i}: tokens {s['tokens'].shape}, hidden "
+                 f"{s['hidden'].shape}, loss rows {lm.sum()}")
+    log(f"train (b) [{card}] generate_train_data, XL bf16 seed 0, "
+        f"{TRAIN_SAMPLES} self-generated samples on --slots {TRAIN_SLOTS} "
+        f"(top-2000, cfg 7.5), {n_img} tokens each: {t_gen:.1f} s; every "
+        f".npz {rows} rows of {H}, loss mask over the {n_img} image rows; "
+        f"launches {gen_launch} = the derived counts")
+
+    # the CLI on the first two samples' codes and captions
+    codes = os.path.join(root, "codes")
+    os.makedirs(codes)
+    t5 = RandomT5(cfg.caption_dim, Tc)
+    for i in range(TRAIN_CLI_SAMPLES):
+        emb, mask = t5.get_text_embeddings([captions[i]])
+        np.savez(os.path.join(codes, f"c{i}.npz"),
+                 codes=samples[i]["tokens"][Tc - 1:], caption_emb=emb[0],
+                 caption_mask=mask[0])
+    cli_out = os.path.join(root, "cli")
+    cmd = [sys.executable, "-m", "lantern_tpu_torch", "generate_train_data",
+           "--random-weights", "--codes-dir", codes, "--num-samples",
+           str(TRAIN_CLI_SAMPLES), "--save-dir", cli_out]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t
+    if r.returncode:
+        fail(f"generate_train_data CLI: exit {r.returncode}: "
+             f"{r.stderr[-3000:]}")
+    worst = 0.0
+    for i in range(TRAIN_CLI_SAMPLES):
+        got = dt.load_sample(os.path.join(cli_out, f"sample_{i:06d}.npz"))
+        if not (np.array_equal(got["tokens"], samples[i]["tokens"])
+                and np.array_equal(got["loss_mask"], samples[i]["loss_mask"])):
+            fail(f"generate_train_data CLI sample {i}: tokens or mask differ")
+        worst = max(worst, float(np.abs(got["hidden"]
+                                        - samples[i]["hidden"]).max()))
+    if worst > 1e-2:
+        fail(f"generate_train_data CLI: teacher hiddens off the in-process "
+             f"ones by {worst}")
+    log(f"train (b) [{card}] python -m lantern_tpu_torch generate_train_data "
+        f"--codes-dir (the first {TRAIN_CLI_SAMPLES} samples' codes and "
+        f"captions): {t_cli:.1f} s (process included); tokens and masks "
+        f"equal the in-process samples', hiddens within {worst:.1e}")
+
+    # --- (c) train_drafter ----------------------------------------------------
+    save = os.path.join(root, "drafter")
+    args = parse(tdr, ["--data-dir", data, "--save-dir", save, "--bs", "2",
+                       "--max-len", "384", "--data-noise", "none",
+                       "--num-epochs", str(TRAIN_EPOCHS), "--lr",
+                       str(TRAIN_LR), "--save-freq", str(TRAIN_EPOCHS)])
+    t = time.perf_counter()
+    tdr.run(args, device="cuda")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t
+    hist = json.load(open(os.path.join(save, "history.json")))
+    losses = [h["loss"] for h in hist]
+    if (len(hist) != TRAIN_EPOCHS or not np.isfinite(losses).all()
+            or not losses[-1] < losses[0]):
+        fail(f"train_drafter: epoch losses {losses}")
+
+    base = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, device="cuda")
+    rope = tfm.make_rope_tables(dcfg.model, "cuda")
+    from lantern_tpu_torch.models import drafter as drf
+    tcfg = dt.TrainConfig(lr=TRAIN_LR, noise="none")
+    state = dt.init_train_state(drf.init_drafter_params(
+        torch.Generator(device="cuda").manual_seed(1), dcfg, base["embed"]),
+        tcfg)
+    batch = dt.to_device(next(dt.batch_iterator(
+        [os.path.join(data, n) for n in names], 2, 384,
+        np.random.default_rng(0))), "cuda")
+    state, _ = dt.train_step(state, dcfg, tcfg, rope, base["lm_head"], batch)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        state, m = dt.train_step(state, dcfg, tcfg, rope, base["lm_head"],
+                                 batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    d_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    d_ms = statistics.median(times) * 1e3
+    log(f"train (c) [{card}] train_drafter, 1 drafter layer at XL width, "
+        f"frozen {H}x{cfg.vocab_size} head, --bs 2 --max-len 384 --data-noise none "
+        f"--lr {TRAIN_LR}, {TRAIN_EPOCHS} epochs of "
+        f"{int(TRAIN_SAMPLES * 0.95) // 2} step(s): {t_train:.1f} s (base "
+        f"init and saving included); epoch losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; train top-1 first / last epoch {hist[0]['top1']:.3f} / "
+        f"{hist[-1]['top1']:.3f}; step {d_ms:.2f} ms (median of 5, host "
+        f"clock, synchronized), {2 * 384 / d_ms * 1e3:.0f} rows/s; peak "
+        f"memory {d_peak:.2f} GiB ({resident:.2f} GiB resident: the bf16 "
+        f"base, the drafter and its optimizer state)")
+    profile("drafter train_step, XL width, [2, 384]",
+            lambda: dt.train_step(state, dcfg, tcfg, rope, base["lm_head"],
+                                  batch), card)
+    del state, batch
+
+    # --- (d) finetune of the whole XL base ----------------------------------------
+    fcfg = ft.FinetuneConfig(lr=FT_LR, warmup_steps=1, total_steps=100,
+                             remat=True)
+    frope = tfm.make_rope_tables(cfg, "cuda")
+    uncond = base["cond"]["uncond"].float().cpu().numpy()
+
+    def ft_batch(fill_pads: bool) -> dict:
+        """Two samples' image tokens after their left-padded captions; the
+        pad rows zero (the inference layout) or holding the params'
+        ``uncond`` features."""
+        conds = []
+        for c in captions[:2]:
+            emb, mask = flip_for_left_padding(*t5.get_text_embeddings([c]))
+            if fill_pads:
+                emb[0][mask[0] == 0] = uncond[mask[0] == 0]
+            conds.append(emb[0])
+        return {"tokens": torch.as_tensor(np.stack(
+                    [s["tokens"][Tc - 1:] for s in samples[:2]]),
+                    device="cuda"),
+                "cond": torch.as_tensor(np.stack(conds), device="cuda"),
+                "loss_mask": torch.ones((2, n_img), device="cuda")}
+
+    # token_loss takes every conditioning column as valid (as the JAX
+    # finetune does): zero pad rows stay exactly zero through all layers,
+    # where each RMSNorm scales the gradient reaching them by
+    # 1 / sqrt(eps), and 36 layers of that overflow
+    paths, leaves = flatten(base)
+    with torch.enable_grad():
+        live = [x.detach().requires_grad_() for x in leaves]
+        zloss, _ = ft.token_loss(unflatten(base, paths, live), cfg, frope,
+                                 ft_batch(False), fcfg)
+        zgrads = torch.autograd.grad(zloss, live, allow_unused=True)
+    z_norm = float(global_norm([g for g in zgrads if g is not None]))
+    del live, zgrads
+    fbatch = ft_batch(True)
+    fstate = ft.init_state(base, fcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    f_losses, f_norms, f_times = [], [], []
+    for _ in range(FT_STEPS):
+        t = time.perf_counter()
+        fstate, fm = ft.train_step(fstate, cfg, fcfg, frope, fbatch)
+        torch.cuda.synchronize()
+        f_times.append(time.perf_counter() - t)
+        f_losses.append(float(fm["loss"]))
+        f_norms.append(float(fm["grad_norm"]))
+    f_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the first step runs at lr 0 (warmup from 0); the later ones must fall
+    if not (np.isfinite(f_losses).all() and np.isfinite(f_norms).all()
+            and all(b < a for a, b in zip(f_losses[1:], f_losses[2:]))):
+        fail(f"finetune: losses {f_losses}, grad norms {f_norms}")
+    f_ms = statistics.median(f_times[1:]) * 1e3
+    n_tok = 2 * (Tc + n_img)
+    n_params = sum(x.numel() for x in flatten(fstate.params)[1])
+    ckdir = os.path.join(root, "finetune")
+    t = time.perf_counter()
+    path = ft.save_checkpoint(ckdir, fstate, keep_last=1)
+    t_save = time.perf_counter() - t
+    size = os.path.getsize(path) / 2 ** 30
+    t = time.perf_counter()
+    restored = ft.restore_checkpoint(ckdir, fstate)
+    t_restore = time.perf_counter() - t
+    same = (restored.step == fstate.step == FT_STEPS
+            and restored.opt_state.count == fstate.opt_state.count
+            and all(torch.equal(a, b) for a, b in zip(
+                flatten(restored.params)[1], flatten(fstate.params)[1]))
+            and all(torch.equal(a, b) for a, b in zip(
+                restored.opt_state.mu + restored.opt_state.nu,
+                fstate.opt_state.mu + fstate.opt_state.nu)))
+    if not same:
+        fail("finetune: the restored state differs from the saved one")
+    _, m_live = ft.train_step(fstate, cfg, fcfg, frope, fbatch)
+    _, m_back = ft.train_step(restored, cfg, fcfg, frope, fbatch)
+    l_live, l_back = float(m_live["loss"]), float(m_back["loss"])
+    if not abs(l_back - l_live) <= 1e-5 * abs(l_live):
+        fail(f"finetune resume: loss {l_back} after restore, {l_live} live")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def fwd_bwd(remat: bool) -> float:
+        """ms of one forward + backward of the finetune loss."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.enable_grad():
+            live = [x.detach().requires_grad_() for x in leaves]
+            loss, _ = ft.token_loss(
+                unflatten(base, paths, live), cfg, frope, fbatch,
+                dataclasses.replace(fcfg, remat=remat))
+            torch.autograd.grad(loss, live, allow_unused=True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    fb = {True: [], False: []}
+    for remat in (True, False, False, True, True, False):
+        fb[remat].append(fwd_bwd(remat))
+    fb = {k: statistics.median(v) for k, v in fb.items()}
+    profile(f"finetune train_step, XL base, 2 x {Tc + n_img} rows, remat",
+            lambda: ft.train_step(fstate, cfg, fcfg, frope, fbatch), card)
+    log(f"train (d) [{card}] finetune of the whole XL base ({n_params / 1e6:.1f}"
+        f"M bf16 params, {L} layers, remat on, f32 first moment), batch 2 x "
+        f"({Tc} caption + {n_img} image) rows, the caption's pad rows "
+        f"holding the params' uncond features (left zero, as inference lays "
+        f"them out, the first gradient's norm is {z_norm}), lr {FT_LR}: "
+        f"losses "
+        + ", ".join(f"{x:.4f}" for x in f_losses)
+        + ", grad norms " + ", ".join(f"{x:.3f}" for x in f_norms)
+        + f"; step {f_ms:.1f} ms (median of steps 2-{FT_STEPS}, host clock, "
+        f"synchronized), {n_tok / f_ms * 1e3:.0f} training tokens/s ({n_tok} "
+        f"rows a step); peak memory {f_peak:.2f} GiB; checkpoint "
+        f"{size:.2f} GiB saved in {t_save:.1f} s, restored in "
+        f"{t_restore:.1f} s: step {restored.step} and every tensor equal; "
+        f"the resumed step's loss {l_back:.7f}, the live one's {l_live:.7f}; "
+        f"forward + backward {fb[True]:.1f} ms with remat, {fb[False]:.1f} "
+        f"ms without (medians of 3, alternating)")
+    del fstate, restored, base, fbatch
+    torch.cuda.empty_cache()
+
+    # --- (e) the trained drafter serving ---------------------------------------------
+    from lantern_tpu_torch import trees
+    from lantern_tpu_torch.ops.acceptance import LanternSpec
+    from lantern_tpu_torch.ops.sampling import LogitsWarp
+
+    trained = restore_pytree(os.path.join(save, f"state_{TRAIN_EPOCHS}"),
+                             device="cuda")["dparams"]
+    trained["embed"] = xl["params"]["embed"]     # the same seed-0 embedding
+    trained = quantize_params(tfm.fuse_params(trained))
+    for x in flatten(trained)[1]:
+        x.requires_grad_(False)
+    params = xl["params"]
+    cond, uncond, pv = xl["caption"](XL_CAPTION)
+    warp = LogitsWarp(temperature=1.0, top_k=2000, top_p=1.0)
+    tree = trees.get_tree(os.path.join("ckpts", "bench_tree_XL.json"))
+    static = spec.SpecDecodeConfig(
+        warp=warp, cfg_scale=3.0, lantern=LanternSpec(k=10, delta=5.0),
+        max_new=TRAIN_SERVE_TOKENS, walk_batch_warp=True,
+        deferred_commit=True)
+    dynamic = dataclasses.replace(static, mode="dynamic", kv_quant=True,
+                                  deferred_commit=False)
+    launches, rec = {}, {}
+    for dname, dp in (("trained", trained), ("passthrough", xl["dparams"])):
+        for mode, ecfg in (("static", static), ("dynamic", dynamic)):
+            g = torch.Generator(device="cuda").manual_seed(8)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t = time.perf_counter()
+            res = spec.generate(params, ecfg, cfg, tree, None, g,
+                                dparams=dp, dcfg=dcfg, cond=cond,
+                                uncond=uncond, prefix_valid=pv,
+                                device="cuda")
+            torch.cuda.synchronize()
+            dt_s = time.perf_counter() - t
+            got = dict(_cuda.LAUNCHES)
+            if mode == "static":
+                want, _ = spec_launches(
+                    L, Tc, res.steps, tree.num_nodes, tree.path_len,
+                    [len(lv.child_flat_idx) for lv in tree.levels],
+                    deferred=True)
+            else:
+                want, _ = spec_launches(
+                    L, Tc, res.steps, dcfg.total_tokens, dcfg.depth + 2,
+                    [dcfg.top_k] * dcfg.depth, deferred=False)
+            toks = res.tokens[:TRAIN_SERVE_TOKENS]
+            if (got != want or res.n_valid != TRAIN_SERVE_TOKENS
+                    or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+                    or res.step_compression < 1.0):
+                fail(f"train (e) {dname} {mode}: launches {got} (derived "
+                     f"{want}), {res.n_valid} tokens, C {res.step_compression}")
+            rec[(dname, mode)] = (res.step_compression, res.steps,
+                                  TRAIN_SERVE_TOKENS / dt_s)
+            if dname == "trained":
+                launches[f"train_serve_{mode}"] = got
+    for mode in ("static", "dynamic"):
+        (ct_, st_, rt_), (cp, sp, rp) = (rec[("trained", mode)],
+                                         rec[("passthrough", mode)])
+        log(f"train (e) [{card}] XL {mode} "
+            + ("(drafter + deferred, the calibrated tree, bf16 KV)"
+               if mode == "static" else
+               f"(EAGLE-2 {dcfg.total_tokens}/{dcfg.depth}/{dcfg.top_k} + "
+               f"rollback, int8 KV)")
+            + f", int8 base, {TRAIN_SERVE_TOKENS} tokens, seed 8: trained "
+            f"drafter C {ct_:.3f} ({st_} steps, {rt_:.2f} tok/s) vs the "
+            f"passthrough drafter C {cp:.3f} ({sp} steps, {rp:.2f} tok/s); "
+            f"launches = the derived counts")
+    launches["train_data"] = gen_launch
+    return launches
+
+
 def tree_map(fn, tree):
     """``fn`` over the tensors of a nested dict / list tree."""
     if isinstance(tree, dict):
@@ -3211,6 +3738,9 @@ def main() -> int:
     ap.add_argument("--tools-only", action="store_true",
                     help="after the build, run only the tools phase "
                          "(prints no result line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="after the build, run only the train phase "
+                         "(prints no result line)")
     args = ap.parse_args()
 
     import torch
@@ -3259,6 +3789,11 @@ def main() -> int:
               timed("build_xl", build_xl, torch), timer)
         log("tools-only run: build and tools phases passed")
         return 0
+    if args.train_only:
+        timed("train", phase_train, torch, tag,
+              timed("build_xl", build_xl, torch))
+        log("train-only run: build and train phases passed")
+        return 0
     records = timed("kernels", phase_kernels, torch, timer, tag, args.grid)
     timed("forward", phase_forward, torch)
     timed("forward_llamagen", phase_forward_llamagen, torch)
@@ -3274,6 +3809,7 @@ def main() -> int:
     launches.update(session_launches)
     tools_launches, tools = timed("tools", phase_tools, torch, tag, xl, timer)
     launches.update(tools_launches)
+    launches.update(timed("train", phase_train, torch, tag, xl))
     del xl
     launches.update(timed("ragged_lumina", phase_ragged, torch, tag))
 

@@ -41,6 +41,7 @@ class ARResult(NamedTuple):
     n_valid: int = -1
 
 
+@torch.no_grad()
 def generate(
     params: dict,
     cfg: ModelConfig,
@@ -91,6 +92,7 @@ def generate(
     return ARResult(tokens=out, kv=kv)
 
 
+@torch.no_grad()
 def generate_tokens(
     params: dict,
     cfg: ModelConfig,
@@ -168,6 +170,7 @@ def _sample_rows(generators, logits: torch.Tensor, warp: LogitsWarp):
                       for r, g in enumerate(generators)])
 
 
+@torch.no_grad()
 def generate_many(
     params: dict,
     cfg: ModelConfig,
@@ -223,6 +226,7 @@ def generate_many(
     return out
 
 
+@torch.no_grad()
 def generate_tokens_many(
     params: dict,
     cfg: ModelConfig,

@@ -170,6 +170,7 @@ class BatchedEngine:
         self._rope = tfm.make_rope_tables(self.cfg, self.device)
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def prefill(self, cond=None, uncond=None,
                 generator: Optional[torch.Generator] = None,
                 token_prompt=None, prefix_valid=None):
@@ -207,6 +208,7 @@ class BatchedEngine:
             states=[_clone_state(state) for _ in range(R)],
             ctxs=[idle_ctx() for _ in range(R)])
 
+    @torch.no_grad()
     def insert(self, batch: Batch, slot: int, request) -> Batch:
         """Write a prefilled request into slot ``slot``: its cache rows into
         batch rows ``2 * slot`` and ``2 * slot + 1`` (``index_copy_``), its
@@ -222,6 +224,7 @@ class BatchedEngine:
         batch.ctxs[slot] = ctx
         return batch
 
+    @torch.no_grad()
     def step(self, batch: Batch) -> Batch:
         """One speculative step of every slot (finished slots stay frozen);
         updates ``batch`` in place and returns it."""
@@ -270,6 +273,7 @@ class BatchedEngine:
         batch.base_kv = kv
         return batch
 
+    @torch.no_grad()
     def step_many(self, batch: Batch, n: int) -> Batch:
         """``n`` steps with no host readback between them."""
         for _ in range(n):

@@ -34,6 +34,7 @@ from collections import deque
 from typing import Any, List, Optional
 
 import numpy as np
+import torch
 
 from .batch import BatchedEngine
 from .spec import request_generator
@@ -72,6 +73,7 @@ class Scheduler:
         self.engine = engine
         self.use_native = use_native
 
+    @torch.no_grad()
     def run(self, requests: List[Request],
             progress: bool = False) -> List[Request]:
         self._t_run0 = time.perf_counter()

@@ -216,6 +216,7 @@ class LlamaGenSession:
         pv[:, : cfg.cls_token_num] = torch.as_tensor(mask, device=dev).bool()
         return cond, uncond, pv
 
+    @torch.no_grad()
     def generate(self, prompt, max_new: Optional[int] = None,
                  temperature: float = 1.0, top_k: int = 2000,
                  top_p: float = 1.0, drafter_top_k: Optional[int] = None,
@@ -259,6 +260,7 @@ class LlamaGenSession:
         return toks, GenStats(res.step_compression, dt, int(res.steps),
                               max_new)
 
+    @torch.no_grad()
     def generate_batch(self, prompts, slots: int = 8,
                        max_new: Optional[int] = None,
                        temperature: float = 1.0, top_k: int = 2000,
@@ -509,6 +511,7 @@ class ChameleonSession:
                                   vocab_size=self.cfg.vocab_size,
                                   **(self.fsm_overrides or {}))
 
+    @torch.no_grad()
     def generate(self, text_tokens, max_new: Optional[int] = None,
                  temperature: float = 1.0, top_k: int = 2000,
                  top_p: float = 1.0, drafter_top_k: Optional[int] = None,
@@ -567,6 +570,7 @@ class ChameleonSession:
         dt = time.perf_counter() - t0
         return toks, GenStats(res.step_compression, dt, int(res.steps), n_out)
 
+    @torch.no_grad()
     def generate_batch(self, prompts, slots: int = 8,
                        max_new: Optional[int] = None,
                        temperature: float = 1.0, top_k: int = 2000,

@@ -640,6 +640,7 @@ def request_generator(seed: int, device=None) -> torch.Generator:
     return torch.Generator(device=resolve_device(device)).manual_seed(seed)
 
 
+@torch.no_grad()
 def generate(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
              spec: Optional[TreeSpec],
              token_prompt: Optional[TokenPrompt] = None,

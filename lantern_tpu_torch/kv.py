@@ -130,6 +130,8 @@ def write_block_cuda(k_buf, v_buf, k_scale, v_scale, k_new, v_new, start):
     loads are all issued first, over a grid of one wave; the quotients go
     through the division sequence K2 shares, so the bytes equal
     ``quantize_rows``'.  ``start`` stays on the device."""
+    _cuda.no_autograd("kv_write", k_buf, v_buf, k_scale, v_scale, k_new,
+                      v_new)
     L, B, G, S, W = k_buf.shape
     T = k_new.shape[2]
     quantized = k_scale is not None
@@ -238,6 +240,7 @@ def gather_write_block_cuda(k_buf, v_buf, k_scale, v_scale, rel, start,
     exactly as the plain version does, so a ``start`` outside the contract
     (``start + blk <= S``) moves rows of the last window and never touches
     memory outside the planes."""
+    _cuda.no_autograd("kv_gather", k_buf, v_buf, k_scale, v_scale)
     L, B, G, S, W = k_buf.shape
     quantized = k_scale is not None
     row_bytes = W * k_buf.element_size()

@@ -15,6 +15,12 @@ counterparts, each reached through a device-dispatching op:
 the layer loop ``KVCache.write`` (K3, one launch for all layers).  The
 EAGLE drafter runs the same ``forward`` with its own config (pre-norm, no
 final norm) and a bf16 cache.
+
+Training goes through ``forward_train`` (``train_layer_block`` over the
+layer stack): cache-free, dense and differentiable, the JAX package's
+einsum + softmax math with plain matmuls and no kernel, each layer
+recomputed in the backward under ``torch.utils.checkpoint`` when ``remat``
+is set (``jax.checkpoint`` in the reference).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig
 from ..device import resolve_device
@@ -317,3 +324,132 @@ def forward(
     if cfg.final_norm:
         h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
     return ForwardResult(hidden=h, kv=kv, block=block)
+
+
+def train_mask(T: int, attn_valid: Optional[torch.Tensor],
+               device=None) -> torch.Tensor:
+    """Additive f32 ``[B or 1, 1, T, T]`` causal (+padding) mask for
+    training: key ``u`` of row ``b`` is visible to row ``t`` iff ``u <= t``
+    and ``attn_valid[b, u]``."""
+    dev = attn_valid.device if attn_valid is not None else device
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
+    if attn_valid is not None:
+        causal = causal & attn_valid[:, None, :].bool()
+    return torch.where(causal, 0.0, NEG_INF).float()[:, None]
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in ``x``'s dtype: f32 activations against bf16 weights
+    promote the weights, as JAX's type promotion does (the drafter trains on
+    f32 teacher hiddens); the weight's gradient comes back in its dtype."""
+    return x @ w.to(x.dtype)
+
+
+def _train_layer(cfg: ModelConfig, idx: int, positions, rope, mask,
+                 h: torch.Tensor, w: dict) -> torch.Tensor:
+    B, T, _ = h.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cos, sin = rope
+    apply_rope = (apply_rope_interleaved if cfg.rope_pairing == "interleaved"
+                  else apply_rope_half)
+    if cfg.swin_norm:
+        x = h
+    elif cfg.first_layer_no_input_norm and idx == 0:
+        x = h
+    else:
+        x = rms_norm(h, w["attn_norm"], cfg.rms_norm_eps)
+    if "wqkv" in w:
+        y = dense_matmul(x, w["wqkv"])
+        q = y[..., : nh * hd].reshape(B, T, nh, hd)
+        k = y[..., nh * hd: (nh + nkv) * hd].reshape(B, T, nkv, hd)
+        v = y[..., (nh + nkv) * hd:].reshape(B, T, nkv, hd)
+    else:
+        q = dense_matmul(x, w["wq"]).reshape(B, T, nh, hd)
+        k = dense_matmul(x, w["wk"]).reshape(B, T, nkv, hd)
+        v = dense_matmul(x, w["wv"]).reshape(B, T, nkv, hd)
+    if cfg.qk_norm:
+        q = head_layer_norm(q, w["q_norm_w"], w["q_norm_b"], cfg.norm_eps)
+        k = head_layer_norm(k, w["k_norm_w"], w["k_norm_b"], cfg.norm_eps)
+    q = apply_rope(q, cos, sin, positions)
+    k = apply_rope(k, cos, sin, positions)
+    # scores and values in f32, as the reference's preferred_element_type
+    s = torch.einsum("btnh,bunh->bntu", q.float(), k.float()) * (hd ** -0.5)
+    p = torch.softmax(s + mask, dim=-1)
+    o = torch.einsum("bntu,bunh->btnh", p, v.float())
+    attn_out = dense_matmul(o.to(h.dtype).reshape(B, T, nh * hd),
+                            w["wo"])
+    if cfg.swin_norm:
+        h1 = h + rms_norm(attn_out, w["attn_norm"], cfg.rms_norm_eps)
+        mlp_in = h1
+    else:
+        h1 = h + attn_out
+        mlp_in = rms_norm(h1, w["ffn_norm"], cfg.rms_norm_eps)
+    if "w_gu" in w:
+        gu = dense_matmul(mlp_in, w["w_gu"])
+        inter = gu.shape[-1] // 2
+        mlp = dense_matmul(F.silu(gu[..., :inter]) * gu[..., inter:],
+                           w["w_down"])
+    else:
+        mlp = dense_matmul(F.silu(dense_matmul(mlp_in, w["w_gate"]))
+                           * dense_matmul(mlp_in, w["w_up"]), w["w_down"])
+    if cfg.swin_norm:
+        mlp = rms_norm(mlp, w["ffn_norm"], cfg.rms_norm_eps)
+    return h1 + mlp
+
+
+def train_layer_block(
+    layers: dict,                 # layer-stacked weights [Ls, ...]
+    cfg: ModelConfig,
+    x: torch.Tensor,              # [B, T, H]
+    positions: torch.Tensor,      # [B or 1, T] (already clamped)
+    rope,
+    mask: torch.Tensor,           # additive [B or 1, 1, T, T]
+    idx0: int = 0,                # global index of this block's first layer
+    remat: bool = True,
+) -> torch.Tensor:
+    """Run a (slice of the) layer stack over ``x``: the cache-free training
+    block of ``forward_train`` and of pipeline stages, which apply it to
+    consecutive layer slices with their global ``idx0`` (layer 0 of a
+    drafter skips the input norm).  Takes the split and the fused layouts;
+    dense weights only.  ``remat`` recomputes each layer in the backward
+    (``checkpoint``, non-reentrant) instead of keeping its activations."""
+    _require_mha(cfg)
+    names = sorted(layers)
+    # one unbind a weight: its backward stacks the layers' gradients once
+    per_layer = list(zip(*(layers[n].unbind(0) for n in names)))
+    for i, ws in enumerate(per_layer):
+        def layer(h, *ws, idx=idx0 + i):
+            return _train_layer(cfg, idx, positions, rope, mask, h,
+                                dict(zip(names, ws)))
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, *ws, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(x, *ws)
+    return x
+
+
+def forward_train(
+    params: dict,
+    cfg: ModelConfig,
+    embeds: torch.Tensor,         # [B, T, H]
+    positions: torch.Tensor,      # [T] or [B, T]
+    rope,
+    attn_valid: Optional[torch.Tensor] = None,   # [B, T] padding mask
+    remat: bool = True,
+) -> torch.Tensor:
+    """Cache-free causal forward for training (full-model finetuning,
+    teacher-forced distillation): ``train_layer_block`` over every layer,
+    then the final norm.  ``remat`` recomputes each layer under grad to
+    trade operations for device memory."""
+    T = embeds.shape[1]
+    cos, _ = rope
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    positions = torch.clamp(positions.long(), 0, cos.shape[0] - 1)
+    mask = train_mask(T, attn_valid, device=embeds.device)
+    hidden = train_layer_block(params["layers"], cfg, embeds, positions, rope,
+                               mask, remat=remat)
+    if cfg.final_norm:
+        hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
+    return hidden

@@ -8,7 +8,9 @@ at the repository root, listed in ``.gitignore``; it rebuilds whenever a
 source or flag changes.  Nothing here runs at import time.
 
 A build or launch failure raises; there is no fallback to the plain
-PyTorch versions.  ``LAUNCHES`` counts kernel launches per kernel: each
+PyTorch versions.  The kernels have no backward: ``no_autograd`` makes
+each wrapper refuse an input that requires grad while grad mode is on,
+rather than return a result that autograd silently cuts off.  ``LAUNCHES`` counts kernel launches per kernel: each
 wrapper adds one where it launches, so a run can show which kernels its
 main path went through.
 """
@@ -94,6 +96,20 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if kinds == {"cuda"}:
         return True
     raise ValueError(f"lantern_tpu_torch: tensors on mixed devices {kinds}")
+
+
+def no_autograd(what: str, *tensors) -> None:
+    """Raise when grad mode is on and an input of the kernel ``what``
+    requires grad: the CUDA kernels return tensors without a ``grad_fn``,
+    so a backward through them would stop there unnoticed.  Inference runs
+    under ``torch.no_grad()``; training goes through the dense, cache-free
+    ``models.transformer.forward_train``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"lantern_tpu_torch: {what}: an input requires grad under grad "
+            f"mode, and the CUDA kernel has no backward; run it under "
+            f"torch.no_grad(), or train through forward_train")
 
 
 def require(cond: bool, msg: str) -> None:

@@ -88,6 +88,7 @@ def int8_matmul_launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                        nsplit: int, out_dtype=None) -> torch.Tensor:
     """``int8_matmul_cuda`` at a given split-K count, which
     ``int8_matmul_cuda`` takes from ``k1_splits``."""
+    _cuda.no_autograd("int8_matmul", x, q, s)
     out_dtype = out_dtype or x.dtype
     *lead, K = x.shape
     N = q.shape[-1]

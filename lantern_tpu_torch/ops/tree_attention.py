@@ -197,6 +197,8 @@ def tree_attention_launch(q, k_new, v_new, k_cache, v_cache, length,
     """``tree_attention_cuda`` at a given count of prefix splits (1 to
     ``K2_MAX_SPLIT``), which ``tree_attention_cuda`` takes from
     ``k2_splits``."""
+    _cuda.no_autograd("tree_attention", q, k_new, v_new, k_cache, v_cache,
+                      k_scale, v_scale)
     B, T, nh, hd = q.shape
     _, G, S, W = k_cache.shape
     quant = k_scale is not None

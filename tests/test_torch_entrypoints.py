@@ -15,8 +15,16 @@
   ``step_compression`` is the same, the json files have the same keys,
   the images are within one uint8 level, and no path imports PIL;
 - ``generate_codebook``: the ``.npy`` table equals JAX's;
+- ``generate_train_data``: the same flags; ``--codes-dir`` samples (with
+  and without a caption) within 1e-4 of JAX's, and greedy self-generation
+  alone and on ``--slots 2`` token-exact, its hiddens within 1e-4;
+- ``train_drafter``: the same flags; on JAX's samples, with both
+  packages' random base and drafter replaced by one set of weights,
+  ``history.json`` within 1e-4 relative at ``--data-noise none``, and
+  ``state_N`` written at the save epochs;
 - the launcher: ``python -m lantern_tpu_torch generate_codebook --device
-  cpu`` in a subprocess.
+  cpu`` in a subprocess; ``--help`` lists the ported tasks, the training
+  ones included, and not ``extract_code``.
 """
 
 import argparse
@@ -33,13 +41,18 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 import entrypoints_tpu.generate_codebook as jgc
 import entrypoints_tpu.generate_images as jgi
+import entrypoints_tpu.generate_train_data as jgt
+import entrypoints_tpu.train_drafter as jtd
 from lantern_tpu import configs as jc
 from lantern_tpu import trees as jt
 from lantern_tpu.engine import autotune as jat
 from lantern_tpu.engine import session as js
+from lantern_tpu.models import drafter as jdrf
+from lantern_tpu.models import transformer as jtfm
 from lantern_tpu.models import vqgan as jvq
 from lantern_tpu_torch import configs as tc
 from lantern_tpu_torch import convert
@@ -48,6 +61,10 @@ from lantern_tpu_torch.engine import autotune as tat
 from lantern_tpu_torch.engine import session as ts
 from lantern_tpu_torch.entrypoints import generate_codebook as tgc
 from lantern_tpu_torch.entrypoints import generate_images as tgi
+from lantern_tpu_torch.entrypoints import generate_train_data as tgt
+from lantern_tpu_torch.entrypoints import train_drafter as ttd
+from lantern_tpu_torch.models import drafter as tdrf
+from lantern_tpu_torch.models import transformer as ttfm
 from lantern_tpu_torch.models import vqgan as tvq
 from lantern_tpu_torch.models.item_processor import hash_tokenize
 from lantern_tpu_torch.utils.png import encode_png, write_png
@@ -118,7 +135,8 @@ def _parser(mod):
     return p
 
 
-@pytest.mark.parametrize("mods", [(jgi, tgi), (jgc, tgc)])
+@pytest.mark.parametrize("mods", [(jgi, tgi), (jgc, tgc), (jgt, tgt),
+                                  (jtd, ttd)])
 def test_flags_match_jax(mods):
     pj, pt = (_parser(m) for m in mods)
     spec = [(a.dest, a.default, a.type, tuple(a.choices or ()), a.nargs,
@@ -386,5 +404,123 @@ def test_launcher_generate_codebook(tmp_path):
                        cwd=str(tmp_path), env=env, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0
-    assert "generate_images" in r.stdout and "generate_codebook" in r.stdout
-    assert "train_drafter" not in r.stdout
+    for task in ("generate_images", "generate_codebook",
+                 "generate_train_data", "train_drafter"):
+        assert task in r.stdout, task
+    assert "extract_code" not in r.stdout
+
+
+# ------------------------------------------------------------ training CLI
+
+def _npz(path):
+    z = np.load(path)
+    return {k: z[k] for k in z.files}
+
+
+def _same_samples(dir_t, dir_j, n):
+    names = sorted(os.listdir(dir_j))
+    assert sorted(os.listdir(dir_t)) == names
+    assert names == [f"sample_{i:06d}.npz" for i in range(n)]
+    for name in names:
+        t, j = _npz(os.path.join(dir_t, name)), _npz(os.path.join(dir_j, name))
+        assert list(t) == list(j)
+        for k in ("tokens", "loss_mask"):
+            np.testing.assert_array_equal(t[k], j[k])
+            assert t[k].dtype == j[k].dtype
+        for k in ("hidden", "target"):
+            assert t[k].dtype == j[k].dtype == np.float32
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-4, atol=1e-4)
+
+
+def test_generate_train_data_codes_dir_matches_jax(tiny_cli, tmp_path):
+    """VQ codes with a caption (valid rows first, as an extractor writes
+    them) and without one."""
+    rng = np.random.default_rng(0)
+    codes = tmp_path / "codes"
+    codes.mkdir()
+    cfg = jc.tiny_config(cond_kind="caption", **LG_KW)
+    for i, n in enumerate((3, 8, None)):
+        z = {"codes": rng.integers(0, cfg.vocab_size, (4, 4)).astype(np.int32)}
+        if n is not None:
+            emb = np.zeros((cfg.cls_token_num, cfg.caption_dim), np.float32)
+            emb[:n] = rng.normal(size=(n, cfg.caption_dim)) * 0.5
+            mask = np.zeros((cfg.cls_token_num,), np.int64)
+            mask[:n] = 1
+            z.update(caption_emb=emb, caption_mask=mask)
+        np.savez(str(codes / f"c{i}.npz"), **z)
+    argv = ["--random-weights", "--codes-dir", str(codes)]
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jgt.run(_parser(jgt).parse_args(argv + ["--save-dir", out_j])) == 0
+    assert tgt.run(_parser(tgt).parse_args(argv + ["--save-dir", out_t]),
+                   device="cpu") == 0
+    _same_samples(out_t, out_j, 3)
+    s = _npz(os.path.join(out_t, "sample_000000.npz"))
+    T = cfg.cls_token_num + cfg.block_size - 1
+    assert s["hidden"].shape == (T, cfg.hidden_size)
+    assert s["loss_mask"].sum() == cfg.block_size
+
+
+@pytest.mark.parametrize("slots", ["1", "2"])
+def test_generate_train_data_self_generate_matches_jax(tiny_cli, tmp_path,
+                                                       slots):
+    argv = ["--random-weights", "--self-generate", "--prompts",
+            "a red fox|two owls", "--num-samples", "3", "--temperature", "0",
+            "--slots", slots]
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jgt.run(_parser(jgt).parse_args(argv + ["--save-dir", out_j])) == 0
+    assert tgt.run(_parser(tgt).parse_args(argv + ["--save-dir", out_t]),
+                   device="cpu") == 0
+    _same_samples(out_t, out_j, 3)
+
+
+@pytest.fixture()
+def one_drafter_init(monkeypatch):
+    """The port's random base and drafter inits replaced by JAX's, from the
+    same keys the JAX task uses, so both tasks train one set of weights."""
+    def base(generator, cfg, dtype=None, device=None):
+        seed = generator.initial_seed()
+        P = jtfm.init_params(jax.random.key(seed),
+                             jc.tiny_config(cond_kind="caption", **LG_KW))
+        return convert.convert_params(jax.tree.map(np.asarray, P),
+                                      device=device)
+
+    def drafter(generator, dcfg, embed):
+        cj = jc.tiny_config(cond_kind="caption", **LG_KW)
+        D = jdrf.init_drafter_params(
+            jax.random.key(generator.initial_seed()), jc.drafter_config(cj),
+            jnp.asarray(embed.numpy()))
+        return convert.convert_drafter_params(
+            jax.tree.map(np.asarray, D), device=embed.device, embed=embed)
+
+    monkeypatch.setattr(ttfm, "init_params", base)
+    monkeypatch.setattr(tdrf, "init_drafter_params", drafter)
+
+
+def test_train_drafter_history_matches_jax(tiny_cli, one_drafter_init,
+                                           tmp_path):
+    data = str(tmp_path / "data")
+    gen = ["--random-weights", "--self-generate", "--prompts",
+           "a red fox|two owls|an old train", "--num-samples", "5",
+           "--top-k", "8", "--save-dir", data]
+    assert jgt.run(_parser(jgt).parse_args(gen)) == 0
+    argv = ["--data-dir", data, "--bs", "2", "--num-epochs", "3",
+            "--max-len", "24", "--data-noise", "none", "--lr", "3e-3",
+            "--warmup-steps-ratio", "0.2", "--save-freq", "2", "--seed", "1"]
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jtd.run(_parser(jtd).parse_args(argv + ["--save-dir", out_j])) == 0
+    assert ttd.run(_parser(ttd).parse_args(argv + ["--save-dir", out_t]),
+                   device="cpu") == 0
+    hj = json.load(open(os.path.join(out_j, "history.json")))
+    ht = json.load(open(os.path.join(out_t, "history.json")))
+    assert [list(h) for h in ht] == [list(h) for h in hj]
+    assert [h["epoch"] for h in ht] == [0, 1, 2]
+    for a, b in zip(ht, hj):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+        assert a["top1"] == pytest.approx(b["top1"], rel=1e-4)
+    assert sorted(d for d in os.listdir(out_t) if d.startswith("state_")) == [
+        "state_2", "state_3"]
+    from lantern_tpu_torch.utils.checkpoint import restore_pytree
+
+    saved = restore_pytree(os.path.join(out_t, "state_3"), device="cpu")
+    assert saved["dparams"]["fc_w"].shape == (2 * LG_KW["hidden_size"],
+                                              LG_KW["hidden_size"])
