@@ -13,6 +13,8 @@ Run from the repository root on a machine with one NVIDIA H100:
                                            # (10 below), no result line
     python3 chip_smoke.py --train-only     # the build and the train phase
                                            # (11 below), no result line
+    python3 chip_smoke.py --evals-only     # the build and the evals phase
+                                           # (12 below), no result line
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -132,6 +134,17 @@ Phases (any failure exits non-zero and prints no result line):
    and resume equal) and the trained drafter serving static and dynamic
    beside the passthrough drafter (derived launch counts, C printed).
    ``--train-only`` runs the build and this phase alone.
+12. evals (``phase_evals``, after the train phase; no kernel runs): the
+   PNG reader and the resampler card vs CPU; ``python -m
+   lantern_tpu_torch extract_code`` on seeded PNGs with a random VQ-16 at
+   its published width (codes equal to a CPU encode on the clear
+   latents), its codes fed to ``generate_train_data --codes-dir``;
+   Inception-V3 pool3, VGG16 fc2, CLIP ViT-B/32 and OpenCLIP ViT-H/14 at
+   their published widths, card vs CPU, each with a known-wrong variant
+   that must miss, and their images/s at a batch of 64; FID and precision
+   / recall on 5,000 seeded features card vs numpy f64; the three eval
+   CLIs as subprocesses.  ``--evals-only`` runs the build and this phase
+   alone.
 
 Each phase prints its seconds.  The line before the last two is
 ``{"kernels": [...]}`` (``launches`` are the rollback path's, the one Lumina
@@ -214,6 +227,12 @@ TRAIN_SAMPLES, TRAIN_SLOTS, TRAIN_CLI_SAMPLES = 4, 2, 2
 TRAIN_EPOCHS, TRAIN_LR = 30, 1e-3
 FT_STEPS, FT_LR = 4, 1e-4
 TRAIN_SERVE_TOKENS = 64
+# the evals phase: seeded PNGs for extract_code and as reference images,
+# the batch of the backbones' rates, and the metrics' feature count (COCO
+# val2017's FID size)
+EVAL_PNGS = 8
+EVAL_BATCH = 64
+METRIC_N = 5000
 
 
 def log(msg: str) -> None:
@@ -3660,6 +3679,563 @@ def phase_train(torch, card: str, xl: dict):
     return launches
 
 
+def llamagen_vq_names(sd: dict, n_levels: int) -> dict:
+    """A taming-layout VQGAN state dict renamed to LlamaGen's ``vq_model``
+    module names (``conv_blocks``, numbered mids, decoder blocks coarse to
+    fine), the names ``extract_code --model llamagen`` loads."""
+    import re
+
+    mid = {"block_1": "0", "attn_1": "1", "block_2": "2"}
+    out = {}
+    for k, v in sd.items():
+        k2 = re.sub(r"encoder\.down\.(\d+)\.block\.",
+                    r"encoder.conv_blocks.\1.res.", k)
+        k2 = re.sub(r"encoder\.down\.(\d+)\.", r"encoder.conv_blocks.\1.", k2)
+        k2 = re.sub(r"\.mid\.(block_1|attn_1|block_2)\.",
+                    lambda m: f".mid.{mid[m.group(1)]}.", k2)
+        m = re.match(r"decoder\.up\.(\d+)\.(.*)", k2)
+        if m:
+            k2 = (f"decoder.conv_blocks.{n_levels - 1 - int(m.group(1))}."
+                  f"{m.group(2).replace('block.', 'res.', 1)}")
+        out[k2] = v
+    return out
+
+
+def np_fid(a, b) -> float:
+    """FID in numpy float64 on the host: the JAX package's formula, written
+    out here (no ``lantern_tpu`` import)."""
+    import numpy as np
+    from scipy import linalg
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    mu1, mu2 = a.mean(0), b.mean(0)
+    s1, s2 = np.cov(a, rowvar=False), np.cov(b, rowvar=False)
+    covmean = linalg.sqrtm(s1 @ s2)
+    if not np.isfinite(covmean).all():
+        off = np.eye(s1.shape[0]) * 1e-6
+        covmean = linalg.sqrtm((s1 + off) @ (s2 + off))
+    covmean = covmean.real
+    diff = mu1 - mu2
+    return float(diff @ diff + np.trace(s1) + np.trace(s2)
+                 - 2.0 * np.trace(covmean))
+
+
+def np_precision_recall(ref, fake, k: int, block: int = 2048):
+    """Improved precision / recall in numpy float64 on the host (k-NN
+    radii as the (k+1)-th order statistic of each row)."""
+    import numpy as np
+
+    ref, fake = np.asarray(ref, np.float64), np.asarray(fake, np.float64)
+
+    def dist(x, y):
+        y_sq = (y * y).sum(1)
+        out = np.empty((len(x), len(y)))
+        for i in range(0, len(x), block):
+            xb = x[i: i + block]
+            d2 = (xb * xb).sum(1)[:, None] + y_sq[None] - 2.0 * xb @ y.T
+            out[i: i + block] = np.sqrt(np.maximum(d2, 0.0))
+        return out
+
+    def radii(x):
+        return np.concatenate([np.partition(dist(x[i: i + block], x), k,
+                                            axis=1)[:, k]
+                               for i in range(0, len(x), block)])
+
+    def coverage(x, r, y):
+        hits = 0
+        for i in range(0, len(y), block):
+            hits += int((dist(x, y[i: i + block]) < r[:, None]).any(0).sum())
+        return hits / len(y)
+
+    rr, rf = radii(ref), radii(fake)
+    return coverage(ref, rr, fake), coverage(fake, rf, ref)
+
+
+def phase_evals(torch, card: str):
+    """Phase 12, ``extract_code`` and the eval harness on the card, outputs
+    under ``build/evals/`` (deleted at the end but for the score files):
+    (a) the PNG reader and the resampler: PNGs written by ``utils/png.py``
+        read back byte-exact on the card, each of the repository's
+        ``generated_images/**/prompt_*.png`` decodes to the same pixels on
+        the card and the CPU, ``resize`` at Lanczos, bicubic and bilinear
+        on uint8 byte-equal card against CPU, on float within 1e-4;
+    (b) ``python -m lantern_tpu_torch extract_code --model llamagen`` as a
+        subprocess on ``EVAL_PNGS`` seeded 256 px PNGs with a captions
+        json (``RandomT5``) and a random VQ-16 at its published width as
+        ``--vq-path``: 256 codes in range an image, equal to a CPU encode
+        wherever the CPU's best distance beats the second by more than
+        1e-4 relative (the share printed), the ``.npz`` files then fed to
+        ``generate_train_data --codes-dir``; images/s of the encode;
+    (c) each backbone at its published width with random weights from one
+        seed (Inception-V3 pool3, VGG16 fc2, CLIP ViT-B/32 and OpenCLIP
+        ViT-H/14, image and text): card within ``1e-4 * max|ref|`` of the
+        CPU on a few images; a known-wrong variant must miss (Mixed_7c
+        pooled by average; a ReLU after fc2; the other GELU); the error
+        with TF32 left on is printed; images/s at a batch of 64, f32;
+    (d) FID on 5,000 x 2,048 and precision / recall (k = 3) on 5,000 x
+        4,096 seeded features, on the card against numpy f64 on the host,
+        within 1e-9 relative, with the seconds of each;
+    (e) ``eval_fid_clip`` (``clip_b32``; ``fid_inception``),
+        ``eval_prec_recall`` (``vgg16_jax``) and ``eval_hpsv2`` (the
+        pinned ViT-H/14) as subprocesses on the card over the repository's
+        ``generated_images`` and seeded PNGs with the random ``.npz``
+        weights and a synthetic BPE merges file: each writes its score
+        file or prints its scores, all finite."""
+    import contextlib
+    import dataclasses
+    import glob
+    import shutil
+
+    import numpy as np
+
+    from lantern_tpu_torch.evals import clip as C
+    from lantern_tpu_torch.evals import metrics as M
+    from lantern_tpu_torch.evals.clip_bpe import ClipTokenizer
+    from lantern_tpu_torch.evals.inception import InceptionExtractor
+    from lantern_tpu_torch.evals.inception import random_state_dict as inc_sd
+    from lantern_tpu_torch.evals.vgg import VGGExtractor
+    from lantern_tpu_torch.evals.vgg import random_state_dict as vgg_sd
+    from lantern_tpu_torch.models import vqgan
+    from lantern_tpu_torch.utils import image as I
+    from lantern_tpu_torch.utils.checkpoint import load_torch_file
+    from lantern_tpu_torch.utils.png import write_png
+
+    dev = torch.device("cuda")
+    root = os.path.join("build", "evals")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(0)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def smooth(h, w):
+        base = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2, 3)).astype(float)
+        img = np.kron(base, np.ones((8, 8, 1)))[:h, :w] + rng.normal(
+            0, 12, (h, w, 3))
+        return np.clip(img, 0, 255).astype(np.uint8)
+
+    # ---- (a) reader and resampler
+    t = time.perf_counter()
+    written = os.path.join(root, "written")
+    os.makedirs(written)
+    for i, (h, w) in enumerate(((37, 53), (256, 256), (300, 211))):
+        a = smooth(h, w)
+        p = os.path.join(written, f"w{i}.png")
+        write_png(p, a)
+        for d in ("cpu", dev):
+            if not np.array_equal(I.read_image(p, device=d).cpu().numpy(), a):
+                fail(f"evals (a): {p} does not read back byte-exact on {d}")
+    repo_pngs = sorted(glob.glob("generated_images/**/prompt_*.png",
+                                 recursive=True))
+    if not repo_pngs:
+        fail("evals (a): no generated_images/**/prompt_*.png in the checkout")
+    dec = {"cpu": [], "card": []}
+    for p in repo_pngs:
+        got = {}
+        for key, d in (("cpu", "cpu"), ("card", dev)):
+            I.read_image(p, device=d)
+            sync()
+            t0 = time.perf_counter()
+            got[key] = I.read_image(p, device=d).cpu()
+            dec[key].append(time.perf_counter() - t0)
+        if not torch.equal(got["cpu"], got["card"]):
+            fail(f"evals (a): {p} decodes to other pixels on the card")
+    worst_f = 0.0
+    rs_ms = {}
+    batch = torch.from_numpy(np.stack([smooth(256, 256) for _ in range(8)]))
+    for (h, w), size in (((256, 256), (299, 299)), ((256, 256), (224, 224)),
+                         ((37, 53), (101, 77)), ((300, 211), (17, 255))):
+        x = batch[:, :h, :w] if h <= 256 else torch.from_numpy(
+            np.stack([smooth(h, w) for _ in range(2)]))
+        for filt in ("lanczos", "bicubic", "bilinear"):
+            ref = I.resize(x, size, filt)
+            xc = x.to(dev)
+            I.resize(xc, size, filt)
+            sync()
+            t0 = time.perf_counter()
+            got = I.resize(xc, size, filt)
+            sync()
+            rs_ms[(h, w, size, filt)] = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(got.cpu(), ref):
+                fail(f"evals (a): uint8 {filt} resize {(h, w)} -> {size} "
+                     f"differs card against CPU")
+            f = x.to(torch.float32)
+            worst_f = max(worst_f, float((I.resize(f.to(dev), size, filt)
+                                          .cpu() - I.resize(f, size, filt))
+                                         .abs().max()))
+    if worst_f > 1e-4:
+        fail(f"evals (a): float resize card against CPU off by {worst_f}")
+    log(f"evals (a) [{card}] PNG reader: 3 written PNGs byte-exact, "
+        f"{len(repo_pngs)} generated_images PNGs equal card vs CPU, decode "
+        f"{1e3 * statistics.median(dec['cpu']):.1f} ms (CPU) / "
+        f"{1e3 * statistics.median(dec['card']):.1f} ms (card) a 128 px "
+        f"image; resize uint8 byte-equal at 3 filters x 4 shapes, float "
+        f"within {worst_f:.1e}; 8 x 256^2 uint8 -> 299^2 bicubic "
+        f"{rs_ms[(256, 256, (299, 299), 'bicubic')]:.2f} ms, -> 224^2 "
+        f"bilinear {rs_ms[(256, 256, (224, 224), 'bilinear')]:.2f} ms on "
+        f"the card ({time.perf_counter() - t:.1f} s)")
+
+    # ---- seeded weights (setup, outside every timed window)
+    t = time.perf_counter()
+    vq_cfg = vqgan.vq16_config()
+    vq_path = os.path.join(root, "vq16.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in llamagen_vq_names(
+        vqgan.random_taming_state_dict(vq_cfg, 0), len(vq_cfg.ch_mult)
+    ).items()}, vq_path)
+    sds = {"inception": inc_sd(0), "vgg16": vgg_sd(0),
+           "clip_b32": C.random_state_dict(C.VIT_B32, 0),
+           "hps_v21": C.random_state_dict(C.VIT_H14, 0)}
+    weights = {}
+    for name, sd in sds.items():
+        weights[name] = os.path.join(root, f"{name}.npz")
+        np.savez(weights[name], **sd)
+    merges = os.path.join(root, "merges.txt")
+    pairs = [("h", "e"), ("l", "l"), ("he", "ll"), ("t", "h"),
+             ("th", "e</w>"), ("c", "a"), ("ca", "t</w>"), ("o", "x</w>")]
+    with open(merges, "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in pairs))
+    log(f"evals setup: seeded random weights at published widths (VQ-16, "
+        f"Inception-V3, VGG16, ViT-B/32, ViT-H/14) written under {root} in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    # ---- (b) extract_code
+    t = time.perf_counter()
+    imgs = os.path.join(root, "images")
+    os.makedirs(imgs)
+    captions = {}
+    for i in range(EVAL_PNGS):
+        h, w = (256, 256) if i % 2 else (280 + 8 * i, 280)
+        write_png(os.path.join(imgs, f"img_{i}.png"), smooth(h, w))
+        captions[f"img_{i}.png"] = BATCH_CAPTIONS[i]
+    caps = os.path.join(root, "captions.json")
+    with open(caps, "w") as f:
+        json.dump(captions, f)
+    codes_dir = os.path.join(root, "codes")
+    cmd = [sys.executable, "-m", "lantern_tpu_torch", "extract_code",
+           "--model", "llamagen", "--images-dir", imgs, "--captions-json",
+           caps, "--vq-path", vq_path, "--save-dir", codes_dir]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    if r.returncode:
+        fail(f"extract_code CLI: exit {r.returncode}: {r.stderr[-3000:]}")
+    vq_cpu = vqgan.load_torch_state_dict(load_torch_file(vq_path), vq_cfg,
+                                         device="cpu")
+    vq_card = vqgan.load_torch_state_dict(load_torch_file(vq_path), vq_cfg,
+                                          device=dev)
+    sure = agree = 0
+    for i in range(EVAL_PNGS):
+        z = np.load(os.path.join(codes_dir, f"img_{i}.npz"))
+        codes = z["codes"]
+        if (codes.dtype != np.int32 or codes.shape != (256,)
+                or codes.min() < 0 or codes.max() >= vq_cfg.codebook_size):
+            fail(f"extract_code: img_{i} codes {codes.dtype} {codes.shape} "
+                 f"[{codes.min()}, {codes.max()}]")
+        if (z["caption_emb"].shape != (120, 2048)
+                or z["caption_emb"].dtype != np.float32
+                or z["caption_mask"].dtype != np.int64):
+            fail(f"extract_code: img_{i} caption arrays "
+                 f"{z['caption_emb'].shape} {z['caption_mask'].dtype}")
+        x = (I.load_image(os.path.join(imgs, f"img_{i}.png"), 256)
+             .to(torch.float32) / 127.5 - 1.0).permute(2, 0, 1)[None]
+        # the CPU's distances: codes must agree where the best beats the
+        # second by more than 1e-4 relative
+        enc = vq_cpu["encoder"]
+        with torch.no_grad():
+            h = vqgan.conv2d(enc["conv_in"], x)
+            h = vqgan._tower(enc["blocks"], enc["mid"], h, up=False)
+            h = vqgan.conv2d(enc["conv_out"],
+                             vqgan.swish(vqgan.group_norm(enc["norm_out"], h)))
+            zf = vqgan.conv2d(vq_cpu["quant_conv"], h).permute(
+                0, 2, 3, 1).reshape(-1, vq_cfg.codebook_dim)
+            zf = zf / zf.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+            cb = vqgan._norm_codebook(vq_cpu, vq_cfg)
+            d2 = (zf * zf).sum(1, keepdim=True) + (cb * cb).sum(1)[None] \
+                - 2.0 * zf @ cb.T
+        two = d2.topk(2, dim=1, largest=False).values
+        clear = ((two[:, 1] - two[:, 0])
+                 > 1e-4 * two[:, 1].abs().clamp(min=1e-12)).numpy()
+        cpu_codes = vqgan.encode(vq_cpu, vq_cfg, x)[0].numpy()
+        if not np.array_equal(codes[clear], cpu_codes[clear]):
+            fail(f"extract_code: img_{i} card codes differ from the CPU's "
+                 f"at {int((codes != cpu_codes)[clear].sum())} clear latents")
+        sure += int(clear.sum())
+        agree += int((codes == cpu_codes).sum())
+    # the encode's rate in process: read, crop, Lanczos, encode an image
+    paths = [os.path.join(imgs, f"img_{i}.png") for i in range(EVAL_PNGS)]
+    for p in paths[:2]:
+        vqgan.encode(vq_card, vq_cfg, (I.load_image(p, 256, dev).to(
+            torch.float32) / 127.5 - 1.0).permute(2, 0, 1)[None])
+    sync()
+    t0 = time.perf_counter()
+    for p in paths:
+        vqgan.encode(vq_card, vq_cfg, (I.load_image(p, 256, dev).to(
+            torch.float32) / 127.5 - 1.0).permute(2, 0, 1)[None])
+    sync()
+    t_loop = time.perf_counter() - t0
+    xb = torch.stack([I.load_image(p, 256, dev) for p in paths]).to(
+        torch.float32).div(127.5).sub(1.0).permute(0, 3, 1, 2)
+    vqgan.encode(vq_card, vq_cfg, xb)
+    sync()
+    t0 = time.perf_counter()
+    vqgan.encode(vq_card, vq_cfg, xb)
+    sync()
+    t_enc = time.perf_counter() - t0
+    train_dir = os.path.join(root, "train")
+    r = subprocess.run(
+        [sys.executable, "-m", "lantern_tpu_torch", "generate_train_data",
+         "--random-weights", "--codes-dir", codes_dir, "--num-samples", "2",
+         "--save-dir", train_dir], capture_output=True, text=True,
+        timeout=600)
+    if r.returncode:
+        fail(f"generate_train_data --codes-dir on extract_code's output: exit "
+             f"{r.returncode}: {r.stderr[-3000:]}")
+    if len(glob.glob(os.path.join(train_dir, "sample_*.npz"))) != 2:
+        fail("generate_train_data --codes-dir wrote no 2 samples from "
+             "extract_code's output")
+    log(f"evals (b) [{card}] python -m lantern_tpu_torch extract_code "
+        f"--model llamagen, {EVAL_PNGS} seeded PNGs (256 px and 280-328 x "
+        f"280, cropped and Lanczos-resized to 256), VQ-16 "
+        f"at published width (random, --vq-path), RandomT5 captions: "
+        f"{t_cli:.1f} s (process included); 256 codes an image in range; "
+        f"equal to the CPU encode on all {sure} clear latents ("
+        f"{100 * sure / (256 * EVAL_PNGS):.2f} % of "
+        f"{256 * EVAL_PNGS}; {100 * agree / (256 * EVAL_PNGS):.2f} % equal "
+        f"overall); in process {EVAL_PNGS / t_loop:.1f} images/s read + "
+        f"crop + Lanczos + encode one by one, the encode alone "
+        f"{EVAL_PNGS / t_enc:.1f} images/s at a batch of {EVAL_PNGS}; "
+        f"generate_train_data --codes-dir on the codes: 2 samples "
+        f"({time.perf_counter() - t:.1f} s)")
+
+    # ---- (c) backbones, card against CPU
+    t = time.perf_counter()
+    few = torch.from_numpy(np.stack([smooth(256, 256) for _ in range(4)]))
+    many = torch.from_numpy(np.stack([smooth(256, 256)
+                                      for _ in range(EVAL_BATCH)])).to(dev)
+    tok = ClipTokenizer(merges)
+    texts = ["the cat", "hello box", "a cat on the hat", "the end"]
+    toks = torch.as_tensor(tok(texts), dtype=torch.long)
+    toks64 = toks.repeat(EVAL_BATCH // len(texts), 1).to(dev)
+
+    def rate(fn, n):
+        fn()
+        sync()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return n / statistics.median(times), 1e3 * statistics.median(times)
+
+    def check(name, got, ref, wrong, tf32):
+        got, ref = got.float().cpu(), ref.float()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        err_w = float((wrong.float().cpu() - ref).abs().max())
+        err_t = float((tf32.float().cpu() - ref).abs().max())
+        if not (scale > 0 and err <= 1e-4 * scale):
+            fail(f"evals (c) {name}: card off the CPU by {err} "
+                 f"(scale {scale})")
+        if err_w <= 1e-4 * scale:
+            fail(f"evals (c) {name}: the known-wrong variant passed "
+                 f"({err_w} <= 1e-4 x {scale})")
+        return (f"{name}: {err / scale:.1e} of the scale (known-wrong "
+                f"{err_w / scale:.1e}, TF32 on {err_t / scale:.1e})")
+
+    def tf32_on():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        return torch.backends.cudnn.flags(enabled=True, allow_tf32=True)
+
+    def tf32_off():
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    lines = []
+    inc_cpu = InceptionExtractor(weights["inception"], device="cpu")
+    inc = InceptionExtractor(weights["inception"], device=dev)
+    ref = inc_cpu.image_features(few)
+    got = inc.image_features(few.to(dev))
+    from lantern_tpu_torch.evals.inception import clean_resize
+    xr = clean_resize(few.to(dev))
+    inc.net.mixed_7c_pool = "avg"
+    wrong = inc.net(xr)
+    inc.net.mixed_7c_pool = "max"
+    with tf32_on():
+        with torch.no_grad():
+            tf = inc.net.pool3(xr)
+    tf32_off()
+    lines.append(check("Inception-V3 pool3", got, ref, wrong, tf))
+    xr64 = clean_resize(many)
+    ips_inc, ms_inc = rate(lambda: inc.net(xr64), EVAL_BATCH)
+    _, ms_cr = rate(lambda: clean_resize(many), EVAL_BATCH)
+    del inc_cpu, inc, xr64
+
+    vgg_cpu = VGGExtractor(weights["vgg16"], device="cpu")
+    vgg = VGGExtractor(weights["vgg16"], device=dev)
+    ref = vgg_cpu.image_features(few)
+    got = vgg.image_features(few.to(dev))
+    xv = I.resize(few.to(dev), (224, 224), "bilinear").float() / 255.0
+    wrong = torch.relu(vgg.net(xv))
+    with tf32_on():
+        with torch.no_grad():
+            tf = vgg.net.fc2(xv)
+    tf32_off()
+    lines.append(check("VGG16 fc2", got, ref, wrong, tf))
+    xv64 = I.resize(many, (224, 224), "bilinear").float() / 255.0
+    ips_vgg, ms_vgg = rate(lambda: vgg.net(xv64), EVAL_BATCH)
+    del vgg_cpu, vgg, xv64
+
+    rates = {}
+    for name, geom, key in (("ViT-B/32", C.VIT_B32, "clip_b32"),
+                            ("ViT-H/14", C.VIT_H14, "hps_v21")):
+        n = 2 if geom is C.VIT_H14 else 4
+        p_cpu = C.params_from_openai(sds[key], geom, "cpu")
+        p = C.params_from_openai(sds[key], geom, dev)
+        x = C.preprocess_images(few[:n], geom.image_size)
+        xc = C.preprocess_images(few[:n].to(dev), geom.image_size)
+        # the uint8 resize is byte-equal (a); the card divides by 255 as a
+        # multiply by its reciprocal, so the floats may differ by an ulp
+        if float((xc.cpu() - x).abs().max()) > 1.2e-7:
+            fail(f"evals (c) {name}: preprocess_images differs card vs CPU")
+        other = dataclasses.replace(geom, quick_gelu=not geom.quick_gelu)
+        for what, fn, arg in (("image", C.encode_image, (x, xc)),
+                              ("text", C.encode_text, (toks[:n],
+                                                       toks[:n].to(dev)))):
+            ref = fn(p_cpu, arg[0], geom)
+            got = fn(p, arg[1], geom)
+            wrong = fn(p, arg[1], other)
+            # TF32 on: the towers without their full-f32 guard
+            with tf32_on():
+                orig = C.full_f32
+                C.full_f32 = contextlib.nullcontext
+                try:
+                    tf = fn(p, arg[1], geom)
+                finally:
+                    C.full_f32 = orig
+            tf32_off()
+            lines.append(check(f"{name} {what}", got, ref, wrong, tf))
+        del p_cpu
+        x64 = C.preprocess_images(many, geom.image_size)
+        rates[name] = (rate(lambda: C.encode_image(p, x64, geom), EVAL_BATCH),
+                       rate(lambda: C.encode_text(p, toks64, geom),
+                            EVAL_BATCH))
+        del p, x64
+    torch.cuda.empty_cache()
+    log(f"evals (c) [{card}] backbones at published widths, random weights "
+        f"(seed 0), card vs CPU on 4 images (ViT-H/14: 2), f32 without "
+        f"TF32: " + "; ".join(lines))
+    log(f"evals (c) [{card}] at a batch of {EVAL_BATCH}, f32: Inception-V3 "
+        f"{ms_inc:.1f} ms ({ips_inc:.0f} images/s; clean_resize 256 -> 299 "
+        f"{ms_cr:.1f} ms), VGG16 {ms_vgg:.1f} ms ({ips_vgg:.0f} images/s), "
+        + ", ".join(f"{k} image {v[0][1]:.1f} ms ({v[0][0]:.0f} images/s) "
+                    f"text {v[1][1]:.1f} ms ({v[1][0]:.0f} texts/s)"
+                    for k, v in rates.items())
+        + f" ({time.perf_counter() - t:.1f} s)")
+
+    # ---- (d) metrics on the card against numpy f64 on the host
+    t = time.perf_counter()
+    frng = np.random.default_rng(1)
+    n = METRIC_N
+    fa = frng.normal(size=(n, 2048)).astype(np.float32)
+    fb = (frng.normal(size=(n, 2048)) * 1.1 + 0.05).astype(np.float32)
+    t0 = time.perf_counter()
+    fid = M.fid_from_features(torch.from_numpy(fa).to(dev),
+                              torch.from_numpy(fb).to(dev))
+    t_fid = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid_np = np_fid(fa, fb)
+    t_fid_np = time.perf_counter() - t0
+    if not abs(fid - fid_np) <= 1e-9 * abs(fid_np):
+        fail(f"evals (d) FID on the card {fid!r} against numpy {fid_np!r}")
+    ra = frng.normal(size=(n, 4096)).astype(np.float32)
+    rb = frng.normal(size=(n, 4096)).astype(np.float32)
+    rb[: n // 5] += 0.5                     # a shifted fifth
+    ra_c, rb_c = torch.from_numpy(ra).to(dev), torch.from_numpy(rb).to(dev)
+    M.precision_recall(ra_c[:64], rb_c[:64], k=3)
+    sync()
+    t0 = time.perf_counter()
+    pr = M.precision_recall(ra_c, rb_c, k=3)
+    t_pr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pr_np = np_precision_recall(ra, rb, 3)
+    t_pr_np = time.perf_counter() - t0
+    for got, want in zip(pr, pr_np):
+        if not abs(got - want) <= 1e-9 * abs(want):
+            fail(f"evals (d) precision / recall {tuple(pr)} on the card "
+                 f"against numpy {pr_np}")
+    log(f"evals (d) [{card}] FID {n} x 2048: {fid!r} card vs {fid_np!r} "
+        f"numpy f64 (rel {abs(fid - fid_np) / abs(fid_np):.1e}), "
+        f"{t_fid:.2f} s on the card (scipy sqrtm on the host) vs "
+        f"{t_fid_np:.2f} s numpy; precision / recall k=3 {n} x 4096: "
+        f"{pr.precision!r} / {pr.recall!r} card, {pr_np[0]!r} / "
+        f"{pr_np[1]!r} numpy, {t_pr:.3f} s on the card vs {t_pr_np:.2f} s "
+        f"numpy ({time.perf_counter() - t:.1f} s)")
+
+    # ---- (e) the eval CLIs as subprocesses on the card
+    t = time.perf_counter()
+    fake = os.path.join(root, "fake")
+    os.makedirs(fake)
+    for p in repo_pngs:
+        shutil.copy(p, os.path.join(fake, os.path.basename(p)))
+    for i in range(len(repo_pngs), len(repo_pngs) + 4):
+        write_png(os.path.join(fake, f"prompt_{i}.png"), smooth(128, 128))
+    n_fake = len(os.listdir(fake))
+    prompts = os.path.join(root, "prompts.json")
+    with open(prompts, "w") as f:
+        json.dump([[c] for c in BATCH_CAPTIONS[:n_fake]], f)
+
+    def cli(task, *argv):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "lantern_tpu_torch", task,
+                            *argv], capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode:
+            fail(f"{task} CLI: exit {r.returncode}: {r.stderr[-3000:]}")
+        return r.stdout, time.perf_counter() - t0
+
+    def numbers(out):
+        vals = []
+        for line in out.splitlines():
+            try:
+                vals.append(float(line.rsplit(" ", 1)[-1]))
+            except ValueError:
+                pass
+        if not vals or not all(np.isfinite(vals)):
+            fail(f"eval CLI printed no finite score: {out[-1000:]}")
+        return vals
+
+    runs = []
+    out, s = cli("eval_fid_clip", "--fake_dir", fake, "--ref_dir", imgs,
+                 "--caption_path", prompts, "--feature-extractor", "clip_b32",
+                 "--clip-model-dir", weights["clip_b32"], "--merges", merges)
+    with open(os.path.join(fake, "score.txt")) as f:
+        score = f.read()
+    if not (score.startswith("CLIP score: ") and "FID_256px: " in score):
+        fail(f"eval_fid_clip clip_b32 score.txt: {score!r}")
+    runs.append(f"eval_fid_clip clip_b32 {numbers(score)} {s:.1f} s")
+    out, s = cli("eval_fid_clip", "--fake_dir", fake, "--ref_dir", imgs,
+                 "--feature-extractor", "fid_inception", "--inception-ckpt",
+                 weights["inception"])
+    with open(os.path.join(fake, "score.txt")) as f:
+        score = f.read()
+    runs.append(f"eval_fid_clip fid_inception {numbers(score)} {s:.1f} s")
+    out, s = cli("eval_prec_recall", "--ref_dir", imgs, "--fake_dir", fake,
+                 "--feature-extractor", "vgg16_jax", "--vgg-ckpt",
+                 weights["vgg16"])
+    runs.append(f"eval_prec_recall vgg16_jax {numbers(out)} {s:.1f} s")
+    out, s = cli("eval_hpsv2", "--image_path", fake, "--prompt_path", prompts,
+                 "--model", weights["hps_v21"], "--merges", merges)
+    runs.append(f"eval_hpsv2 pinned ViT-H/14 {numbers(out)} {s:.1f} s")
+    log(f"evals (e) [{card}] the eval CLIs as subprocesses over {n_fake} "
+        f"generated ({len(repo_pngs)} from generated_images) against "
+        f"{EVAL_PNGS} seeded images, random .npz weights, synthetic merges "
+        f"(process included): " + "; ".join(runs)
+        + f" ({time.perf_counter() - t:.1f} s)")
+    for name in list(weights.values()) + [vq_path]:
+        os.remove(name)
+
+
 def tree_map(fn, tree):
     """``fn`` over the tensors of a nested dict / list tree."""
     if isinstance(tree, dict):
@@ -3741,6 +4317,9 @@ def main() -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="after the build, run only the train phase "
                          "(prints no result line)")
+    ap.add_argument("--evals-only", action="store_true",
+                    help="after the build, run only the evals phase "
+                         "(prints no result line)")
     args = ap.parse_args()
 
     import torch
@@ -3794,6 +4373,10 @@ def main() -> int:
               timed("build_xl", build_xl, torch))
         log("train-only run: build and train phases passed")
         return 0
+    if args.evals_only:
+        timed("evals", phase_evals, torch, tag)
+        log("evals-only run: build and evals phases passed")
+        return 0
     records = timed("kernels", phase_kernels, torch, timer, tag, args.grid)
     timed("forward", phase_forward, torch)
     timed("forward_llamagen", phase_forward_llamagen, torch)
@@ -3811,6 +4394,7 @@ def main() -> int:
     launches.update(tools_launches)
     launches.update(timed("train", phase_train, torch, tag, xl))
     del xl
+    timed("evals", phase_evals, torch, tag)
     launches.update(timed("ragged_lumina", phase_ragged, torch, tag))
 
     kernels = []

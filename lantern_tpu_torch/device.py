@@ -1,6 +1,8 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and full-f32 math."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -21,3 +23,18 @@ def synchronize(device: torch.device) -> None:
     read after it measures the work, not its enqueue."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Full-f32 convolutions and matmuls inside the block: cuDNN and cuBLAS
+    may otherwise pick TF32 tensor-core paths on the card, whose 10-bit
+    mantissas move results by ~1e-3, far past the CPU comparisons."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                        allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul

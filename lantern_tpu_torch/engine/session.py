@@ -22,9 +22,9 @@ batched.  Latency is read after ``torch.cuda.synchronize()``.
 no such table yet (ROADMAP item 12's policy, to be measured on the H100
 once the port bench exists, item 20), so there it raises.  ``pin`` (the
 engines' ``SpecDecodeConfig.pin``) is the port's hook for deterministic
-checks; the JAX sessions do not take it.  ``T5Embedder`` needs downloaded
-T5 weights and is not ported: a caption session embeds with
-``utils.t5.RandomT5`` unless ``t5`` is set to an embedder of the same
+checks; the JAX sessions do not take it.  A caption session embeds with
+``utils.t5.T5Embedder`` when ``from_pretrained`` gets a ``t5_dir``, else
+with ``utils.t5.RandomT5`` unless ``t5`` is set to an embedder of the same
 interface.
 """
 
@@ -146,10 +146,6 @@ class LlamaGenSession:
         from ..ops.vq_distance import load_table
         from ..utils import checkpoint as ckpt
 
-        if t5_dir is not None:
-            raise ValueError("T5Embedder is not ported (it needs downloaded "
-                             "T5 weights): set session.t5 to an embedder "
-                             "with RandomT5's get_text_embeddings interface")
         dev = resolve_device(device)
         params = ckpt.llamagen_params_from_torch(ckpt.load_torch_dir(base_path),
                                                  cfg, device=dev)
@@ -168,8 +164,13 @@ class LlamaGenSession:
         if nearest_path is not None:
             params["nearest_latents"] = torch.as_tensor(
                 load_table(nearest_path), device=dev)
-        return cls(cfg=cfg, dcfg=dcfg, params=params, dparams=dparams,
+        sess = cls(cfg=cfg, dcfg=dcfg, params=params, dparams=dparams,
                    vq_cfg=vq_cfg, vq_params=vq_params, device=dev)
+        if t5_dir is not None:
+            from ..utils.t5 import T5Embedder
+
+            sess.t5 = T5Embedder(t5_dir, device=dev)
+        return sess
 
     @classmethod
     def random(cls, cfg: ModelConfig, dcfg: Optional[DrafterConfig] = None,

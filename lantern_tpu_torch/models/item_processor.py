@@ -26,6 +26,7 @@ import torch
 
 from . import chameleon as cham
 from . import vqgan
+from ..utils.image import resize
 from .chameleon import (GRID_TOKEN_BASE, LATENTS_PER_PATCH,  # noqa: F401
                         grid_token)
 
@@ -63,16 +64,14 @@ def var_center_crop_size(w: int, h: int,
 
 
 def center_crop(image: np.ndarray, cw: int, ch: int) -> np.ndarray:
-    """uint8 HWC center crop, rescaling first (Lanczos, through PIL) so the
-    short edge covers the crop."""
+    """uint8 HWC center crop, rescaling first (PIL's Lanczos, through
+    ``utils.image.resize``) so the short edge covers the crop."""
     h, w = image.shape[:2]
     scale = max(cw / w, ch / h)
     if scale != 1.0:
-        from PIL import Image as PILImage
-
         nw, nh = max(cw, int(round(w * scale))), max(ch, int(round(h * scale)))
-        image = np.asarray(
-            PILImage.fromarray(image).resize((nw, nh), PILImage.LANCZOS))
+        image = resize(torch.from_numpy(np.ascontiguousarray(image)),
+                       (nw, nh), "lanczos").numpy()
         h, w = image.shape[:2]
     top, left = (h - ch) // 2, (w - cw) // 2
     return image[top: top + ch, left: left + cw]

@@ -19,7 +19,6 @@ the published layout is already OIHW.  Images are ``[B, 3, H, W]`` in
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Tuple
 
@@ -27,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,22 +260,12 @@ def _norm_codebook(params: dict, cfg: VQGANConfig) -> torch.Tensor:
     return cb
 
 
-def _full_f32():
-    """Full-f32 convolutions: cuDNN may otherwise pick TF32 tensor-core
-    algorithms on the card, whose 10-bit mantissas move pixels by more than
-    the CPU comparison allows."""
-    if torch.backends.cudnn.is_available():
-        return torch.backends.cudnn.flags(
-            enabled=torch.backends.cudnn.enabled, allow_tf32=False)
-    return contextlib.nullcontext()
-
-
 @torch.no_grad()
 def encode(params: dict, cfg: VQGANConfig,
            images: torch.Tensor) -> torch.Tensor:
     """images [B, 3, H, W] in [-1, 1] -> codes [B, (H/f)*(W/f)] int32 (the
     nearest codebook row, as one distance matmul and an argmin)."""
-    with _full_f32():
+    with full_f32():
         enc = params["encoder"]
         h = conv2d(enc["conv_in"], images)
         h = _tower(enc["blocks"], enc["mid"], h, up=False)
@@ -301,7 +290,7 @@ def decode_code(params: dict, cfg: VQGANConfig, codes: torch.Tensor,
     gh, gw = (grid, grid) if isinstance(grid, int) else grid
     cb = _norm_codebook(params, cfg)
     z = cb[codes.long()].reshape(codes.shape[0], gh, gw, cfg.codebook_dim)
-    with _full_f32():
+    with full_f32():
         z = conv2d(params["post_quant_conv"], z.permute(0, 3, 1, 2))
         dec = params["decoder"]
         h = conv2d(dec["conv_in"], z)

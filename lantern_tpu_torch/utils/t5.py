@@ -1,11 +1,11 @@
-"""Caption features for LlamaGen t2i without the T5 encoder.
+"""Caption features for LlamaGen t2i.
 
-The port's own copy of the numpy part of ``lantern_tpu/utils/t5.py``:
-``clean_caption``, ``RandomT5`` (deterministic per-prompt pseudo-features of
-flan-t5-xl's shape, so the t2i path runs with no downloaded checkpoint)
-and ``flip_for_left_padding`` (valid rows to the right, pad rows zeroed,
-the layout the CFG prefill expects).  The encoder wrapper itself needs
-downloaded weights and is not carried over.
+The port's counterpart of ``lantern_tpu/utils/t5.py``: ``clean_caption``;
+``T5Embedder``, flan-t5-xl's encoder through ``transformers`` from a local
+directory on a torch device; ``RandomT5`` (deterministic per-prompt
+pseudo-features of flan-t5-xl's shape, so the t2i path runs with no
+checkpoint) and ``flip_for_left_padding`` (valid rows to the right, pad
+rows zeroed, the layout the CFG prefill expects).
 """
 
 from __future__ import annotations
@@ -28,6 +28,46 @@ def clean_caption(caption: str) -> str:
     caption = html.unescape(html.unescape(caption))
     caption = re.sub(r"\s+", " ", caption)
     return caption.strip()
+
+
+class T5Embedder:
+    """flan-t5-xl's encoder (``transformers``' ``T5EncoderModel`` and
+    ``AutoTokenizer`` from the local ``model_dir``) on ``device`` (``None``:
+    ``cuda``).  Captions are cleaned and padded or truncated to
+    ``model_max_length`` tokens."""
+
+    def __init__(self, model_dir: str, model_max_length: int = 120,
+                 device=None):
+        import torch
+
+        from ..device import resolve_device
+
+        try:
+            from transformers import AutoTokenizer, T5EncoderModel
+        except ImportError as e:
+            raise ImportError(
+                "T5Embedder needs the transformers package, which is not "
+                "installed; without it captions embed through RandomT5") from e
+        self.torch = torch
+        self.device = resolve_device(device)
+        self.tokenizer = AutoTokenizer.from_pretrained(model_dir)
+        self.model = T5EncoderModel.from_pretrained(model_dir).eval().to(
+            self.device)
+        self.model_max_length = model_max_length
+
+    def get_text_embeddings(self, prompts):
+        """``(emb f32 [n, model_max_length, d_model], mask int64 [n,
+        model_max_length])`` as numpy arrays, valid rows first."""
+        tok = self.tokenizer(
+            [clean_caption(p) for p in prompts],
+            max_length=self.model_max_length, padding="max_length",
+            truncation=True, return_tensors="pt")
+        with self.torch.no_grad():
+            emb = self.model(
+                input_ids=tok["input_ids"].to(self.device),
+                attention_mask=tok["attention_mask"].to(self.device),
+            ).last_hidden_state
+        return emb.cpu().numpy(), tok["attention_mask"].numpy()
 
 
 class RandomT5:

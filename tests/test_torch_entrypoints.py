@@ -23,8 +23,8 @@
   ``history.json`` within 1e-4 relative at ``--data-noise none``, and
   ``state_N`` written at the save epochs;
 - the launcher: ``python -m lantern_tpu_torch generate_codebook --device
-  cpu`` in a subprocess; ``--help`` lists the ported tasks, the training
-  ones included, and not ``extract_code``.
+  cpu`` in a subprocess; ``--help`` lists all eight tasks, the training,
+  ``extract_code`` and eval ones included.
 """
 
 import argparse
@@ -399,15 +399,15 @@ def test_launcher_generate_codebook(tmp_path):
     tgc.run(at, device="cpu")
     np.testing.assert_array_equal(
         t, np.load(str(tmp_path / "inproc" / "top_63_indices.npy")))
-    # the launcher registers the ported tasks only
+    # the launcher registers all eight tasks of main.py's CLI
     r = subprocess.run([sys.executable, "-m", "lantern_tpu_torch", "--help"],
                        cwd=str(tmp_path), env=env, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0
     for task in ("generate_images", "generate_codebook",
-                 "generate_train_data", "train_drafter"):
+                 "generate_train_data", "train_drafter", "extract_code",
+                 "eval_fid_clip", "eval_prec_recall", "eval_hpsv2"):
         assert task in r.stdout, task
-    assert "extract_code" not in r.stdout
 
 
 # ------------------------------------------------------------ training CLI

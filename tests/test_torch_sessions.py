@@ -510,9 +510,17 @@ def test_from_pretrained_matches_jax(tmp_path):
     tb, _ = b.generate(CAPTIONS[0], **gk)
     np.testing.assert_array_equal(tb, np.asarray(ta))
     _close_uint8(b.decode_ids(tb), a.decode_ids(np.asarray(ta)))
-    with pytest.raises(ValueError, match="T5Embedder"):
-        ts.LlamaGenSession.from_pretrained(str(base), cfg_t, t5_dir="t5",
+    # with a T5 directory both sessions embed captions through T5Embedder
+    from test_torch_eval_cli import write_tiny_t5
+
+    t5 = write_tiny_t5(tmp_path / "t5")
+    a = js.LlamaGenSession.from_pretrained(str(base), J.cfg, t5_dir=t5)
+    b = ts.LlamaGenSession.from_pretrained(str(base), cfg_t, t5_dir=t5,
                                            device="cpu")
+    assert type(b.t5).__name__ == "T5Embedder"
+    np.testing.assert_allclose(b.t5.get_text_embeddings(CAPTIONS[:2])[0],
+                               a.t5.get_text_embeddings(CAPTIONS[:2])[0],
+                               rtol=0, atol=1e-6)
 
     C, _ = chameleon("lumina")
     cbase = tmp_path / "lumina"
