@@ -15,6 +15,8 @@ Run from the repository root on a machine with one NVIDIA H100:
                                            # (11 below), no result line
     python3 chip_smoke.py --evals-only     # the build and the evals phase
                                            # (12 below), no result line
+    python3 chip_smoke.py --parallel-only  # the build and the parallel
+                                           # phase (13 below), no result line
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -78,10 +80,14 @@ Phases (any failure exits non-zero and prints no result line):
    batch row at the batches' shapes (K2 must catch every row taking row
    0's length, K3 and K4 two slots' starts swapped; byte-exact with a
    clamped start) and K1 at the batched verify's 144 rows; then the
-   batched XL path: 12 captioned requests (distinct pad counts and seeds)
+   batched XL path (the XL model cut to its first ``CUT_LAYERS`` layers
+   for time; phase 13 holds it batched at full depth against lone
+   ``spec.generate`` runs): 12 captioned requests (distinct pad counts and
+   seeds)
    through ``Scheduler`` on the native queue into a ``BatchedEngine`` of 8
    slots (``chain_bush_8``, static, rollback, int8 KV, the passthrough
-   drafter, LANTERN k=10 delta=5, top-2000, cfg 3.0, 256 tokens each).
+   drafter, LANTERN k=10 delta=5, top-2000, cfg 3.0, ``BATCH_TOKENS``
+   tokens each).
    It fails if any request has ``error`` set (a kernel fault would show
    there), if a stream is short or leaves the vocab, if the launch counts
    differ from the derived ones (one K2 a layer, one K3 and one K4 a
@@ -96,8 +102,9 @@ Phases (any failure exits non-zero and prints no result line):
    batch (full width, 4 layers, prompts of 16, 9 and 4 text tokens on 3
    slots under one grid FSM, pinned): each stream must equal its lone run
    under its own FSM, with derived launch counts;
-9. sessions (``phase_session``, after the batched XL path): the XL
-   ``LlamaGenSession`` around the XL lane's int8 weights with a VQ-16 codec
+9. sessions (``phase_session``, after the parallel phase): the XL
+   ``LlamaGenSession`` around the XL lane's int8 weights (cut to
+   ``CUT_LAYERS`` layers, as phase 8) with a VQ-16 codec
    at its published width makes an image from a caption (``generate`` +
    ``decode_ids``; a 256x256 uint8 image within one level of the CPU
    decode of the same codes); K2 with a tree mask per slot at the batched
@@ -145,6 +152,32 @@ Phases (any failure exits non-zero and prints no result line):
    / recall on 5,000 seeded features card vs numpy f64; the three eval
    CLIs as subprocesses.  ``--evals-only`` runs the build and this phase
    alone.
+13. parallel (``phase_parallel``, after the batched XL path): rank
+   processes of this script (``--parallel-rank``), each with a time limit,
+   on the (dp, tp) mesh of ``lantern_tpu_torch/parallel``.  (a) NCCL in a
+   world of one (``init_distributed()`` from ``RANK=0 WORLD_SIZE=1
+   MASTER_ADDR=127.0.0.1``, ``Mesh(dp=1, tp=1)``): the pinned stale +
+   deferred Lumina-7B path at 16x16 under ``set_mesh`` equals the run
+   without it bit for bit, with the derived launch counts, and
+   ``host_mean(3.0) == 3.0``.  (b) Lumina-7B at full width and depth over
+   tp = 2, two ranks on the one card over gloo (NCCL refuses two ranks on
+   one device): the prefill's and a tree verify's logits within
+   ``PARALLEL_TOL_FACTOR`` of the one-split floor of one process's, equal
+   on both ranks, and three known-wrong layouts (the ``wo`` reduce skipped
+   on one layer, ``skip_wo_reduce``; the reduce after the swin norm,
+   ``reduce_after_norm``; the row split quantized per shard) beyond it;
+   the pinned path, 64 tokens, equal on both ranks, with ms a step, the
+   collectives' share, peak memory and derived launch counts; K1 at the
+   shard shapes and K2 at half the head groups against their plain versions with times (K2 on a
+   rank's groups at the whole model's split count equal to those groups of
+   the whole launch).  (c) LlamaGen-XL at full width and depth over dp =
+   2, two ranks over gloo, the batched configuration of phase 8 (64 tokens
+   a request) on 4 of 8 slots a rank through the native ``Scheduler``:
+   every request's uid, tokens and steps equal the one-process batched
+   run, and that run's (at full depth, where phase 8 runs cut) equal
+   ``spec.generate`` alone for ``PARALLEL_ALONE`` of its requests, first
+   fills and refills.  ``--parallel-only`` runs the build and this phase
+   alone.
 
 Each phase prints its seconds.  The line before the last two is
 ``{"kernels": [...]}`` (``launches`` are the rollback path's, the one Lumina
@@ -152,7 +185,7 @@ path that runs all four kernels; every path's counts are under
 ``launches_by_path``; each kernel's XL record is under ``xl``, its per-row
 record at the XL batch under ``batched``, K2's per-slot-mask record
 under ``dynamic_batched``, and K1's and K2's tools-phase records under
-``tools``); then
+``tools``, their tp = 2 shard records under ``parallel_tp2``); then
 the ``nvidia-smi`` name/power-limit line; the last line is the device
 record.
 """
@@ -160,6 +193,7 @@ record.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -197,6 +231,11 @@ BATCH_CAPTIONS = [
     "a watercolor painting of a harbor town in the morning fog",
     "a bowl of ramen with an egg and green onions on top",
     "a photo of a red fox standing in fresh snow at dawn light"]
+# the XL layers of the batched and session phases, cut from 36 for time
+# (the parallel phase holds batched XL at full depth against lone runs),
+# and the batched phase's tokens a request
+CUT_LAYERS = 12
+BATCH_TOKENS = 256
 # the ragged Lumina batch: full Lumina width, 4 layers, token prompts of
 # three lengths on 3 slots, an 8 x 8 image grid
 RAGGED_TEXTS = [list(range(60000, 60016)), list(range(61000, 61009)),
@@ -227,6 +266,26 @@ TRAIN_SAMPLES, TRAIN_SLOTS, TRAIN_CLI_SAMPLES = 4, 2, 2
 TRAIN_EPOCHS, TRAIN_LR = 30, 1e-3
 FT_STEPS, FT_LR = 4, 1e-4
 TRAIN_SERVE_TOKENS = 64
+# the parallel phase: where the rank processes write their logs and
+# results, each part's time limit, the tokens of the tp = 2 and dp = 2
+# runs, the tp = 2 logits' tolerance, the layer the skipped-reduce variant
+# hits, and the steps of the run that times every collective.  The
+# tolerance is a multiple of a floor measured in the same run: one
+# process's logits with K1 and K2 at one split each (the same products
+# summed in another order) against its logits at their usual splits.  A
+# bf16 rounding that an order flips moves an int8 KV row's quantization by
+# a step, so at 32 random layers any order differs by ~2.5 % RMS; a tp
+# rank sums in its own order and must land within PARALLEL_TOL_FACTOR of
+# that floor, block by block (RMS difference over the reference's RMS)
+PARALLEL_DIR = os.path.join("build", "parallel")
+PARALLEL_TIMEOUT = 420
+PARALLEL_TOKENS = 64
+# (c)'s one-process batched run at full depth against spec.generate alone:
+# two requests of the first fill of the 8 slots and two refills
+PARALLEL_ALONE = (0, 5, 8, 11)
+PARALLEL_TOL_FACTOR = 1.3
+PARALLEL_WRONG_LAYER = 16
+PARALLEL_PROFILE_STEPS = 8
 # the evals phase: seeded PNGs for extract_code and as reference images,
 # the batch of the backbones' rates, and the metrics' feature count (COCO
 # val2017's FID size)
@@ -348,9 +407,11 @@ class KernelPhase:
                                             y.view(torch.uint8))
                    for x, y in zip(a, b))
 
-    def k1_shape(self, name: str, K: int, N: int, rows, rep_M, lane: str):
+    def k1_shape(self, name: str, K: int, N: int, rows, rep_M, lane: str,
+                 out_dt=None):
         """K1 at one weight shape and each row count of ``rows``: error
-        against the plain version, a dropped k split caught, times.  Returns
+        against the plain version, a dropped k split caught, times.  The
+        output is f32 for the lm_head (or ``out_dt``), else bf16.  Returns
         ``(max error, record at rep_M or None, q, s)``."""
         from lantern_tpu_torch.ops.quant import (K1_STAGE_ROWS, int8_matmul,
                                                  int8_matmul_cuda,
@@ -362,7 +423,8 @@ class KernelPhase:
         q = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
                           dtype=torch.int8)
         s = (torch.rand((1, N), generator=gen, device=dev) + 0.5) * 2e-4
-        out_dt = torch.float32 if name == "lm_head" else torch.bfloat16
+        if out_dt is None:
+            out_dt = torch.float32 if name == "lm_head" else torch.bfloat16
         nsplit = k1_splits(K, N, sm_count(torch.device(dev, 0)))
         # known-wrong variant: one k split's rows dropped (with one split,
         # one stage's)
@@ -1816,6 +1878,16 @@ def phase_main_path(torch, grid: int, card: str):
             "ar": ar_launch, "long_prompt": long_launch}
 
 
+def cut_depth(xl: dict, layers: int) -> dict:
+    """The XL lane's model cut to its first ``layers`` layers (views of the
+    same weights, the same drafter and captions): the depth cut of a path
+    that the smoke's time limit forces."""
+    p = xl["params"]
+    return dict(xl, cfg=xl["cfg"].replace(num_layers=layers),
+                params=dict(p, layers={k: v[:layers]
+                                       for k, v in p["layers"].items()}))
+
+
 def build_xl(torch) -> dict:
     """LlamaGen-XL t2i at full width and depth (36 layers x 1280, 20 heads
     of 64, vocab 16384, 120 caption rows) with random int8 W8A16 weights
@@ -2017,12 +2089,14 @@ def phase_xl(torch, card: str, xl: dict):
 def phase_batched(torch, card: str, xl: dict):
     """The batched XL path: ``BatchedEngine`` + ``Scheduler`` on the native
     queue, the JAX bench's batched configuration (``bench.py:357-395``)
-    without its policy: LlamaGen-XL at full width and depth, 8 slots, the
+    without its policy: LlamaGen-XL at full width, cut to ``CUT_LAYERS``
+    layers (time: ``cut_depth``), 8 slots, the
     9-row ``chain_bush_8`` tree, static mode, rollback commit, int8 KV, the
-    passthrough drafter, LANTERN k=10 delta=5, top-2000, cfg 3.0, 256
-    tokens; 12 requests with distinct captions (distinct pad counts) and
-    seeds, so finished slots are refilled.  Fails unless every request ends
-    without an error with 256 tokens in the vocab, the run's launch counts
+    passthrough drafter, LANTERN k=10 delta=5, top-2000, cfg 3.0,
+    ``BATCH_TOKENS`` tokens; 12 requests with
+    distinct captions (distinct pad counts) and seeds, so finished slots
+    are refilled.  Fails unless every request ends without an error with
+    ``BATCH_TOKENS`` tokens in the vocab, the run's launch counts
     equal the derived ones (one K2 a layer, one K3 and one K4 a step for all
     slots; the drafter per slot), every request's tokens and steps equal
     ``spec.generate`` alone with its seed (sampled), pinned (``pin = 0.5``,
@@ -2042,7 +2116,7 @@ def phase_batched(torch, card: str, xl: dict):
 
     cfg, dcfg, params, dparams = (xl["cfg"], xl["dcfg"], xl["params"],
                                   xl["dparams"])
-    R, n_img, L = BATCH_SLOTS, 256, cfg.num_layers
+    R, n_img, L = BATCH_SLOTS, BATCH_TOKENS, cfg.num_layers
     tree = trees.get_tree("chain_bush_8")
     levels = [len(lv.child_flat_idx) for lv in tree.levels]
     ecfg = spec.SpecDecodeConfig(
@@ -2109,7 +2183,8 @@ def phase_batched(torch, card: str, xl: dict):
         fail(f"batched XL launched {launches}, but its shapes give {want}")
     steps = sum(r.steps for r in done)
     toks = len(done) * n_img
-    log(f"batched XL [{card}] {len(done)} requests x {n_img} tokens on {R} "
+    log(f"batched XL [{card}] ({L} layers) {len(done)} requests x {n_img} "
+        f"tokens on {R} "
         f"slots (native queue, slots refilled), chain_bush_8, rollback, int8 "
         f"KV: {eng.n_steps} batched steps in {wall:.2f} s, aggregate "
         f"{toks / wall:.2f} tok/s over the {R} slots; per request "
@@ -2432,7 +2507,8 @@ def phase_session(torch, card: str, xl: dict, timer):
     out), and the batched modes it reaches:
 
     - the XL session: ``LlamaGenSession`` around the XL lane's int8 weights
-      and passthrough drafter (full width and depth) with a VQ-16 codec at
+      and passthrough drafter (full width, cut to ``CUT_LAYERS`` layers for
+      time: ``cut_depth``) with a VQ-16 codec at
       its published width (codebook 16384x8, ch 128, ``ch_mult`` (1, 1, 2,
       2, 4), z 256; random weights from a seed): one caption through
       ``generate`` (static, ``ckpts/bench_tree_XL.json``, stale drafting,
@@ -2537,7 +2613,7 @@ def phase_session(torch, card: str, xl: dict, timer):
     if diff > 1:
         fail(f"XL session: the card's image differs from the CPU decode of "
              f"the same codes by {diff} uint8 levels (want <= 1)")
-    log(f"XL session [{card}] LlamaGenSession.generate (static, "
+    log(f"XL session [{card}] ({L} layers) LlamaGenSession.generate (static, "
         f"{tree.num_nodes}-row calibrated tree, stale drafting, rollback, "
         f"LANTERN k=10 delta=5, top-2000, cfg 3.0, int8 weights, bf16 KV): "
         f"256 tokens in {t_gen:.3f} s ({256 / t_gen:.2f} tok/s, "
@@ -4236,6 +4312,742 @@ def phase_evals(torch, card: str):
         os.remove(name)
 
 
+# ---------------------------------------------------------------------------
+# parallel: the (dp, tp) mesh on torch.distributed
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_spawn(part: str, world: int) -> list:
+    """Run ``world`` rank processes of this script (``--parallel-rank
+    part``) with ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``
+    and ``LOCAL_RANK=0`` (the one card), within ``PARALLEL_TIMEOUT``; fail
+    on a non-zero exit or a timeout (every rank killed).  Returns each
+    rank's result record."""
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    port = free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   LOCAL_RANK="0")
+        path = os.path.join(PARALLEL_DIR, f"{part}_{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+        logf = open(os.path.join(PARALLEL_DIR, f"{part}_{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             part], env=env, stdout=logf, stderr=subprocess.STDOUT), logf))
+    deadline = time.perf_counter() + PARALLEL_TIMEOUT
+    failed = []
+    for r, (p, logf) in enumerate(procs):
+        try:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            for q, _ in procs:
+                q.kill()
+            p.wait()
+            failed.append(f"rank {r} timed out after {PARALLEL_TIMEOUT} s")
+        logf.close()
+        if p.returncode:
+            with open(logf.name) as f:
+                tail = f.read()[-3000:]
+            failed.append(f"rank {r} exited {p.returncode}:\n{tail}")
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if failed:
+        fail(f"parallel {part}: " + "\n".join(failed))
+    out = []
+    for r in range(world):
+        with open(os.path.join(PARALLEL_DIR, f"{part}_{r}.log")) as f:
+            for line in f:
+                if line.startswith("rank "):
+                    log(f"  [{part}] {line.rstrip()}")
+        with open(os.path.join(PARALLEL_DIR, f"{part}_{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def write_rank_result(part: str, rank: int, rec: dict) -> None:
+    with open(os.path.join(PARALLEL_DIR, f"{part}_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def lumina_cfg(grid: int = 16):
+    """Lumina-7B (Chameleon geometry, swin norm) sized for the main path's
+    lane at ``grid``."""
+    from lantern_tpu_torch import configs
+
+    return configs.chameleon_7b_config(max_seq_len=lane_dims(grid)[1],
+                                       swin_norm=True)
+
+
+def lumina_lane(torch, grid: int = 16, keep=None):
+    """The stale + deferred main path at ``grid``, pinned (``pin = 0.5``):
+    Lumina-7B's random int8 weights from seed 0 (the main path's) with the
+    shifted nearest table, ``(cfg, params, prompt, fsm, tree, ecfg,
+    kept)``; ``keep(dense)`` sees the dense split weights before they are
+    fused and quantized, and its value comes back as ``kept``."""
+    from lantern_tpu_torch import trees
+    from lantern_tpu_torch.engine import spec
+    from lantern_tpu_torch.models import chameleon as cham
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops.acceptance import LanternSpec
+    from lantern_tpu_torch.ops.quant import quantize_params
+    from lantern_tpu_torch.ops.sampling import LogitsWarp
+    from lantern_tpu_torch.ops.vq_distance import nearest_latents
+
+    cfg = lumina_cfg(grid)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dense = tfm.init_params(gen, cfg, device="cuda")
+    kept = keep(dense) if keep is not None else None
+    params = quantize_params(tfm.fuse_params(dense))
+    del dense
+    cb = torch.randn((8192, 8), generator=gen, device="cuda")
+    near = cham.shift_nearest_table(nearest_latents(cb, k=11), cfg.vocab_size)
+    params["nearest_latents"] = torch.as_tensor(near, device="cuda")
+    tp = cham.lumina_token_prompt(TEXT, grid=(grid, grid))
+    fsm = cham.LuminaGridFSM(w=grid, h=grid, image_start_idx=len(TEXT),
+                             vocab_size=cfg.vocab_size)
+    tree = trees.get_tree(os.path.join("ckpts", "bench_tree_lumina.json"))
+    ecfg = spec.SpecDecodeConfig(
+        warp=LogitsWarp(temperature=1.0, top_k=2000, top_p=1.0),
+        cfg_scale=3.0, lantern=LanternSpec(k=10, delta=5.0),
+        max_new=lane_dims(grid)[0], kv_quant=True, walk_batch_warp=True,
+        stale_draft=True, deferred_commit=True, pin=0.5)
+    torch.cuda.synchronize()
+    return cfg, params, tp, fsm, tree, ecfg, kept
+
+
+def stale_launches(cfg, tree, steps: int) -> dict:
+    """The derived launches of a stale + deferred Lumina run of ``steps``
+    verify steps: no drafter, one K3 a forward (a step's forward commits
+    the previous step's rows), no K4."""
+    return spec_launches(cfg.num_layers, len(TEXT) + 3, steps, tree.num_nodes,
+                         tree.path_len,
+                         [len(lv.child_flat_idx) for lv in tree.levels],
+                         deferred=True, stale=True)[0]
+
+
+def rank_nccl(torch) -> None:
+    """(a) A world of one on NCCL: ``init_distributed()`` from the
+    environment, ``Mesh(dp=1, tp=1)``, and the pinned stale + deferred
+    Lumina-7B path at 16x16 under ``set_mesh`` against the same run without
+    it."""
+    import dataclasses
+
+    from lantern_tpu_torch.engine import spec
+    from lantern_tpu_torch.ops import _cuda
+    from lantern_tpu_torch.parallel import dist
+    from lantern_tpu_torch.parallel import mesh as pm
+
+    info = dist.init_distributed()
+    backend = torch.distributed.get_backend()
+    mesh = pm.make_mesh()
+    cfg, params, tp, fsm, tree, ecfg, _ = lumina_lane(torch)
+
+    def run():
+        return spec.generate(params, ecfg, cfg, tree, tp,
+                             torch.Generator(device="cuda").manual_seed(8),
+                             logits_fn=fsm)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, dict(_cuda.LAUNCHES)
+
+    spec.generate(params, dataclasses.replace(ecfg, max_new=8), cfg, tree,
+                  tp, torch.Generator(device="cuda").manual_seed(8),
+                  logits_fn=fsm)                      # warm-up
+    alone, t_alone, alone_launches = counted(run)
+    with pm.set_mesh(mesh):
+        meshed, t_mesh, launches = counted(run)
+    write_rank_result("nccl", 0, dict(
+        backend=backend, world=info["num_processes"],
+        device=str(info["local_devices"][0]), mesh=[mesh.dp, mesh.tp],
+        equal=bool(torch.equal(alone.tokens, meshed.tokens)
+                   and alone.steps == meshed.steps),
+        n_valid=int(meshed.n_valid), steps=int(meshed.steps), wall=t_mesh,
+        wall_alone=t_alone, launches=launches, alone_launches=alone_launches,
+        want=stale_launches(cfg, tree, int(meshed.steps)),
+        host_mean=dist.host_mean(3.0)))
+    torch.distributed.destroy_process_group()
+
+
+def logit_errors(got, ref) -> dict:
+    """Per logits block (the prefill's, the verify's): the largest
+    difference over the reference's largest magnitude (``max``) and the
+    root-mean-square difference over the reference's (``rms``)."""
+    out = {"max": [], "rms": []}
+    for g, r in zip(got, ref):
+        d, r = g.float() - r.float(), r.float()
+        out["max"].append(float(d.abs().max() / r.abs().max()))
+        out["rms"].append(float(d.norm() / r.norm()))
+    return out
+
+
+def within(errs, tol) -> bool:
+    """Every block's error within its tolerance."""
+    return all(e <= t for e, t in zip(errs, tol))
+
+
+@contextlib.contextmanager
+def _patched(module, **attrs):
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+# Known-wrong tensor-parallel forwards: a check of the tp forward is only
+# as good as its power to tell a wrong layout from the right one, so (b)
+# and tests/test_torch_parallel.py run these beside the real forward and
+# require each to land above the tolerance the real one meets.  Each
+# patches models/transformer.py for the forwards inside it, on every rank
+# alike (a rank that skipped a collective the others ran would hang them).
+# The third variant is a layout, not a patch: each rank's shard quantized
+# on its own gives a row-split kernel the scales of its rows alone, where
+# the right layout keeps the full-K column scale (mesh._match_layout).
+
+def skip_wo_reduce(layer: int):
+    """The all-reduce after ``wo`` left out on ``layer`` of the first
+    forward inside the block (counting the split ``wo`` products in order):
+    that layer adds only this rank's partial sum to the residual."""
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops import quant
+
+    seen = [0]
+    row = tfm.mm_row
+
+    def mm_row(x, w, name, group):
+        if name == "wo" and group is not None:
+            seen[0] += 1
+            if seen[0] == layer + 1:
+                return quant.mm(x, w, name)
+        return row(x, w, name, group)
+
+    return _patched(tfm, mm_row=mm_row)
+
+
+def reduce_after_norm():
+    """Every row-split reduce moved past the norm that follows it (Lumina's
+    swin post-norms), where the norm must see the sum."""
+    import torch.distributed as tdist
+
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops import quant
+
+    pending = [None]
+    row, norm = tfm.mm_row, tfm.rms_norm
+
+    def mm_row(x, w, name, group):
+        if group is None:
+            return row(x, w, name, group)
+        pending[0] = group
+        return quant.mm(x, w, name)
+
+    def rms_norm(x, w, eps):
+        y = norm(x, w, eps)
+        group, pending[0] = pending[0], None
+        if group is None:
+            return y
+        part = y.float()
+        tdist.all_reduce(part, group=group)
+        return part.to(y.dtype)
+
+    return _patched(tfm, mm_row=mm_row, rms_norm=rms_norm)
+
+
+@contextlib.contextmanager
+def one_split():
+    """K1 and K2 at one split each inside the block: the same products
+    summed in another order (the reordering floor of a comparison)."""
+    from lantern_tpu_torch.ops import quant
+    from lantern_tpu_torch.ops import tree_attention as ta
+
+    k1, k2 = quant.k1_splits, ta.k2_splits
+    quant.k1_splits = ta.k2_splits = lambda *a, **k: 1
+    try:
+        yield
+    finally:
+        quant.k1_splits, ta.k2_splits = k1, k2
+
+
+def rank_tp2(torch, timer, tag: str) -> None:
+    """(b) Lumina-7B at full width and depth over tp = 2: two processes on
+    the one card over gloo.  The logits of the prompt's prefill and of a
+    tree-verify block against one process on the same weights, the three
+    known-wrong variants, the pinned stale + deferred path (64 tokens)
+    timed with its collectives' share and peak memory, and K1 / K2 at the
+    shard shapes."""
+    import dataclasses
+
+    from lantern_tpu_torch.engine import spec
+    from lantern_tpu_torch.kv import KVCache
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops import _cuda, quant
+    from lantern_tpu_torch.parallel import dist
+    from lantern_tpu_torch.parallel import mesh as pm
+
+    dist.init_distributed(backend="gloo")
+    mesh = pm.make_mesh(dp=1)
+    rank = mesh.rank
+
+    def per_shard(dense):
+        # this rank's rows of the dense row-split kernels, quantized on
+        # their own: the quantize-per-shard variant
+        rows = {"layers": {k: dense["layers"][k] for k in ("wo", "w_down")}}
+        return quant.quantize_params(pm.shard_pytree(
+            rows, pm.base_param_specs(lumina_cfg(), mesh, rows),
+            mesh))["layers"]
+
+    # one rank builds at a time: the dense bf16 weights are 13.5 GB
+    t0 = time.perf_counter()
+    for r in range(mesh.tp):
+        if r == rank:
+            cfg, full, tp, fsm, tree, ecfg, requant = lumina_lane(
+                torch, keep=per_shard)
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    build_s = time.perf_counter() - t0
+    ecfg = dataclasses.replace(ecfg, max_new=PARALLEL_TOKENS)
+    # fixed inputs: the prompt block, then a block of image tokens under the
+    # tree's mask at the tree's positions
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ids = tp.tokens.to("cuda")
+    P = ids.shape[1]
+    rope = tfm.make_rope_tables(cfg, "cuda")
+    N1 = tree.num_nodes
+    blk = torch.randint(4, 8196, (2, N1), generator=gen, device="cuda")
+    mask = torch.as_tensor(tree.attn_mask, device="cuda")
+    pos = P + torch.as_tensor(tree.depth, device="cuda").long()
+
+    def logits(params, m=None):
+        with pm.set_mesh(m):
+            kv = KVCache.create(cfg, 2, quantized=True, device="cuda",
+                                groups=tfm.cache_groups(cfg, params))
+            pre = tfm.forward(params, cfg, tfm.token_embed(params, ids), kv,
+                              torch.arange(P, device="cuda"), rope)
+            ver = tfm.forward(params, cfg, tfm.token_embed(params, blk),
+                              pre.kv, pos, rope, block_mask=mask,
+                              commit=False)
+            return (tfm.logits_head(params, pre.hidden).float(),
+                    tfm.logits_head(params, ver.hidden).float())
+
+    def run(params, m=None, max_steps=0):
+        with pm.set_mesh(m):
+            return spec.generate(
+                params, ecfg, cfg, tree, tp,
+                torch.Generator(device="cuda").manual_seed(8),
+                max_steps=max_steps, logits_fn=fsm)
+
+    ref = logits(full)
+    with one_split():
+        floor = logit_errors(logits(full), ref)
+    ref_run = run(full)
+    sp = pm.shard_pytree(full, pm.base_param_specs(cfg, mesh, full), mesh)
+    del full
+    torch.cuda.empty_cache()
+    got = logits(sp, mesh)
+    errs = logit_errors(got, ref)
+    # the ranks' logits byte for byte (both are gathered over tp)
+    other = [g.clone() for g in got]
+    for o in other:
+        torch.distributed.broadcast(o, src=0)
+    ranks_equal = all(torch.equal(a, b) for a, b in zip(got, other))
+    wrong = {}
+    with skip_wo_reduce(PARALLEL_WRONG_LAYER):
+        wrong["skip_wo_reduce"] = logits(sp, mesh)
+    with reduce_after_norm():
+        wrong["reduce_after_norm"] = logits(sp, mesh)
+    wrong["quantize_per_shard"] = logits(
+        dict(sp, layers=dict(sp["layers"], **requant)), mesh)
+    del requant
+    wrong = {k: logit_errors(v, ref) for k, v in wrong.items()}
+    # the path: a warm-up, then the run with the counters reset
+    run(sp, mesh, max_steps=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    torch.distributed.barrier()
+    t = time.perf_counter()
+    res = run(sp, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the collectives' share of a step: a separate run with each collective
+    # timed on the host from a drained card to its end (the forward's
+    # all-reduces and the head's gather go through these two)
+    spent = [0.0, 0]
+    tdist = torch.distributed
+
+    def clocked(fn):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            spent[1] += 1
+            return out
+        return inner
+
+    with _patched(tdist, all_reduce=clocked(tdist.all_reduce),
+                  all_gather=clocked(tdist.all_gather)):
+        tdist.barrier()
+        t = time.perf_counter()
+        inst = run(sp, mesh, max_steps=PARALLEL_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        inst_wall = time.perf_counter() - t
+    # K1 at the shard shapes and K2 at G / tp groups, one rank at a time
+    kernels = {}
+    for r in range(mesh.tp):
+        if r == rank:
+            kernels = parallel_kernels(torch, timer, tag, cfg, tree, mesh.tp)
+        torch.distributed.barrier()
+    log(f"rank {rank}: build {build_s:.1f} s; logits errs {errs}; one-split "
+        f"floor {floor}; known-wrong "
+        f"{wrong}; {int(res.steps)} steps in {wall:.2f} s; collectives "
+        f"{spent[0]:.3f} s in {spent[1]} calls of {inst_wall:.2f} s over "
+        f"{int(inst.steps)} steps; peak {peak:.2f} GiB")
+    write_rank_result("tp2", rank, dict(
+        rank=rank, build_s=build_s, errs=errs, wrong=wrong, floor=floor,
+        ranks_equal=ranks_equal,
+        tokens=res.tokens.tolist(), ref_tokens=ref_run.tokens.tolist(),
+        n_valid=int(res.n_valid), steps=int(res.steps), wall=wall,
+        ms_step=1e3 * wall / max(int(res.steps), 1),
+        coll_share=spent[0] / inst_wall, coll_calls=spent[1],
+        inst_steps=int(inst.steps),
+        inst_ms_step=1e3 * inst_wall / max(int(inst.steps), 1),
+        coll_ms_step=1e3 * spent[0] / max(int(inst.steps), 1),
+        peak_gib=peak, launches=launches,
+        want=stale_launches(cfg, tree, int(res.steps)), kernels=kernels))
+    torch.distributed.destroy_process_group()
+
+
+def parallel_kernels(torch, timer, tag: str, cfg, tree, tp: int) -> dict:
+    """K1 at Lumina-7B's tp-shard weight shapes (the row splits with f32
+    partials) at the AR and verify rows, and K2 at ``G / tp`` groups,
+    against their plain versions with times, bounds and library times; and
+    K2 on ``G / tp`` groups at the split count of ``G`` equal bit for bit
+    to those groups of the launch over all ``G``."""
+    from lantern_tpu_torch.ops import _cuda
+    from lantern_tpu_torch.ops.tree_attention import (k2_splits,
+                                                      tree_attention_launch)
+
+    H, I, V, hd = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                   cfg.head_dim)
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = {"wqkv": (H, 3 * H // tp, bf16), "wo": (H // tp, H, f32),
+              "w_gu": (H, 2 * I // tp, bf16), "w_down": (I // tp, H, f32),
+              "lm_head": (H, V // tp, f32)}
+    kp = KernelPhase(torch, timer, tag)
+    N1 = tree.num_nodes
+    rows = (2, 2 * N1)
+    k1_err, k1_rec = 0.0, None
+    for name, (K, N, dt) in shapes.items():
+        err, rec, _, _ = kp.k1_shape(name, K, N, rows,
+                                     rows[1] if name == "w_down" else None,
+                                     f"tp={tp} shard ", out_dt=dt)
+        k1_err, k1_rec = max(k1_err, err), rec or k1_rec
+    G = cfg.num_kv_heads * hd // 128 // tp
+    S = -(-cfg.max_seq_len // 128) * 128
+    mask = torch.as_tensor(tree.attn_mask, device="cuda")[None]
+    length = len(TEXT) + 3 + 120
+    k2 = k2_tool_case(torch, timer, tag, f"K2 tp={tp} shard B=2 G={G} S={S} "
+                      f"T={N1} length={length} int8 KV", G, hd, S, N1,
+                      length, mask, quant=True)
+    # the split count of the whole model's groups on this rank's: each
+    # (row, group) block is independent, so the groups agree bit for bit
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    Gf = G * tp
+    q, kn, vn = (torch.randn((2, N1, Gf, hd), generator=gen,
+                             device="cuda").bfloat16() for _ in range(3))
+    kc, vc = (torch.randint(-127, 128, (2, Gf, S, 128), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand((2, Gf, S), generator=gen, device="cuda") * 0.02
+              for _ in range(2))
+    ln = torch.tensor(length, dtype=torch.int32, device="cuda")
+    bm = mask.expand(2, N1, N1).contiguous()
+    bias = torch.zeros((2, S), device="cuda")
+    nsplit = k2_splits(2, Gf, S, N1, _cuda.sm_count(q.device))
+
+    def heads(x):                     # [B, T, Gf, hd] -> this rank's G
+        return x[:, :, :G].contiguous()
+
+    def groups(x):                    # [B, Gf, S, ...] -> this rank's G
+        return x[:, :G].contiguous()
+
+    whole = tree_attention_launch(q, kn, vn, kc, vc, ln, bm, bias,
+                                  hd ** -0.5, nsplit, k_scale=ks, v_scale=vs)
+    part = tree_attention_launch(
+        heads(q), heads(kn), heads(vn), groups(kc), groups(vc), ln, bm, bias,
+        hd ** -0.5, nsplit, k_scale=groups(ks), v_scale=groups(vs))
+    torch.cuda.synchronize()
+    same = bool(torch.equal(whole[:, :, :G], part))
+    log(f"K2 tp={tp} shard at the split count of G={Gf} ({nsplit}, where "
+        f"k2_splits gives G={G} "
+        f"{k2_splits(2, G, S, N1, _cuda.sm_count(q.device))}): "
+        f"{'equal' if same else 'NOT equal'} bit for bit to the first {G} "
+        f"groups of the launch over all {Gf} [{tag}]")
+    return {"int8_matmul": dict(k1_rec, max_abs_err=k1_err),
+            "tree_attention": k2, "k2_split_equal": same}
+
+
+def batched_serving(torch, xl: dict, n_tokens: int):
+    """``(serve, alone)``.  ``serve(n, mesh=None, tokens=n_tokens)``: the
+    batched XL configuration (``chain_bush_8``, static, rollback, int8 KV,
+    LANTERN k=10 delta=5, top-2000, cfg 3.0) on ``BATCH_SLOTS`` slots
+    through ``Scheduler`` on the native queue, the first ``n`` captions
+    with their seeds; returns ``(requests, batched steps of this rank,
+    seconds)``.  ``alone(i)``: request ``i`` through ``spec.generate``
+    alone, its ``SpecResult``."""
+    import dataclasses
+
+    from lantern_tpu_torch import trees
+    from lantern_tpu_torch.engine import spec
+    from lantern_tpu_torch.engine.batch import BatchedEngine
+    from lantern_tpu_torch.engine.scheduler import Request, Scheduler
+    from lantern_tpu_torch.ops.acceptance import LanternSpec
+    from lantern_tpu_torch.ops.sampling import LogitsWarp
+
+    ecfg = spec.SpecDecodeConfig(
+        warp=LogitsWarp(temperature=1.0, top_k=2000, top_p=1.0),
+        cfg_scale=3.0, lantern=LanternSpec(k=10, delta=5.0),
+        max_new=n_tokens, kv_quant=True, walk_batch_warp=True)
+    caps = [xl["caption"](c) for c in BATCH_CAPTIONS]
+
+    def serve(n, mesh=None, tokens=n_tokens):
+        eng = BatchedEngine(ecfg=dataclasses.replace(ecfg, max_new=tokens),
+                            cfg=xl["cfg"],
+                            tree=trees.get_tree("chain_bush_8"),
+                            params=xl["params"], num_slots=BATCH_SLOTS,
+                            dparams=xl["dparams"], dcfg=xl["dcfg"], mesh=mesh)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with StepCounter() as steps:
+            done = Scheduler(eng).run([
+                Request(uid=i, cond=c, uncond=u, prefix_valid=pv,
+                        seed=1000 + i)
+                for i, (c, u, pv) in enumerate(caps[:n])])
+        torch.cuda.synchronize()
+        return done, steps.n, time.perf_counter() - t
+
+    def alone(i):
+        c, u, pv = caps[i]
+        return spec.generate(xl["params"], ecfg, xl["cfg"],
+                             trees.get_tree("chain_bush_8"), None,
+                             spec.request_generator(1000 + i),
+                             dparams=xl["dparams"], dcfg=xl["dcfg"], cond=c,
+                             uncond=u, prefix_valid=pv)
+    return serve, alone
+
+
+def results_of(done) -> list:
+    return [[r.uid, r.error, None if r.tokens is None else
+             [int(t) for t in r.tokens], int(r.steps)] for r in done]
+
+
+def rank_dp2(torch) -> None:
+    """(c) LlamaGen-XL over dp = 2: two processes on the card over gloo,
+    each serving its share of the 12 batched requests (request ``i`` on
+    rank ``i % 2``) on 4 of the 8 slots through ``Scheduler`` on the native
+    queue; every rank gets every result."""
+    from lantern_tpu_torch.ops import _cuda
+    from lantern_tpu_torch.parallel import dist
+    from lantern_tpu_torch.parallel import mesh as pm
+
+    dist.init_distributed(backend="gloo")
+    mesh = pm.make_mesh(dp=2)
+    xl = build_xl(torch)
+    serve, _ = batched_serving(torch, xl, PARALLEL_TOKENS)
+    serve(4, mesh, tokens=4)                  # warm-up: two requests a rank
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    torch.distributed.barrier()
+    done, n_steps, wall = serve(len(BATCH_CAPTIONS), mesh)
+    launches = dict(_cuda.LAUNCHES)
+    log(f"rank {mesh.rank}: {n_steps} batched steps in {wall:.2f} s")
+    write_rank_result("dp2", mesh.rank, dict(
+        rank=mesh.rank, dp_rank=mesh.dp_rank, wall=wall, n_steps=n_steps,
+        results=results_of(done),
+        mine=list(range(mesh.dp_rank, len(BATCH_CAPTIONS), mesh.dp)),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=launches))
+    torch.distributed.destroy_process_group()
+
+
+def run_parallel_rank(torch, part: str, card: str, smi: str) -> None:
+    """The body of one rank process (``--parallel-rank``)."""
+    tag = f"{card}, {smi}"
+    if part == "nccl":
+        rank_nccl(torch)
+    elif part == "tp2":
+        rank_tp2(torch, Timer(torch), tag)
+    else:
+        rank_dp2(torch)
+
+
+def phase_parallel(torch, card: str, xl: dict):
+    """(a) NCCL in a world of one, (b) Lumina-7B over tp = 2 and (c)
+    LlamaGen-XL over dp = 2, each in rank processes of this script; the
+    two ranks of (b) and (c) share the one card over gloo (NCCL refuses two
+    ranks on one device).  Returns the paths' launches and the K1 / K2
+    shard records."""
+    from lantern_tpu_torch import trees
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # (a)
+    (a,) = parallel_spawn("nccl", 1)
+    if a["backend"] != "nccl" or a["world"] != 1 or a["mesh"] != [1, 1]:
+        fail(f"parallel (a): backend {a['backend']} world {a['world']} mesh "
+             f"{a['mesh']}, want nccl, 1, [1, 1]")
+    if not a["equal"] or a["host_mean"] != 3.0:
+        fail(f"parallel (a): tokens under set_mesh equal to the run without "
+             f"it: {a['equal']}; host_mean(3.0) = {a['host_mean']}")
+    if a["launches"] != a["want"] or a["alone_launches"] != a["want"]:
+        fail(f"parallel (a) launched {a['launches']} under the mesh and "
+             f"{a['alone_launches']} without, its shapes give {a['want']}")
+    log(f"parallel (a) [{card}] NCCL world of one on {a['device']} "
+        f"(init_distributed() from RANK=0 WORLD_SIZE=1 MASTER_ADDR=127.0.0.1),"
+        f" Mesh(dp=1, tp=1): the pinned stale + deferred Lumina-7B path at "
+        f"16x16 ({a['n_valid']} tokens, {a['steps']} steps, {a['wall']:.2f} s;"
+        f" {a['wall_alone']:.2f} s without the mesh) under set_mesh equals "
+        f"the run without it bit for bit; host_mean(3.0) = {a['host_mean']}; "
+        f"launches {a['launches']} = the derived counts")
+    # (b)
+    outs = parallel_spawn("tp2", 2)
+    r0, r1 = outs
+    if r0["tokens"] != r1["tokens"]:
+        fail("parallel (b): the two tp ranks committed different token "
+             "streams")
+    for o in outs:
+        if not o["ranks_equal"]:
+            fail(f"parallel (b) rank {o['rank']}: its logits differ from "
+                 f"rank 0's")
+        tol = [PARALLEL_TOL_FACTOR * f for f in o["floor"]["rms"]]
+        if not within(o["errs"]["rms"], tol):
+            fail(f"parallel (b) rank {o['rank']}: prefill / verify logits "
+                 f"{o['errs']['rms']} (RMS difference over one process's "
+                 f"RMS) over the tolerance {tol} = {PARALLEL_TOL_FACTOR} x "
+                 f"the one-split floor")
+        for name, e in o["wrong"].items():
+            if within(e["rms"], tol):
+                fail(f"parallel (b) rank {o['rank']}: the known-wrong variant "
+                     f"{name} errs {e['rms']}, within the tolerance {tol}")
+        if o["launches"] != o["want"]:
+            fail(f"parallel (b) rank {o['rank']} launched {o['launches']}, "
+                 f"its shapes give {o['want']}")
+        if o["n_valid"] != PARALLEL_TOKENS:
+            fail(f"parallel (b) rank {o['rank']} committed {o['n_valid']} of "
+                 f"{PARALLEL_TOKENS} tokens")
+        if not o["kernels"]["k2_split_equal"]:
+            fail("parallel (b): K2 on a rank's groups at the whole model's "
+                 "split count differs from those groups of the whole launch")
+    n = PARALLEL_TOKENS
+    same = sum(int(x == y) for x, y in zip(r0["tokens"][:n],
+                                           r0["ref_tokens"][:n]))
+    lead = next((i for i, (x, y) in enumerate(zip(r0["tokens"],
+                                                  r0["ref_tokens"]))
+                 if x != y), n)
+    wrong = {k: min(max(o["wrong"][k]["rms"]) for o in outs)
+             for k in r0["wrong"]}
+    tol = [PARALLEL_TOL_FACTOR * f for f in r0["floor"]["rms"]]
+    log(f"parallel (b) [{card}] Lumina-7B (32 layers, full width, int8 "
+        f"weights and KV) over tp = 2: two ranks on the one card over gloo "
+        f"(NCCL refuses two ranks on one device); prefill / verify logits "
+        f"{r0['errs']['rms'][0]:.4f} / {r0['errs']['rms'][1]:.4f} RMS of one "
+        f"process's RMS (largest difference {r0['errs']['max'][0]:.4f} / "
+        f"{r0['errs']['max'][1]:.4f} of its largest magnitude), within "
+        f"{tol[0]:.4f} / {tol[1]:.4f} = {PARALLEL_TOL_FACTOR} x the one-split "
+        f"floor {r0['floor']['rms'][0]:.4f} / {r0['floor']['rms'][1]:.4f}; "
+        f"the ranks' logits equal byte for byte; the known-wrong variants err "
+        f"at least (RMS, the larger block) "
+        + ", ".join(f"{k} {v:.3e}" for k, v in wrong.items())
+        + f"; the ranks' {n} tokens equal byte for byte, {same} of them equal "
+        f"to one process's (the first {lead} in a row); {r0['steps']} steps, "
+        f"{r0['ms_step']:.2f} ms a step ({r0['wall']:.2f} s); collectives "
+        f"{100 * r0['coll_share']:.1f} % of a step ({r0['coll_ms_step']:.2f} "
+        f"of {r0['inst_ms_step']:.2f} ms a step over {r0['inst_steps']} "
+        f"steps, {r0['coll_calls']} collectives, each timed from a drained "
+        f"card); peak memory a rank {r0['peak_gib']:.2f} / "
+        f"{r1['peak_gib']:.2f} GiB; launches {r0['launches']} = the derived "
+        f"counts")
+    # (c)
+    cfg = xl["cfg"]
+    serve, alone = batched_serving(torch, xl, PARALLEL_TOKENS)
+    serve(2, tokens=4)                         # warm-up
+    ref, ref_steps, ref_wall = serve(len(BATCH_CAPTIONS))
+    if any(r.error is not None for r in ref):
+        fail(f"parallel (c): the one-process run failed a request: "
+             f"{[r.error for r in ref]}")
+    # phase 8's bar at full depth: batched equals alone, tokens and steps
+    for i in PARALLEL_ALONE:
+        lone = alone(i)
+        if not (np_equal(ref[i].tokens, lone.tokens.cpu().numpy())
+                and ref[i].steps == lone.steps):
+            fail(f"parallel (c): request {i} batched at full depth took "
+                 f"{ref[i].steps} steps, alone {lone.steps}; tokens equal "
+                 f"{np_equal(ref[i].tokens, lone.tokens.cpu().numpy())}")
+    want_res = results_of(ref)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    outs_c = parallel_spawn("dp2", 2)
+    tree = trees.get_tree("chain_bush_8")
+    levels = [len(lv.child_flat_idx) for lv in tree.levels]
+    for o in outs_c:
+        if o["results"] != want_res:
+            bad = [w[0] for g, w in zip(o["results"], want_res) if g != w]
+            fail(f"parallel (c) rank {o['rank']}: requests {bad} differ from "
+                 f"the one-process batched run (uid, error, tokens, steps)")
+        want, _ = spec_launches(
+            cfg.num_layers, [cfg.cls_token_num] * len(o["mine"]),
+            o["n_steps"], tree.num_nodes, tree.path_len, levels,
+            deferred=False, slots=BATCH_SLOTS // 2)
+        if o["launches"] != want:
+            fail(f"parallel (c) rank {o['rank']} launched {o['launches']}, "
+                 f"its shapes give {want}")
+    toks = len(BATCH_CAPTIONS) * PARALLEL_TOKENS
+    wall = max(o["wall"] for o in outs_c)
+    log(f"parallel (c) [{card}] LlamaGen-XL (36 layers, full width, int8) "
+        f"over dp = 2: two ranks on the one card over gloo, "
+        f"{len(BATCH_CAPTIONS)} requests x {PARALLEL_TOKENS} tokens dealt "
+        f"i % 2 onto {BATCH_SLOTS // 2} slots a rank (native queue): every "
+        f"rank's gathered results equal the one-process batched run on "
+        f"{BATCH_SLOTS} slots (uid, tokens, steps), and that run's requests "
+        f"{list(PARALLEL_ALONE)} equal spec.generate alone (tokens, steps); "
+        f"{toks / wall:.2f} tok/s "
+        f"over both ranks ({wall:.2f} s; batched steps "
+        f"{[o['n_steps'] for o in outs_c]}) vs {toks / ref_wall:.2f} tok/s "
+        f"one process ({ref_wall:.2f} s, {ref_steps} steps); peak memory a "
+        f"rank {', '.join(format(o['peak_gib'], '.2f') for o in outs_c)} GiB;"
+        f" launches = the derived counts")
+    launches = {"parallel_nccl": a["launches"]}
+    for o in outs:
+        launches[f"parallel_tp2_rank{o['rank']}"] = o["launches"]
+    for o in outs_c:
+        launches[f"parallel_dp2_rank{o['rank']}"] = o["launches"]
+    return launches, r0["kernels"]
+
+
 def tree_map(fn, tree):
     """``fn`` over the tensors of a nested dict / list tree."""
     if isinstance(tree, dict):
@@ -4320,6 +5132,11 @@ def main() -> int:
     ap.add_argument("--evals-only", action="store_true",
                     help="after the build, run only the evals phase "
                          "(prints no result line)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="after the build, run only the parallel phase "
+                         "(prints no result line)")
+    ap.add_argument("--parallel-rank", choices=("nccl", "tp2", "dp2"),
+                    help=argparse.SUPPRESS)   # a rank process of that phase
     args = ap.parse_args()
 
     import torch
@@ -4338,6 +5155,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
     smi = smi_line()
+    if args.parallel_rank:
+        run_parallel_rank(torch, args.parallel_rank, card, smi)
+        return 0
     log(f"device: {card}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; count {torch.cuda.device_count()}")
 
@@ -4360,7 +5180,8 @@ def main() -> int:
 
     if args.session_only:
         timed("session", phase_session, torch, tag,
-              timed("build_xl", build_xl, torch), timer)
+              cut_depth(timed("build_xl", build_xl, torch), CUT_LAYERS),
+              timer)
         log("session-only run: build and session phases passed")
         return 0
     if args.tools_only:
@@ -4377,6 +5198,11 @@ def main() -> int:
         timed("evals", phase_evals, torch, tag)
         log("evals-only run: build and evals phases passed")
         return 0
+    if args.parallel_only:
+        timed("parallel", phase_parallel, torch, tag,
+              timed("build_xl", build_xl, torch))
+        log("parallel-only run: build and parallel phases passed")
+        return 0
     records = timed("kernels", phase_kernels, torch, timer, tag, args.grid)
     timed("forward", phase_forward, torch)
     timed("forward_llamagen", phase_forward_llamagen, torch)
@@ -4386,9 +5212,13 @@ def main() -> int:
     launches = timed("main_path", phase_main_path, torch, args.grid, tag)
     xl = timed("build_xl", build_xl, torch)
     launches.update(timed("xl", phase_xl, torch, tag, xl))
-    launches.update(timed("batched_xl", phase_batched, torch, tag, xl))
+    xl_cut = cut_depth(xl, CUT_LAYERS)
+    launches.update(timed("batched_xl", phase_batched, torch, tag, xl_cut))
+    parallel_launches, parallel = timed("parallel", phase_parallel, torch,
+                                        tag, xl)
+    launches.update(parallel_launches)
     session_launches, k2_dynamic = timed("session", phase_session, torch,
-                                         tag, xl, timer)
+                                         tag, xl_cut, timer)
     launches.update(session_launches)
     tools_launches, tools = timed("tools", phase_tools, torch, tag, xl, timer)
     launches.update(tools_launches)
@@ -4426,9 +5256,10 @@ def main() -> int:
                             "bound_by", "library_ms", "shape")}})
     kernels[1]["dynamic_batched"] = k2_dynamic
     for k, name in enumerate(("int8_matmul", "tree_attention")):
-        kernels[k]["tools"] = {key: tools[name][key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")}
+        for sub, rec in (("tools", tools), ("parallel_tp2", parallel)):
+            kernels[k][sub] = {key: rec[name][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -65,7 +65,8 @@ def generate(
     Tc = cfg.cls_token_num
     embeds = tfm.cond_embed(params, cfg,
                             torch.cat([cond, uncond], dim=0).to(dev))
-    kv = KVCache.create(cfg, 2, quantized=kv_quant, device=dev)
+    kv = KVCache.create(cfg, 2, quantized=kv_quant, device=dev,
+                        groups=tfm.cache_groups(cfg, params))
     block = None
     if prefix_valid is not None:
         pv = torch.ones((2, kv.max_len), dtype=torch.bool, device=dev)
@@ -126,7 +127,8 @@ def generate_tokens(
             logits = logits_fn(logits, cond_pos)
         return logits
 
-    kv = KVCache.create(cfg, 2, quantized=kv_quant, device=dev)
+    kv = KVCache.create(cfg, 2, quantized=kv_quant, device=dev,
+                        groups=tfm.cache_groups(cfg, params))
     valid = tp.valid.bool()
     block = (torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None]
              & valid[:, None, :])
@@ -198,7 +200,8 @@ def generate_many(
         params, cfg, torch.cat([conds[r].reshape((1,) + uncond.shape[1:]),
                                 uncond], dim=0).to(dev)) for r in range(R)])
     kv = KVCache.create(cfg, 2 * R, quantized=kv_quant, device=dev,
-                        row_lengths=True)
+                        row_lengths=True,
+                        groups=tfm.cache_groups(cfg, params))
     block = None
     if prefix_valid is not None:
         pv = torch.ones((2 * R, kv.max_len), dtype=torch.bool, device=dev)
@@ -268,7 +271,8 @@ def generate_tokens_many(
         return logits
 
     kv = KVCache.create(cfg, 2 * R, quantized=kv_quant, device=dev,
-                        row_lengths=True)
+                        row_lengths=True,
+                        groups=tfm.cache_groups(cfg, params))
     block = (torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None]
              & valid[:, None, :])
     res = tfm.forward(params, cfg,

@@ -42,12 +42,19 @@ the vmap form):
 - No step reads anything back to the host, so ``step_many(n)`` is n steps
   without a sync; ``slot_status`` is one fetch.
 
-Not ported here: ``deferred_commit`` (the JAX engine rejects it too) and
-the mesh (item 18).
+- **Mesh.**  ``mesh`` (``parallel.mesh.make_mesh``) serves over a (dp, tp)
+  process mesh: each dp row holds ``num_slots / dp`` slots (``slots``),
+  with the base weights and KV over its tp ranks (shard ``params`` with
+  ``parallel.mesh.shard_pytree`` first) and the drafter replicated; the
+  engine runs its forwards under ``set_mesh(mesh)``.  ``Scheduler`` deals
+  the requests over dp and gathers the results.
+
+Not ported here: ``deferred_commit`` (the JAX engine rejects it too).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional
 
@@ -59,6 +66,7 @@ from ..device import resolve_device
 from ..kv import KVCache
 from ..models import drafter as drf
 from ..models import transformer as tfm
+from ..parallel.mesh import set_mesh
 from ..trees import TreeSpec
 from . import spec
 from .spec import SpecDecodeConfig, SpecState, _Ctx
@@ -139,7 +147,9 @@ class BatchedEngine:
     ``dparams``/``dcfg``: the EAGLE drafter, needed unless
     ``ecfg.stale_draft``; ``logits_fn``: a grid FSM (each slot binds its
     own start, ``spec.bind_logits_fn``); ``device``: ``None`` is
-    ``cuda``."""
+    ``cuda``; ``mesh``: a (dp, tp) ``parallel.mesh.Mesh`` (``num_slots``
+    must be a multiple of its dp size; this rank serves ``slots`` of
+    them)."""
 
     ecfg: SpecDecodeConfig
     cfg: ModelConfig
@@ -151,6 +161,7 @@ class BatchedEngine:
     logits_mask: Optional[torch.Tensor] = None
     logits_fn: object = None
     device: object = None
+    mesh: object = None
 
     def __post_init__(self):
         if self.ecfg.deferred_commit:
@@ -164,10 +175,24 @@ class BatchedEngine:
             raise ValueError("stale_draft requires mode='static'")
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {self.num_slots}")
+        dp = 1 if self.mesh is None else self.mesh.dp
+        if self.num_slots % dp:
+            raise ValueError(
+                f"num_slots {self.num_slots} must be a multiple of the "
+                f"mesh dp size {dp}")
         self.device = resolve_device(self.device)
         self._tree = (spec.static_tree(self.tree, self.device)
                       if self.ecfg.mode == "static" else None)
         self._rope = tfm.make_rope_tables(self.cfg, self.device)
+
+    @property
+    def slots(self) -> int:
+        """The slots this rank serves: ``num_slots / dp``."""
+        return self.num_slots // (1 if self.mesh is None else self.mesh.dp)
+
+    def _on_mesh(self):
+        return (contextlib.nullcontext() if self.mesh is None
+                else set_mesh(self.mesh))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -176,11 +201,13 @@ class BatchedEngine:
                 token_prompt=None, prefix_valid=None):
         """Prefill one request -> ``(SpecState, _Ctx)``, as
         ``spec.prefill_request`` (its draws come from ``generator``)."""
-        return spec.prefill_request(
-            self.params, self.ecfg, self.cfg, self.tree, token_prompt,
-            generator, logits_mask=self.logits_mask, logits_fn=self.logits_fn,
-            device=self.device, dparams=self.dparams, dcfg=self.dcfg,
-            cond=cond, uncond=uncond, prefix_valid=prefix_valid)
+        with self._on_mesh():
+            return spec.prefill_request(
+                self.params, self.ecfg, self.cfg, self.tree, token_prompt,
+                generator, logits_mask=self.logits_mask,
+                logits_fn=self.logits_fn, device=self.device,
+                dparams=self.dparams, dcfg=self.dcfg, cond=cond,
+                uncond=uncond, prefix_valid=prefix_valid)
 
     def empty_batch(self, proto) -> Batch:
         """R empty slots shaped like the prefilled request ``proto``: a base
@@ -189,10 +216,11 @@ class BatchedEngine:
         drafter cache and (under sampling) a generator of its own, so that
         steps leave them frozen until ``insert`` fills them."""
         state, ctx = proto
-        R, dev = self.num_slots, self.device
+        R, dev = self.slots, self.device
         base = KVCache.create(self.cfg, 2 * R, max_len=state.base_kv.max_len,
                               quantized=self.ecfg.kv_quant, device=dev,
-                              row_lengths=True)
+                              row_lengths=True,
+                              groups=tfm.cache_groups(self.cfg, self.params))
         S = base.max_len
 
         def idle_ctx():
@@ -214,8 +242,8 @@ class BatchedEngine:
         batch rows ``2 * slot`` and ``2 * slot + 1`` (``index_copy_``), its
         pad mask and offsets, its leaves and its context."""
         state, ctx = request
-        if not 0 <= slot < self.num_slots:
-            raise ValueError(f"slot {slot} outside [0, {self.num_slots})")
+        if not 0 <= slot < self.slots:
+            raise ValueError(f"slot {slot} outside [0, {self.slots})")
         r0 = 2 * slot
         batch.base_kv = batch.base_kv.put_rows(r0, state.base_kv)
         batch.prefix_valid[r0:r0 + 2] = ctx.prefix_valid
@@ -228,8 +256,12 @@ class BatchedEngine:
     def step(self, batch: Batch) -> Batch:
         """One speculative step of every slot (finished slots stay frozen);
         updates ``batch`` in place and returns it."""
+        with self._on_mesh():
+            return self._step(batch)
+
+    def _step(self, batch: Batch) -> Batch:
         ecfg, tree = self.ecfg, self._tree
-        R = self.num_slots
+        R = self.slots
         kv = batch.base_kv
         if tree is not None:
             blocks = [spec.static_tree_block(ecfg, tree, st)

@@ -527,7 +527,8 @@ def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
     nearest = params.get("nearest_latents")
     if ecfg.lantern.enabled and nearest is None:
         raise ValueError("lantern enabled but params lack 'nearest_latents'")
-    base_kv = KVCache.create(cfg, 2, quantized=ecfg.kv_quant, device=dev)
+    base_kv = KVCache.create(cfg, 2, quantized=ecfg.kv_quant, device=dev,
+                             groups=tfm.cache_groups(cfg, params))
     S = base_kv.max_len
     pv = torch.ones((2, S), dtype=torch.bool, device=dev)
     zero2 = torch.zeros((2,), dtype=torch.int32, device=dev)
@@ -623,9 +624,10 @@ def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
     if ecfg.deferred_commit:
         N1 = int(spec.tree_indices.shape[0])
         D = int(spec.retrieve_indices.shape[1])
+        # this rank's heads under a tp mesh
         zblk = torch.zeros(
-            (cfg.num_layers, 2, N1, cfg.num_kv_heads, cfg.head_dim),
-            dtype=cfg.torch_dtype, device=dev)
+            (cfg.num_layers, 2, N1, tfm.local_heads(cfg, params["layers"]),
+             cfg.head_dim), dtype=cfg.torch_dtype, device=dev)
         state = state._replace(
             blk=(zblk, zblk),
             psel=torch.zeros((D,), dtype=torch.int32, device=dev), pn=zero())

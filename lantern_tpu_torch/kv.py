@@ -309,9 +309,13 @@ class KVCache:
     @staticmethod
     def create(cfg: ModelConfig, batch: int, max_len: Optional[int] = None,
                dtype=None, quantized: bool = False, device=None,
-               row_lengths: bool = False) -> "KVCache":
+               row_lengths: bool = False,
+               groups: Optional[int] = None) -> "KVCache":
         """Zeroed planes for ``batch`` rows; ``row_lengths`` gives every row
-        a length of its own (``[batch]``), else one scalar length."""
+        a length of its own (``[batch]``), else one scalar length.
+        ``groups``: the head groups the cache holds, all of them by default;
+        a tp rank's share for the weights of one rank
+        (``transformer.cache_groups``)."""
         from .device import resolve_device
 
         dev = resolve_device(device)
@@ -319,6 +323,8 @@ class KVCache:
         S = -(-S // 128) * 128
         dt = torch.int8 if quantized else (dtype or cfg.torch_dtype)
         G, W = group_dims(cfg.num_kv_heads, cfg.head_dim)
+        if groups is not None:
+            G = groups
         shape = (cfg.num_layers, batch, G, S, W)
 
         def scales():

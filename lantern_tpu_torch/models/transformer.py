@@ -16,6 +16,12 @@ the layer loop ``KVCache.write`` (K3, one launch for all layers).  The
 EAGLE drafter runs the same ``forward`` with its own config (pre-norm, no
 final norm) and a bf16 cache.
 
+Under a tensor-parallel mesh (``parallel.mesh.set_mesh``) ``forward``
+takes this rank's shard of the weights: its head count from the shard's
+q columns, and an all-reduce over tp (``quant.mm_row``) right after each
+row-split matmul, before anything that follows it (Lumina's swin
+post-norms included); ``logits_head`` gathers a vocab-split head.
+
 Training goes through ``forward_train`` (``train_layer_block`` over the
 layer stack): cache-free, dense and differentiable, the JAX package's
 einsum + softmax math with plain matmuls and no kernel, each layer
@@ -34,11 +40,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig
 from ..device import resolve_device
-from ..kv import KVCache
-from ..ops.quant import has_kernel, head_matmul, head_of, mm
+from ..kv import KVCache, group_dims
+from ..ops.quant import has_kernel, head_matmul, head_of, mm, mm_row
 from ..ops.rope import (apply_rope_half, apply_rope_interleaved,
                         rope_table_1d, rope_table_2d)
 from ..ops.tree_attention import NEG_INF, tree_attention
+from ..parallel.mesh import tp_group
 
 
 def _require_mha(cfg: ModelConfig) -> None:
@@ -169,6 +176,37 @@ def logits_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     return head_matmul(hidden, head_of(params))
 
 
+def _kernel(lp: dict, name: str) -> torch.Tensor:
+    return lp[name] if name in lp else lp[name + "_q"]
+
+
+def local_heads(cfg: ModelConfig, lp: dict) -> int:
+    """Attention heads of the (layer-stacked) weights ``lp``: all of them,
+    or one tp rank's share (MHA: q, k and v have as many)."""
+    if has_kernel(lp, "wqkv"):
+        return _kernel(lp, "wqkv").shape[-1] // (3 * cfg.head_dim)
+    return _kernel(lp, "wq").shape[-1] // cfg.head_dim
+
+
+def cache_groups(cfg: ModelConfig, params: dict) -> int:
+    """Head groups of the KV cache that ``params`` serve: all of them, or
+    one tp rank's share (``KVCache.create(.., groups=)``)."""
+    W = group_dims(cfg.num_kv_heads, cfg.head_dim)[1]
+    return local_heads(cfg, params["layers"]) * cfg.head_dim // W
+
+
+def _row_groups(cfg: ModelConfig, lp: dict):
+    """The tp group each row-split kernel (``wo``, ``w_down``) reduces over,
+    or None where ``lp`` holds all its rows."""
+    attn = local_heads(cfg, lp) != cfg.num_heads
+    ffn = _kernel(lp, "w_down").shape[-2] != cfg.intermediate_size
+    group = tp_group() if attn or ffn else None
+    if (attn or ffn) and group is None:
+        raise ValueError("forward: the weights are one tp rank's shard; run "
+                         "it under parallel.mesh.set_mesh(mesh) with tp > 1")
+    return (group if attn else None), (group if ffn else None)
+
+
 def build_mask(T: int, S: int, cur_len: torch.Tensor,
                block_mask: Optional[torch.Tensor],
                prefix_valid: Optional[torch.Tensor], batch: int):
@@ -235,7 +273,16 @@ def forward(
         raise ValueError("forward(commit=True) requires write_offset == 0")
     _require_mha(cfg)
     B, T, H = embeds.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lp = params["layers"]
+    # this rank's heads (all of them without a tp split)
+    nh = nkv = local_heads(cfg, lp)
+    hd = cfg.head_dim
+    wo_group, down_group = _row_groups(cfg, lp)
+    if kv.k.shape[2] != cache_groups(cfg, params):
+        raise ValueError(
+            f"forward: the cache holds {kv.k.shape[2]} head groups, the "
+            f"weights serve {cache_groups(cfg, params)}: create it with "
+            f"groups=cache_groups(cfg, params)")
     L = cfg.num_layers
     S = kv.max_len
     cos, sin = rope
@@ -262,7 +309,6 @@ def forward(
     apply_rope = (apply_rope_interleaved if cfg.rope_pairing == "interleaved"
                   else apply_rope_half)
     scale = hd ** -0.5
-    lp = params["layers"]
     k_all = torch.empty((L, B, T, nkv, hd), dtype=embeds.dtype, device=dev)
     v_all = torch.empty_like(k_all)
 
@@ -297,7 +343,8 @@ def forward(
             k_scale=None if kv.k_scale is None else kv.k_scale[li],
             v_scale=None if kv.v_scale is None else kv.v_scale[li],
             window_mask=window_mask)
-        attn_out = mm(o.reshape(B, T, nh * hd), w, "wo")
+        # a row-split wo is reduced here, before the swin post-norm
+        attn_out = mm_row(o.reshape(B, T, nh * hd), w, "wo", wo_group)
 
         if cfg.swin_norm:
             h1 = h + rms_norm(attn_out, w["attn_norm"], cfg.rms_norm_eps)
@@ -308,10 +355,10 @@ def forward(
         if has_kernel(w, "w_gu"):
             gu = mm(mlp_in, w, "w_gu")
             inter = gu.shape[-1] // 2
-            mlp = mm(F.silu(gu[..., :inter]) * gu[..., inter:], w, "w_down")
+            act = F.silu(gu[..., :inter]) * gu[..., inter:]
         else:
-            mlp = mm(F.silu(mm(mlp_in, w, "w_gate")) * mm(mlp_in, w, "w_up"),
-                     w, "w_down")
+            act = F.silu(mm(mlp_in, w, "w_gate")) * mm(mlp_in, w, "w_up")
+        mlp = mm_row(act, w, "w_down", down_group)
         if cfg.swin_norm:
             mlp = rms_norm(mlp, w["ffn_norm"], cfg.rms_norm_eps)
         h = h1 + mlp

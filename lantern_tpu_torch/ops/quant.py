@@ -9,14 +9,23 @@ same: a quantized kernel replaces params entry ``name`` with ``name + "_q"``
 ``csrc/int8_matmul.cu`` (replacing ``int8_matmul_pallas``,
 ``lantern_tpu/ops/quant.py:73``); on CPU tensors it runs ``int8_matmul``,
 the plain PyTorch version.
+
+Under a tensor-parallel mesh (``parallel/mesh.py``) the two Megatron
+collectives live here: ``mm_row`` all-reduces a row-split kernel's f32
+partial products over tp and rounds them to the activation dtype once, and
+``head_matmul`` all-gathers a vocab-split head's logits (``head_of`` marks
+such a head as a ``VocabShard``).  Without a mesh, or at ``tp == 1``,
+neither runs.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as tdist
 
 from . import _cuda
 from ..kv import _127
+from ..parallel.mesh import tp_group
 
 LAYER_KERNELS = ("wqkv", "w_gu", "wq", "wk", "wv", "wo",
                  "w_gate", "w_up", "w_down")
@@ -136,26 +145,84 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return int8_matmul(x, q, s, out_dtype)
 
 
-def mm(x: torch.Tensor, w: dict, name: str) -> torch.Tensor:
-    """Matmul against ``w[name]``, using the quantized entries if present."""
+def mm(x: torch.Tensor, w: dict, name: str, out_dtype=None) -> torch.Tensor:
+    """Matmul against ``w[name]``, using the quantized entries if present;
+    ``out_dtype`` f32 gives the product unrounded."""
     if name in w:
-        return x @ w[name]
-    return w8a16_matmul(x, w[name + "_q"], w[name + "_s"])
+        if out_dtype is None:
+            return x @ w[name]
+        return (x.to(out_dtype) @ w[name].to(out_dtype))
+    return w8a16_matmul(x, w[name + "_q"], w[name + "_s"], out_dtype)
+
+
+def mm_row(x: torch.Tensor, w: dict, name: str, group) -> torch.Tensor:
+    """``x @ w[name]`` for a kernel whose rows (the contraction) are split
+    over ``group``: each rank's f32 partial product, summed over the group
+    in f32 and rounded to ``x``'s dtype once, so the result is one f32
+    summation order away from one process's.  ``group`` None: ``mm``."""
+    if group is None:
+        return mm(x, w, name)
+    part = mm(x, w, name, torch.float32)
+    tdist.all_reduce(part, group=group)
+    return part.to(x.dtype)
 
 
 def has_kernel(w: dict, name: str) -> bool:
     return name in w or name + "_q" in w
 
 
+class VocabShard:
+    """This tp rank's ``[H, V / tp]`` columns of a vocab-split lm_head
+    (dense or an ``(int8, scale)`` pair) and the group holding the rest."""
+
+    def __init__(self, head, group):
+        self.head, self.group = head, group
+
+
 def head_of(params: dict):
-    """The lm_head as a dense [H, V] tensor or an ``(int8, scale)`` pair."""
-    if "lm_head" in params:
-        return params["lm_head"]
-    return (params["lm_head_q"], params["lm_head_s"])
+    """The lm_head as a dense [H, V] tensor or an ``(int8, scale)`` pair;
+    under a tp mesh, where it holds fewer columns than the embedding has
+    rows, a ``VocabShard`` of it."""
+    head = (params["lm_head"] if "lm_head" in params
+            else (params["lm_head_q"], params["lm_head_s"]))
+    group = tp_group()
+    if group is not None and "embed" in params:
+        cols = (head[0] if isinstance(head, tuple) else head).shape[-1]
+        if cols != params["embed"].shape[0]:
+            return VocabShard(head, group)
+    return head
+
+
+def tp_all_gather(local: torch.Tensor, group) -> torch.Tensor:
+    """The tp ranks' ``[.., n]`` pieces side by side in rank order:
+    ``[.., n * tp]``.  NCCL, and gloo on host tensors, run ``all_gather``;
+    gloo has no all-gather of CUDA tensors, so there ``gather_by_reduce``
+    stands in."""
+    if local.is_cuda and tdist.get_backend(group) == "gloo":
+        return gather_by_reduce(local, group)
+    pieces = [torch.empty_like(local)
+              for _ in range(tdist.get_world_size(group))]
+    tdist.all_gather(pieces, local.contiguous(), group=group)
+    return torch.cat(pieces, dim=-1)
+
+
+def gather_by_reduce(local: torch.Tensor, group) -> torch.Tensor:
+    """``tp_all_gather`` by an all-reduce: each rank writes its piece into
+    a zero-filled ``[.., n * tp]`` buffer and the buffers are summed (exact:
+    every element is one rank's value plus zeros)."""
+    n, r = local.shape[-1], tdist.get_rank(group)
+    full = local.new_zeros(local.shape[:-1]
+                           + (n * tdist.get_world_size(group),))
+    full[..., r * n:(r + 1) * n] = local
+    tdist.all_reduce(full, group=group)
+    return full
 
 
 def head_matmul(hidden: torch.Tensor, head) -> torch.Tensor:
-    """f32 logits from a ``head_of`` value."""
+    """f32 logits from a ``head_of`` value (all vocab columns: a
+    ``VocabShard``'s are gathered over tp)."""
+    if isinstance(head, VocabShard):
+        return tp_all_gather(head_matmul(hidden, head.head), head.group)
     if isinstance(head, tuple):
         return w8a16_matmul(hidden, head[0], head[1], out_dtype=torch.float32)
     return (hidden @ head).float()
