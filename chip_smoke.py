@@ -17,12 +17,20 @@ Run from the repository root on a machine with one NVIDIA H100:
                                            # (12 below), no result line
     python3 chip_smoke.py --parallel-only  # the build and the parallel
                                            # phase (13 below), no result line
+    python3 chip_smoke.py --parallel-train-only  # the build, the self-test
+                                           # and the parallel phase's
+                                           # training parts ((a), (d),
+                                           # (e) of 13), no result line
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. device: the card's name and ``nvidia-smi`` power limit;
 2. build: compiles the CUDA kernels of ``lantern_tpu_torch/csrc`` through
-   ``torch.utils.cpp_extension.load``;
+   ``torch.utils.cpp_extension.load``; then the kernel self-test
+   (``ops/selftest.run_kernel_selftest`` on the card: K1-K4 through the
+   dispatching ops against dense forms at the JAX module's shapes, and 48
+   sampled tokens with deferred commit equal to rollback commit through
+   the kernels), whose errors the kernel records carry;
 3. kernels: each kernel (K1 W8A16 matmul, K2 tree attention, K3 KV write,
    K4 tree-rollback gather) against its plain PyTorch version at the
    Lumina lane's shapes, with known-wrong variants that the comparison
@@ -46,8 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
    text tokens and the calibrated tree ``ckpts/bench_tree_lumina.json``,
    LANTERN k=10 delta=5, top-2000, cfg 3.0.  Four paths, each with the
    launch counters reset just before and read just after, and (for the
-   first three) a profile of a few steps (device time by kernel, the four
-   port kernels' rows always among them, device-busy share):
+   stale + deferred path) a profile of a few steps (device time by kernel,
+   the four port kernels' rows always among them, device-busy share):
    - the AR twin;
    - the speculative engine with stale drafting and deferred commit (K1,
      K2, K3);
@@ -73,7 +81,7 @@ Phases (any failure exits non-zero and prints no result line):
    static spec over ``ckpts/bench_tree_XL.json`` with deferred commit (bf16
    KV) and dynamic EAGLE-2 spec (59/4/10) with the rollback commit (int8
    KV), each with its launch counts equal to the derived ones (K4 once a
-   dynamic verify step) and its tokens in the vocab, and a profile; then
+   dynamic verify step) and its tokens in the vocab; then
    the rollback check of step 6 on the XL static path (the drafter over the
    calibrated tree, bf16 KV);
 8. batched serving: in phase 3 K2, K3 and K4 with one length or start per
@@ -176,8 +184,25 @@ Phases (any failure exits non-zero and prints no result line):
    every request's uid, tokens and steps equal the one-process batched
    run, and that run's (at full depth, where phase 8 runs cut) equal
    ``spec.generate`` alone for ``PARALLEL_ALONE`` of its requests, first
-   fills and refills.  ``--parallel-only`` runs the build and this phase
-   alone.
+   fills and refills.  (a) also trains a tiny f32 LlamaGen two steps
+   through the FSDP step at ``Mesh(dp=1, tp=1)`` and the pipeline at pp =
+   1, both bit-equal to ``finetune.train_step`` (their collectives NCCL's
+   over groups of one).  (d) and (e) train LlamaGen-XL at full width and
+   depth (bf16 weights, ``TRAIN_ROWS`` token-only rows of ``TRAIN_T``),
+   two ranks over gloo in one spawn: (d) GPipe over pp = 2 with
+   ``TRAIN_MICRO`` microbatches, (e) FSDP over tp = 2 with the weights
+   and AdamW state sharded and a biting clip.  Loss, gradients (d), grad
+   norm (e) and the parameters after two steps lie within
+   ``TRAIN_TOL_FACTOR`` of a floor measured in the same run (one process's
+   gradients over the sharded run's parts of the batch, summed) of one
+   process's, and the known-wrong variants lie beyond it: (d) the
+   replicated leaves' gradients not summed over pp, the stages' layer
+   slices swapped; (e) the clip by the shard's own norm, and the tp
+   reduce-scatter replaced by the rank's own gradient ((e) holds each
+   parameter leaf to its own floor).  Each prints ms a
+   step, the collectives' share of an instrumented step and peak memory a
+   rank.  ``--parallel-only`` runs the build and this phase alone;
+   ``--parallel-train-only`` the build, the self-test, (a), (d) and (e).
 
 Each phase prints its seconds.  The line before the last two is
 ``{"kernels": [...]}`` (``launches`` are the rollback path's, the one Lumina
@@ -187,7 +212,8 @@ record at the XL batch under ``batched``, K2's per-slot-mask record
 under ``dynamic_batched``, and K1's and K2's tools-phase records under
 ``tools``, their tp = 2 shard records under ``parallel_tp2``); then
 the ``nvidia-smi`` name/power-limit line; the last line is the device
-record.
+record.  Each kernel record also carries the self-test's error of its
+check (``selftest_max_abs_err``).
 """
 
 from __future__ import annotations
@@ -286,6 +312,28 @@ PARALLEL_ALONE = (0, 5, 8, 11)
 PARALLEL_TOL_FACTOR = 1.3
 PARALLEL_WRONG_LAYER = 16
 PARALLEL_PROFILE_STEPS = 8
+# the parallel phase's training parts, (d) GPipe at pp = 2 and (e) FSDP at
+# tp = 2, on LlamaGen-XL at full width and depth with bf16 weights: the
+# batch's token-only rows (the pipeline refuses a cond prefix, as JAX's
+# does), (d)'s microbatches and learning rate, (e)'s learning rate and
+# clip.  (e) clips to a norm far under the gradient's so that the clipped
+# gradients sit under AdamW's eps and the step scales with the clip (a
+# clip by a shard's own norm then moves the weights another way), with a
+# learning rate at which that step moves bf16 weights.  Each check holds
+# the sharded run to one process's within TRAIN_TOL_FACTOR of a floor
+# measured in the same run: one process's gradients with the batch's rows
+# in the parts the sharded run splits them into (4 microbatches; 2 ranks'
+# rows), each part's backward alone, summed, against the whole batch's
+TRAIN_ROWS, TRAIN_T, TRAIN_MICRO = 4, 256, 4
+PIPE_LR = 1e-3
+FSDP_LR, FSDP_CLIP = 1e-1, 1e-5
+TRAIN_TOL_FACTOR = 3.0
+# (e) holds each parameter leaf to its own floor: the norm weights near
+# 1.0, whose update under the biting clip is near half a bf16 ulp, have the
+# largest floor by far (PERF.md §6), and one floor for all would let any
+# other leaf's update be ~25 % off.  A leaf whose floor is under this
+# (every bit equal, say) is held to this.
+FSDP_LEAF_FLOOR_MIN = 1e-3
 # the evals phase: seeded PNGs for extract_code and as reference images,
 # the batch of the backbones' rates, and the metrics' feature count (COCO
 # val2017's FID size)
@@ -1842,11 +1890,11 @@ def phase_main_path(torch, grid: int, card: str):
         f"the card, then {n_long} AR tokens in {t_long:.2f} s, legal under "
         f"the FSM; prefill launches {pre_launch}; whole path {long_launch}")
 
+    # a profile costs 6-12 s of the card's host: this path's and the XL
+    # batched step's stay, the rollback, AR and XL paths' went for time
+    # (PERF.md §6)
     profile("spec (stale + deferred), 6 verify steps",
             lambda: run_spec(stale, 9, max_steps=6), card)
-    profile("rollback spec (drafter + rollback), 6 verify steps",
-            lambda: run_spec(rollback, 9, max_steps=6), card)
-    profile("ar, 12 tokens", lambda: run_ar(9, 12), card)
 
     # end-to-end check of K4: pinned choices make both commit modes
     # deterministic, and both must commit the same bytes
@@ -1947,7 +1995,7 @@ def phase_xl(torch, card: str, xl: dict):
     from a seed, one left-padded ``RandomT5`` caption against the params'
     ``uncond`` features, LANTERN k=10 delta=5, top-2000, cfg 3.0, the
     hidden-passthrough drafter.  Three paths, each with the launch counters
-    reset just before and read just after, and a profile:
+    reset just before and read just after:
     - the AR twin (``ar.generate``), 256 tokens, bf16 KV;
     - static: the drafter proposes ``ckpts/bench_tree_XL.json``, deferred
       commit, bf16 KV (the JAX bench's XL configuration);
@@ -2059,11 +2107,6 @@ def phase_xl(torch, card: str, xl: dict):
         f"{dres.step_compression:.3f}); dynamic/AR {t_ar / t_dyn:.3f}; peak "
         f"memory {peak_dyn:.2f} GiB; launches {dyn_launch} = the derived "
         f"counts (K4 once a step); per verify step {step_dyn}")
-    profile("XL static (drafter + deferred), 6 verify steps",
-            lambda: run_spec(static, 9, max_steps=6), card)
-    profile("XL dynamic (EAGLE-2 + rollback), 6 verify steps",
-            lambda: run_spec(dynamic, 9, max_steps=6), card)
-    profile("XL ar, 12 tokens", lambda: run_ar(9, 12), card)
 
     # end-to-end check of the XL paths at full depth: pinned choices make
     # the static path deterministic, and its rollback commit (K4 on the 36
@@ -3827,6 +3870,25 @@ def np_precision_recall(ref, fake, k: int, block: int = 2048):
     return coverage(ref, rr, fake), coverage(fake, rf, ref)
 
 
+class CardNormals:
+    """Normals from a seeded generator on the card, copied to the host as
+    f32 numpy: the ``rng`` argument of the port's random-weight helpers
+    (``normal`` / ``standard_normal``).  The weights need a seed, not
+    numpy's stream, and ~1.2e9 normals drawn on the host took ~30 s
+    (PERF.md §5)."""
+
+    def __init__(self, torch, seed: int):
+        self.torch = torch
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        x = self.torch.randn(size, generator=self.gen, device="cuda")
+        return (x * float(scale) + float(loc)).cpu().numpy()
+
+    def standard_normal(self, size=None):
+        return self.normal(size=size)
+
+
 def phase_evals(torch, card: str):
     """Phase 12, ``extract_code`` and the eval harness on the card, outputs
     under ``build/evals/`` (deleted at the end but for the score files):
@@ -3856,7 +3918,8 @@ def phase_evals(torch, card: str):
         pinned ViT-H/14) as subprocesses on the card over the repository's
         ``generated_images`` and seeded PNGs with the random ``.npz``
         weights and a synthetic BPE merges file: each writes its score
-        file or prints its scores, all finite."""
+        file or prints its scores, all finite (the two ``eval_fid_clip``
+        runs one after the other, the other two beside them)."""
     import contextlib
     import dataclasses
     import glob
@@ -3952,16 +4015,20 @@ def phase_evals(torch, card: str):
         f"bilinear {rs_ms[(256, 256, (224, 224), 'bilinear')]:.2f} ms on "
         f"the card ({time.perf_counter() - t:.1f} s)")
 
-    # ---- seeded weights (setup, outside every timed window)
+    # ---- seeded weights (setup, outside every timed window), their
+    # normals drawn on the card (CardNormals)
     t = time.perf_counter()
     vq_cfg = vqgan.vq16_config()
     vq_path = os.path.join(root, "vq16.pt")
     torch.save({k: torch.from_numpy(v) for k, v in llamagen_vq_names(
-        vqgan.random_taming_state_dict(vq_cfg, 0), len(vq_cfg.ch_mult)
-    ).items()}, vq_path)
-    sds = {"inception": inc_sd(0), "vgg16": vgg_sd(0),
-           "clip_b32": C.random_state_dict(C.VIT_B32, 0),
-           "hps_v21": C.random_state_dict(C.VIT_H14, 0)}
+        vqgan.random_taming_state_dict(vq_cfg, rng=CardNormals(torch, 0)),
+        len(vq_cfg.ch_mult)).items()}, vq_path)
+    sds = {"inception": inc_sd(rng=CardNormals(torch, 0)),
+           "vgg16": vgg_sd(rng=CardNormals(torch, 0)),
+           "clip_b32": C.random_state_dict(C.VIT_B32,
+                                           rng=CardNormals(torch, 0)),
+           "hps_v21": C.random_state_dict(C.VIT_H14,
+                                          rng=CardNormals(torch, 0))}
     weights = {}
     for name, sd in sds.items():
         weights[name] = os.path.join(root, f"{name}.npz")
@@ -3972,8 +4039,8 @@ def phase_evals(torch, card: str):
     with open(merges, "w") as f:
         f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in pairs))
     log(f"evals setup: seeded random weights at published widths (VQ-16, "
-        f"Inception-V3, VGG16, ViT-B/32, ViT-H/14) written under {root} in "
-        f"{time.perf_counter() - t:.1f} s")
+        f"Inception-V3, VGG16, ViT-B/32, ViT-H/14; normals drawn on the "
+        f"card) written under {root} in {time.perf_counter() - t:.1f} s")
 
     # ---- (b) extract_code
     t = time.perf_counter()
@@ -4261,14 +4328,22 @@ def phase_evals(torch, card: str):
     with open(prompts, "w") as f:
         json.dump([[c] for c in BATCH_CAPTIONS[:n_fake]], f)
 
-    def cli(task, *argv):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "lantern_tpu_torch", task,
-                            *argv], capture_output=True, text=True,
-                           timeout=600)
-        if r.returncode:
-            fail(f"{task} CLI: exit {r.returncode}: {r.stderr[-3000:]}")
-        return r.stdout, time.perf_counter() - t0
+    def start(task, *argv):
+        return task, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "lantern_tpu_torch", task, *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(job):
+        task, t0, p = job
+        try:
+            out, err = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            fail(f"{task} CLI: no exit within 600 s")
+        if p.returncode:
+            fail(f"{task} CLI: exit {p.returncode}: {err[-3000:]}")
+        return out, time.perf_counter() - t0
 
     def numbers(out):
         vals = []
@@ -4281,32 +4356,50 @@ def phase_evals(torch, card: str):
             fail(f"eval CLI printed no finite score: {out[-1000:]}")
         return vals
 
+    # the two eval_fid_clip runs write one score.txt, so they run one
+    # after the other; the other two CLIs run beside them
     runs = []
-    out, s = cli("eval_fid_clip", "--fake_dir", fake, "--ref_dir", imgs,
-                 "--caption_path", prompts, "--feature-extractor", "clip_b32",
-                 "--clip-model-dir", weights["clip_b32"], "--merges", merges)
-    with open(os.path.join(fake, "score.txt")) as f:
-        score = f.read()
-    if not (score.startswith("CLIP score: ") and "FID_256px: " in score):
-        fail(f"eval_fid_clip clip_b32 score.txt: {score!r}")
-    runs.append(f"eval_fid_clip clip_b32 {numbers(score)} {s:.1f} s")
-    out, s = cli("eval_fid_clip", "--fake_dir", fake, "--ref_dir", imgs,
-                 "--feature-extractor", "fid_inception", "--inception-ckpt",
-                 weights["inception"])
-    with open(os.path.join(fake, "score.txt")) as f:
-        score = f.read()
-    runs.append(f"eval_fid_clip fid_inception {numbers(score)} {s:.1f} s")
-    out, s = cli("eval_prec_recall", "--ref_dir", imgs, "--fake_dir", fake,
-                 "--feature-extractor", "vgg16_jax", "--vgg-ckpt",
-                 weights["vgg16"])
-    runs.append(f"eval_prec_recall vgg16_jax {numbers(out)} {s:.1f} s")
-    out, s = cli("eval_hpsv2", "--image_path", fake, "--prompt_path", prompts,
-                 "--model", weights["hps_v21"], "--merges", merges)
-    runs.append(f"eval_hpsv2 pinned ViT-H/14 {numbers(out)} {s:.1f} s")
+    side = [start("eval_prec_recall", "--ref_dir", imgs, "--fake_dir", fake,
+                  "--feature-extractor", "vgg16_jax", "--vgg-ckpt",
+                  weights["vgg16"]),
+            start("eval_hpsv2", "--image_path", fake, "--prompt_path",
+                  prompts, "--model", weights["hps_v21"], "--merges",
+                  merges)]
+    try:
+        out, s = finish(start(
+            "eval_fid_clip", "--fake_dir", fake, "--ref_dir", imgs,
+            "--caption_path", prompts, "--feature-extractor", "clip_b32",
+            "--clip-model-dir", weights["clip_b32"], "--merges", merges))
+        with open(os.path.join(fake, "score.txt")) as f:
+            score = f.read()
+        if not (score.startswith("CLIP score: ") and "FID_256px: " in score):
+            fail(f"eval_fid_clip clip_b32 score.txt: {score!r}")
+        runs.append(f"eval_fid_clip clip_b32 {numbers(score)} {s:.1f} s")
+        out, s = finish(start(
+            "eval_fid_clip", "--fake_dir", fake, "--ref_dir", imgs,
+            "--feature-extractor", "fid_inception", "--inception-ckpt",
+            weights["inception"]))
+        with open(os.path.join(fake, "score.txt")) as f:
+            score = f.read()
+        runs.append(f"eval_fid_clip fid_inception {numbers(score)} {s:.1f} s")
+        # collected after the fid runs: done within these seconds
+        out, s = finish(side[0])
+        runs.append(f"eval_prec_recall vgg16_jax {numbers(out)} within "
+                    f"{s:.1f} s")
+        out, s = finish(side[1])
+        runs.append(f"eval_hpsv2 pinned ViT-H/14 {numbers(out)} within "
+                    f"{s:.1f} s")
+    finally:
+        for _, _, p in side:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     log(f"evals (e) [{card}] the eval CLIs as subprocesses over {n_fake} "
         f"generated ({len(repo_pngs)} from generated_images) against "
         f"{EVAL_PNGS} seeded images, random .npz weights, synthetic merges "
-        f"(process included): " + "; ".join(runs)
+        f"(process included; eval_prec_recall and eval_hpsv2 beside the two "
+        f"eval_fid_clip runs, each time with the others' load): "
+        + "; ".join(runs)
         + f" ({time.perf_counter() - t:.1f} s)")
     for name in list(weights.values()) + [vq_path]:
         os.remove(name)
@@ -4315,6 +4408,18 @@ def phase_evals(torch, card: str):
 # ---------------------------------------------------------------------------
 # parallel: the (dp, tp) mesh on torch.distributed
 # ---------------------------------------------------------------------------
+
+def phase_selftest(torch) -> dict:
+    """The kernel self-test (``ops/selftest.run_kernel_selftest``) on the
+    card: K1-K4 through the dispatching ops against independent dense
+    forms, and deferred against rollback commit token for token; raises on
+    divergence."""
+    from lantern_tpu_torch.ops.selftest import run_kernel_selftest
+
+    errs = run_kernel_selftest(device="cuda")
+    log(f"selftest: {errs}")
+    return errs
+
 
 def free_port() -> int:
     import socket
@@ -4344,7 +4449,8 @@ def parallel_spawn(part: str, world: int) -> list:
         procs.append((subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--parallel-rank",
              part], env=env, stdout=logf, stderr=subprocess.STDOUT), logf))
-    deadline = time.perf_counter() + PARALLEL_TIMEOUT
+    t0 = time.perf_counter()
+    deadline = t0 + PARALLEL_TIMEOUT
     failed = []
     for r, (p, logf) in enumerate(procs):
         try:
@@ -4365,6 +4471,7 @@ def parallel_spawn(part: str, world: int) -> list:
             p.wait()
     if failed:
         fail(f"parallel {part}: " + "\n".join(failed))
+    log(f"  [{part}] {world} rank(s) done in {time.perf_counter() - t0:.1f} s")
     out = []
     for r in range(world):
         with open(os.path.join(PARALLEL_DIR, f"{part}_{r}.log")) as f:
@@ -4481,8 +4588,60 @@ def rank_nccl(torch) -> None:
         n_valid=int(meshed.n_valid), steps=int(meshed.steps), wall=t_mesh,
         wall_alone=t_alone, launches=launches, alone_launches=alone_launches,
         want=stale_launches(cfg, tree, int(meshed.steps)),
-        host_mean=dist.host_mean(3.0)))
+        host_mean=dist.host_mean(3.0), train=train_bit_equal(torch)))
     torch.distributed.destroy_process_group()
+
+
+def _flat(tree) -> dict:
+    from lantern_tpu_torch.train.optim import flatten
+
+    return dict(zip(*flatten(tree)))
+
+
+def train_bit_equal(torch) -> dict:
+    """(a)'s training half: on a tiny f32 LlamaGen (token-only rows, two
+    steps, the first at lr 0) the FSDP step at ``Mesh(dp=1, tp=1)`` and
+    the pipeline at pp = 1 with one microbatch against
+    ``finetune.train_step``, metrics and parameters bit for bit; every
+    gather, reduce-scatter and all-reduce of theirs is NCCL's, over groups
+    of one."""
+    from lantern_tpu_torch import configs
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.parallel import mesh as pm
+    from lantern_tpu_torch.parallel import pipeline as pl
+    from lantern_tpu_torch.train import finetune as ft
+
+    cfg = configs.tiny_config(cond_kind="label", vocab_size=256,
+                              hidden_size=256, num_layers=2, num_heads=4)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    p0 = tfm.init_params(gen, cfg, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16),
+                                     generator=gen, device="cuda"),
+             "loss_mask": torch.ones((4, 16), device="cuda")}
+    rope = tfm.make_rope_tables(cfg, "cuda")
+    fcfg = ft.FinetuneConfig(lr=5e-3, warmup_steps=1, total_steps=10)
+    fmesh, pmesh = pm.make_mesh(), pl.make_mesh()
+    ref = ft.init_state(_tree_to(p0, "cuda"), fcfg)
+    fsdp = ft.init_state(_tree_to(p0, "cuda"), fcfg, mesh=fmesh)
+    params = _tree_to(p0, "cuda")
+    staged = params.pop("layers")
+    step_fn, init_fn = pl.make_train_step(cfg, pmesh, 1, rope, fcfg)
+    opt = init_fn(params, staged)
+    equal = {"fsdp": True, "pipeline": True}
+    for _ in range(2):
+        ref, mr = ft.train_step(ref, cfg, fcfg, rope, batch)
+        fsdp, mf = ft.train_step(fsdp, cfg, fcfg, rope, batch, mesh=fmesh)
+        params, staged, opt, mp = step_fn(params, staged, opt, batch)
+        equal["fsdp"] &= all(torch.equal(mf[k], mr[k]) for k in mr)
+        equal["pipeline"] &= all(torch.equal(mp[k], mr[k]) for k in mr)
+    want = _flat(ref.params)
+    for name, got in (("fsdp", _flat(ft.fsdp_gather(fsdp, fmesh))),
+                      ("pipeline", _flat(dict(params, layers=staged)))):
+        equal[name] &= (got.keys() == want.keys() and all(
+            torch.equal(got[k], want[k]) for k in want))
+    moved = not torch.equal(want["layers/w_down"], p0["layers"]["w_down"])
+    return dict(equal, moved=moved, loss=float(mr["loss"]),
+                grad_norm=float(mr["grad_norm"]))
 
 
 def logit_errors(got, ref) -> dict:
@@ -4547,10 +4706,9 @@ def skip_wo_reduce(layer: int):
 def reduce_after_norm():
     """Every row-split reduce moved past the norm that follows it (Lumina's
     swin post-norms), where the norm must see the sum."""
-    import torch.distributed as tdist
-
     from lantern_tpu_torch.models import transformer as tfm
     from lantern_tpu_torch.ops import quant
+    from lantern_tpu_torch.parallel import dist as pdist
 
     pending = [None]
     row, norm = tfm.mm_row, tfm.rms_norm
@@ -4566,9 +4724,7 @@ def reduce_after_norm():
         group, pending[0] = pending[0], None
         if group is None:
             return y
-        part = y.float()
-        tdist.all_reduce(part, group=group)
-        return part.to(y.dtype)
+        return pdist.all_reduce(y.float(), group).to(y.dtype)
 
     return _patched(tfm, mm_row=mm_row, rms_norm=rms_norm)
 
@@ -4692,25 +4848,11 @@ def rank_tp2(torch, timer, tag: str) -> None:
     launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # the collectives' share of a step: a separate run with each collective
-    # timed on the host from a drained card to its end (the forward's
-    # all-reduces and the head's gather go through these two)
+    # of parallel/dist.py (the forward's all-reduces, the head's gather)
+    # timed on the host from a drained card to its end
     spent = [0.0, 0]
-    tdist = torch.distributed
-
-    def clocked(fn):
-        def inner(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[0] += time.perf_counter() - t
-            spent[1] += 1
-            return out
-        return inner
-
-    with _patched(tdist, all_reduce=clocked(tdist.all_reduce),
-                  all_gather=clocked(tdist.all_gather)):
-        tdist.barrier()
+    with clocked_collectives(torch, spent):
+        torch.distributed.barrier()
         t = time.perf_counter()
         inst = run(sp, mesh, max_steps=PARALLEL_PROFILE_STEPS)
         torch.cuda.synchronize()
@@ -4894,6 +5036,375 @@ def rank_dp2(torch) -> None:
     torch.distributed.destroy_process_group()
 
 
+def leaf_err(got, want, scale=None) -> float:
+    """``|got - want|`` (RMS) over ``scale`` (default ``|want|``); 0 where
+    both are zero."""
+    d = float((got.float() - want.float()).norm())
+    n = float(want.float().norm()) if scale is None else scale
+    return d / n if n else d
+
+
+def tree_err(got: dict, want: dict, scale: dict | None = None) -> list:
+    """``[error, leaf]``: the largest ``leaf_err`` over the leaves of two
+    ``{path: tensor}`` dicts (``scale``: each leaf's denominator)."""
+    errs = [(leaf_err(got[k], want[k], None if scale is None else scale[k]),
+             k) for k in want]
+    return list(max(errs))
+
+
+def xl_dense(torch):
+    """LlamaGen-XL t2i (36 x 1280, 20 heads of 64, vocab 16384) with dense
+    bf16 weights from seed 0 on the card, as the train phase trains it."""
+    from lantern_tpu_torch import configs
+    from lantern_tpu_torch.models import transformer as tfm
+
+    cfg = configs.llamagen_config("XL", "t2i", image_tokens=256)
+    return cfg, tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, device="cuda")
+
+
+def split_grads(torch, params, cfg, rope, batch, fcfg, parts: int):
+    """``(loss, {path: grad})`` of one process's finetune loss with the
+    batch's rows in ``parts`` equal parts, each part's backward alone
+    (its NLL sum over the whole batch's mask count), summed in part order:
+    ``parts = 1`` is ``train_step``'s gradient, more the reordering
+    floor."""
+    from lantern_tpu_torch.train import finetune as ft
+    from lantern_tpu_torch.train.optim import flatten, unflatten
+
+    paths, leaves = flatten(params)
+    count = torch.sum(batch["loss_mask"][:, 1:])
+    b = batch["tokens"].shape[0] // parts
+    loss, grads = 0.0, None
+    for i in range(parts):
+        rows = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        with torch.enable_grad():
+            live = [x.detach().requires_grad_() for x in leaves]
+            nll = ft.token_sums(unflatten(params, paths, live), cfg, rope,
+                                rows, fcfg)[0]
+            part = nll / (count + 1e-6)
+            g = torch.autograd.grad(part, live, allow_unused=True)
+        g = [torch.zeros_like(x) if y is None else y
+             for x, y in zip(leaves, g)]
+        grads = g if grads is None else [a + c for a, c in zip(grads, g)]
+        loss = loss + part.detach()
+    return loss, dict(zip(paths, grads))
+
+
+def split_steps(torch, params, cfg, rope, batch, fcfg, parts: int,
+                steps: int = 2, keep_grads: bool = False):
+    """``steps`` finetune steps of one process on a copy of ``params``,
+    each from ``split_grads`` at ``parts`` (``parts = 1``: ``train_step``'s
+    arithmetic): ``(losses, grad norms, {path: params after}, {path: the
+    first step's gradients} or None)``."""
+    from lantern_tpu_torch.train import finetune as ft
+    from lantern_tpu_torch.train.optim import flatten, global_norm
+
+    p = _tree_to(params, "cuda")
+    paths, leaves = flatten(p)
+    opt = ft.build_optimizer(fcfg, p)
+    state = opt.init(leaves)
+    losses, norms, first = [], [], None
+    for i in range(steps):
+        loss, g = split_grads(torch, p, cfg, rope, batch, fcfg, parts)
+        if keep_grads and i == 0:
+            first = {k: v.clone() for k, v in g.items()}
+        grads = [g[k] for k in paths]
+        losses.append(float(loss))
+        norms.append(float(global_norm(grads)))
+        state = opt.update(leaves, grads, state)
+    return losses, norms, dict(zip(paths, leaves)), first
+
+
+def clocked_collectives(torch, spent: list):
+    """The collectives of ``parallel/dist.py`` timed on the host from a
+    drained card to their end (``spent``: seconds, calls); a pipeline's
+    receive includes its wait for the other stage."""
+    from lantern_tpu_torch.parallel import dist as pdist
+
+    def clocked(fn):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            spent[1] += 1
+            return out
+        return inner
+
+    names = ("all_gather", "reduce_scatter", "all_reduce", "send", "recv")
+    return _patched(pdist, **{n: clocked(getattr(pdist, n)) for n in names})
+
+
+def train_part_pipeline(torch, rank: int, batch) -> dict:
+    """(d) GPipe over pp = 2 (18 layers a stage), ``TRAIN_MICRO``
+    microbatches, LlamaGen-XL's bf16 weights: loss and gradients (both
+    ranks' stage gradients gathered) against one process's, the two
+    known-wrong variants, then two ``make_train_step`` steps (the first at
+    lr 0) against one process's ``train_step`` s, timed, with peak memory;
+    a third step with its collectives timed.  Rank 0 holds the one-process
+    references and computes the errors; the known-wrong variants are held
+    against them on rank 0's own leaves (stage 0's layers, the replicated
+    leaves), which a miss needs no more of."""
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.parallel import dist as pdist
+    from lantern_tpu_torch.parallel import pipeline as pl
+    from lantern_tpu_torch.train import finetune as ft
+    from lantern_tpu_torch.train.optim import flatten
+
+    cfg, P = xl_dense(torch)
+    rope = tfm.make_rope_tables(cfg, "cuda")
+    fcfg = ft.FinetuneConfig(lr=PIPE_LR, warmup_steps=1, total_steps=100,
+                             remat=True)
+    out, ref = {}, {}
+    if rank == 0:
+        losses, _, p1, g = split_steps(torch, P, cfg, rope, batch, fcfg, 1,
+                                       keep_grads=True)
+        flosses, _, pf, fg = split_steps(torch, P, cfg, rope, batch, fcfg,
+                                         TRAIN_MICRO, keep_grads=True)
+        p0 = _flat(P)
+        ref = dict(loss=losses[0], grads=g, delta={
+            k: float((p1[k].float() - p0[k].float()).norm()) for k in p1})
+        out["floor"] = dict(loss=abs(flosses[0] - losses[0]) / losses[0],
+                            grads=tree_err(fg, g),
+                            params=tree_err(pf, p1, ref["delta"]))
+        ref["params"] = {k: v.cpu() for k, v in p1.items()}
+        del p1, pf, p0, fg
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    mesh = pl.make_mesh(dp=1)
+    loss_fn = pl.pipeline_loss_fn(cfg, mesh, TRAIN_MICRO, rope, remat=True)
+    rest = {k: v for k, v in P.items() if k != "layers"}
+    stages = pl.split_stages(P["layers"], mesh.pp)
+
+    def grads(staged, whole=True):
+        """The loss, and the whole model's gradients (``whole``: both
+        stages' gathered) or this rank's."""
+        (loss, _), (gp, gs) = pl.value_and_grad(loss_fn, mesh, rest, staged,
+                                                batch)
+        g = _flat(gp)
+        g.update({f"layers/{k}": pdist.all_gather(v, 0, mesh.pp_group)
+                  if whole else v for k, v in gs.items()})
+        return loss, g
+
+    def no_pp_sum(grads, sharded, dp_group):
+        # known-wrong: the replicated leaves' gradients left on the stage
+        # that made them (summed over dp only)
+        for x in grads:
+            pdist.all_reduce(x, dp_group)
+
+    def stage(s: int) -> dict:
+        return {k: v[s].clone() for k, v in stages.items()}
+
+    loss, g = grads(stage(mesh.stage))
+    both = pdist.all_gather(loss.reshape(1), 0)
+    out["losses_equal"] = bool(both[0] == both[1])
+    out["loss"] = float(loss)
+    wrong = {}
+    with _patched(ft, sum_grads_=no_pp_sum):
+        wrong["replicated_not_summed_over_pp"] = grads(stage(mesh.stage),
+                                                       whole=False)[1]
+    wrong["stages_swapped"] = grads(stage(1 - mesh.stage), whole=False)[1]
+    if rank == 0:
+        Ls = cfg.num_layers // mesh.pp
+        mine = {k: v[:Ls] if k.startswith("layers/") else v
+                for k, v in ref["grads"].items()}
+        out["err"] = dict(loss=abs(float(loss) - ref["loss"]) / ref["loss"],
+                          grads=tree_err(g, ref["grads"]))
+        out["wrong"] = {k: tree_err(v, mine) for k, v in wrong.items()}
+        del mine
+    ref.pop("grads", None)
+    del g, wrong, P
+    # the steps, from this rank's own leaves only
+    params = _tree_to(rest, "cuda")
+    staged = stage(mesh.stage)
+    del rest, stages
+    torch.cuda.empty_cache()
+    step_fn, init_fn = pl.make_train_step(cfg, mesh, TRAIN_MICRO, rope, fcfg)
+    opt = init_fn(params, staged)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    times, metrics = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        params, staged, opt, m = step_fn(params, staged, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = _flat(params)
+    got.update({f"layers/{k}": pdist.all_gather(v, 0, mesh.pp_group)
+                for k, v in staged.items()})
+    if rank == 0:
+        want = {k: v.to("cuda") for k, v in ref["params"].items()}
+        out["err"]["params"] = tree_err(got, want, ref["delta"])
+        del want
+    del got
+    spent = [0.0, 0]
+    with clocked_collectives(torch, spent):
+        torch.distributed.barrier()
+        t = time.perf_counter()
+        step_fn(params, staged, opt, batch)
+        torch.cuda.synchronize()
+        inst = time.perf_counter() - t
+    out.update(ms_step=1e3 * times[1], first_ms=1e3 * times[0],
+               metrics=metrics, coll_share=spent[0] / inst,
+               coll_calls=spent[1], inst_ms=1e3 * inst,
+               n_params=sum(x.numel() for x in flatten(params)[1]
+                            + flatten(staged)[1]))
+    return out
+
+
+def leaf_errs(got: dict, want: dict, scale: dict) -> dict:
+    """``{leaf: leaf_err}`` over the leaves of two ``{path: tensor}``
+    dicts, each over its ``scale``."""
+    return {k: leaf_err(got[k], want[k], scale[k]) for k in want}
+
+
+def train_part_fsdp(torch, rank: int, batch) -> dict:
+    """(e) FSDP over tp = 2: a whole-base finetune step of LlamaGen-XL's
+    bf16 weights with the weights and AdamW state sharded
+    (``init_state(mesh=)``, ``train_step(mesh=)``), clipped by ``FSDP_CLIP``
+    (biting): two steps (the first at lr 0) timed, with peak memory, their
+    loss, grad norm and gathered parameters against one process's, each
+    leaf against its own floor; then two known-wrong variants from the
+    same weights (rank 0's slices against one process's): the clip by the
+    shard's own norm, its second step with the collectives timed (the
+    right step's collectives but the tp all-reduce of the squared norms),
+    and the tp reduce-scatter replaced by the rank's own gradient."""
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.parallel import dist as pdist
+    from lantern_tpu_torch.parallel import mesh as pm
+    from lantern_tpu_torch.train import finetune as ft
+    from lantern_tpu_torch.train.optim import flatten, global_norm
+
+    cfg, P = xl_dense(torch)
+    rope = tfm.make_rope_tables(cfg, "cuda")
+    fcfg = ft.FinetuneConfig(lr=FSDP_LR, warmup_steps=1, total_steps=100,
+                             remat=True, grad_clip_norm=FSDP_CLIP)
+    out, ref = {}, {}
+    if rank == 0:
+        losses, norms, p1, _ = split_steps(torch, P, cfg, rope, batch, fcfg,
+                                           1)
+        flosses, fnorms, pf, _ = split_steps(torch, P, cfg, rope, batch,
+                                             fcfg, 2)
+        p0 = _flat(P)
+        ref = dict(loss=losses[0], grad_norm=norms[0], delta={
+            k: float((p1[k].float() - p0[k].float()).norm()) for k in p1})
+        out["floor"] = dict(
+            loss=abs(flosses[0] - losses[0]) / losses[0],
+            grad_norm=abs(fnorms[0] - norms[0]) / norms[0],
+            params=leaf_errs(pf, p1, ref["delta"]))
+        ref["params"] = {k: v.cpu() for k, v in p1.items()}
+        del p1, pf, p0
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    mesh = pm.make_mesh(dp=1)
+
+    def run(spent=None):
+        """Two FSDP steps from seed 0's weights, the second with its
+        collectives clocked into ``spent`` if given: (metrics, times, peak
+        GiB, state)."""
+        state = ft.init_state(xl_dense(torch)[1], fcfg, mesh=mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.distributed.barrier()
+        metrics, times = [], []
+        for i in range(2):
+            clock = (clocked_collectives(torch, spent)
+                     if spent is not None and i else contextlib.nullcontext())
+            with clock:
+                t = time.perf_counter()
+                state, m = ft.train_step(state, cfg, fcfg, rope, batch,
+                                         mesh=mesh)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        return metrics, times, peak, state
+
+    del P
+    torch.cuda.empty_cache()
+    metrics, times, peak, state = run()
+    got = _flat(ft.fsdp_gather(state, mesh))
+    out.update(metrics=metrics, ms_step=1e3 * times[1],
+               first_ms=1e3 * times[0], peak_gib=peak,
+               shard_gib=sum(x.numel() * x.element_size()
+                             for x in flatten(state.params)[1]) / 2 ** 30)
+    if rank == 0:
+        want = {k: v.to("cuda") for k, v in ref["params"].items()}
+        out["err"] = dict(
+            loss=abs(metrics[0]["loss"] - ref["loss"]) / ref["loss"],
+            grad_norm=abs(metrics[0]["grad_norm"] - ref["grad_norm"])
+            / ref["grad_norm"], params=leaf_errs(got, want, ref["delta"]))
+        del want
+    del got, state
+    torch.cuda.empty_cache()
+
+    def wrong_errs(wstate) -> dict:
+        """Rank 0's slices against the same slices of one process's, over
+        the whole leaves' updates: a lower bound of each leaf's error."""
+        want = {}
+        for k, d in zip(flatten(wstate.specs)[0], ft.split_dims(wstate.specs)):
+            x = ref["params"][k].to("cuda")
+            want[k] = x if d is None else x.narrow(d, 0, x.shape[d] // mesh.tp)
+        return leaf_errs(_flat(wstate.params), want, ref["delta"])
+
+    spent = [0.0, 0]
+    with _patched(ft, sharded_global_norm=lambda grads, sharded, group:
+                  global_norm(grads)):
+        wm, wtimes, _, wstate = run(spent)
+    out.update(coll_share=spent[0] / wtimes[1], coll_calls=spent[1],
+               inst_ms=1e3 * wtimes[1], wrong={})
+    if rank == 0:
+        out["wrong"]["shard_norm_clip"] = dict(
+            grad_norm=wm[0]["grad_norm"], params=wrong_errs(wstate))
+    del wstate
+    torch.cuda.empty_cache()
+
+    def own_slice(x, dim, group=None):
+        """``dist.reduce_scatter`` without the sum: this rank's slice of
+        its own gradient, the other ranks' rows left out."""
+        w = x.shape[dim] // torch.distributed.get_world_size(group)
+        return x.narrow(dim, torch.distributed.get_rank(group) * w,
+                        w).contiguous()
+
+    with _patched(pdist, reduce_scatter=own_slice):
+        wm, _, _, wstate = run()
+    if rank == 0:
+        out["wrong"]["own_gradient"] = dict(
+            grad_norm=wm[0]["grad_norm"], params=wrong_errs(wstate))
+    return out
+
+
+def rank_train(torch) -> None:
+    """(d) and (e): two processes on the card over gloo, LlamaGen-XL at
+    full width and depth, ``TRAIN_ROWS`` token-only rows of ``TRAIN_T``
+    tokens from seed 1."""
+    from lantern_tpu_torch.parallel import dist
+
+    dist.init_distributed(backend="gloo")
+    rank = torch.distributed.get_rank()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, 16384, (TRAIN_ROWS, TRAIN_T),
+                                     generator=gen, device="cuda"),
+             "loss_mask": torch.ones((TRAIN_ROWS, TRAIN_T), device="cuda")}
+    t = time.perf_counter()
+    pipe = train_part_pipeline(torch, rank, batch)
+    t_pipe = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    fsdp = train_part_fsdp(torch, rank, batch)
+    t_fsdp = time.perf_counter() - t
+    log(f"rank {rank}: (d) {t_pipe:.1f} s, (e) {t_fsdp:.1f} s")
+    write_rank_result("train", rank, dict(rank=rank, pipeline=pipe, fsdp=fsdp,
+                                          pipe_s=t_pipe, fsdp_s=t_fsdp))
+    torch.distributed.destroy_process_group()
+
+
 def run_parallel_rank(torch, part: str, card: str, smi: str) -> None:
     """The body of one rank process (``--parallel-rank``)."""
     tag = f"{card}, {smi}"
@@ -4901,16 +5412,129 @@ def run_parallel_rank(torch, part: str, card: str, smi: str) -> None:
         rank_nccl(torch)
     elif part == "tp2":
         rank_tp2(torch, Timer(torch), tag)
-    else:
+    elif part == "dp2":
         rank_dp2(torch)
+    else:
+        rank_train(torch)
 
 
-def phase_parallel(torch, card: str, xl: dict):
-    """(a) NCCL in a world of one, (b) Lumina-7B over tp = 2 and (c)
-    LlamaGen-XL over dp = 2, each in rank processes of this script; the
-    two ranks of (b) and (c) share the one card over gloo (NCCL refuses two
-    ranks on one device).  Returns the paths' launches and the K1 / K2
-    shard records."""
+def check_train(outs: list, card: str) -> None:
+    """(d) and (e)'s verdicts from both ranks' records (rank 0 holds the
+    errors against one process), and their line."""
+    k = TRAIN_TOL_FACTOR
+    d, e = outs[0]["pipeline"], outs[0]["fsdp"]
+    if not all(o["pipeline"]["losses_equal"] for o in outs):
+        fail("parallel (d): the two stages' losses differ")
+    for part, name in ((d, "d"), (e, "e")):
+        if any(o[{"d": "pipeline", "e": "fsdp"}[name]]["metrics"]
+               != part["metrics"] for o in outs):
+            fail(f"parallel ({name}): the ranks' step metrics differ")
+    tol = {"loss": k * max(d["floor"]["loss"], 1e-6),
+           "grads": k * d["floor"]["grads"][0],
+           "params": k * d["floor"]["params"][0]}
+    errs = {"loss": d["err"]["loss"], "grads": d["err"]["grads"][0],
+            "params": d["err"]["params"][0]}
+    for key, err in errs.items():
+        if not err <= tol[key]:
+            fail(f"parallel (d): {key} error {err} (vs one process) over "
+                 f"{k} x the floor {tol[key] / k}")
+    for name, err in d["wrong"].items():
+        if err[0] <= tol["grads"]:
+            fail(f"parallel (d): the known-wrong variant {name} errs "
+                 f"{err}, within the tolerance {tol['grads']}")
+    etol = {"loss": k * max(e["floor"]["loss"], 1e-6),
+            "grad_norm": k * max(e["floor"]["grad_norm"], 1e-6)}
+    eerr = {"loss": e["err"]["loss"], "grad_norm": e["err"]["grad_norm"]}
+    for key, err in eerr.items():
+        if not err <= etol[key]:
+            fail(f"parallel (e): {key} error {err} (vs one process) over "
+                 f"{k} x the floor {etol[key] / k}")
+    # the parameters leaf by leaf, each within k x its own floor
+    ptol = {n: k * max(f, FSDP_LEAF_FLOOR_MIN)
+            for n, f in e["floor"]["params"].items()}
+
+    def over(errs: dict) -> list:
+        """``[(error / tolerance, leaf)]`` of the leaves over tolerance."""
+        return sorted(((v / ptol[n], n) for n, v in errs.items()
+                       if not v <= ptol[n]), reverse=True)
+
+    perr = e["err"]["params"]
+    if over(perr):
+        fail(f"parallel (e): parameters (vs one process) over {k} x their "
+             f"leaves' floors: {over(perr)}")
+    # the leaf nearest its tolerance; of those as near, the largest error
+    pworst = max((v / ptol[n], v, n) for n, v in perr.items())
+    pmed = statistics.median(perr.values())
+    fmed = statistics.median(e["floor"]["params"].values())
+    missed = {}
+    for name, w in e["wrong"].items():
+        missed[name] = over(w["params"])
+        if not missed[name]:
+            fail(f"parallel (e): the known-wrong variant {name} errs "
+                 f"{w['params']}, every leaf within its tolerance")
+    bubble = (2 - 1) / (TRAIN_MICRO + 2 - 1)
+    peaks = ", ".join(f"{o['pipeline']['peak_gib']:.2f}" for o in outs)
+    log(f"parallel (d) [{card}] GPipe over pp = 2 (18 of LlamaGen-XL's 36 "
+        f"layers a stage, full width, bf16 weights), two ranks on the one "
+        f"card over gloo, {TRAIN_ROWS} x {TRAIN_T} token-only rows in "
+        f"{TRAIN_MICRO} microbatches, remat: loss {d['loss']:.6f}, equal on "
+        f"both ranks; against one process (largest relative RMS over the "
+        f"leaves): loss {errs['loss']:.2e}, gradients {errs['grads']:.2e} "
+        f"({d['err']['grads'][1]}), parameters after two steps (lr 0, then "
+        f"{PIPE_LR}; over one process's update) {errs['params']:.2e} "
+        f"({d['err']['params'][1]}), within {k} x the floor (one process's "
+        f"{TRAIN_MICRO} microbatches' gradients summed against the whole "
+        f"batch's) {d['floor']['loss']:.2e} / {d['floor']['grads'][0]:.2e} / "
+        f"{d['floor']['params'][0]:.2e}; known-wrong variants "
+        + ", ".join(f"{n} {v[0]:.2e} ({v[1]})" for n, v in d["wrong"].items())
+        + f"; {d['ms_step']:.1f} ms a step (the first {d['first_ms']:.1f}); "
+        f"collectives (send / recv waits included) "
+        f"{100 * d['coll_share']:.1f} % of an instrumented step "
+        f"({d['inst_ms']:.1f} ms, {d['coll_calls']} calls, each timed from "
+        f"a drained card); the bubble's expected share (pp - 1) / (n_micro "
+        f"+ pp - 1) = {100 * bubble:.1f} %; peak memory a rank {peaks} GiB "
+        f"(one process's XL finetune step: 10.50 GiB, PERF.md §5)")
+    peaks = ", ".join(f"{o['fsdp']['peak_gib']:.2f}" for o in outs)
+    wrong = "; ".join(
+        f"{name} (grad norm {w['grad_norm']:.4f}) over tolerance on "
+        f"{len(missed[name])} of {len(w['params'])} leaves, worst "
+        f"{missed[name][0][1]} at {missed[name][0][0]:.1f} x (within: "
+        f"{sorted(set(w['params']) - {n for _, n in missed[name]})})"
+        for name, w in e["wrong"].items())
+    log(f"parallel (e) [{card}] FSDP over tp = 2 (weights and AdamW state "
+        f"sharded, {e['shard_gib']:.2f} GiB of parameters a rank), a "
+        f"whole-base LlamaGen-XL finetune step, two ranks on the one card "
+        f"over gloo, {TRAIN_ROWS // 2} rows a rank, remat, clip "
+        f"{FSDP_CLIP} (biting: the gradient's norm is "
+        f"{e['metrics'][0]['grad_norm']:.4f}), lr 0 then {FSDP_LR}: loss "
+        f"{e['metrics'][0]['loss']:.6f}; against one process: loss "
+        f"{eerr['loss']:.2e}, grad norm {eerr['grad_norm']:.2e}, within "
+        f"{k} x the floor (the two ranks' rows' gradients summed in one "
+        f"process) {e['floor']['loss']:.2e} / "
+        f"{e['floor']['grad_norm']:.2e}; parameters after two steps (relative "
+        f"RMS over one process's update) each leaf within {k} x its own "
+        f"floor (at least {FSDP_LEAF_FLOOR_MIN}): worst {pworst[2]} "
+        f"{pworst[1]:.2e} against the floor "
+        f"{e['floor']['params'][pworst[2]]:.2e} ({k * pworst[0]:.2f} x), "
+        f"median leaf {pmed:.2e} against the median floor {fmed:.2e}; "
+        f"known-wrong (rank 0's slices): {wrong}; "
+        f"{e['ms_step']:.1f} ms a step (the first {e['first_ms']:.1f}); "
+        f"collectives {100 * e['coll_share']:.1f} % of an instrumented step "
+        f"(the clip variant's second step, {e['inst_ms']:.1f} ms, "
+        f"{e['coll_calls']} calls); peak memory a "
+        f"rank {peaks} GiB (one process: 10.50 GiB, PERF.md §5); rank "
+        f"seconds "
+        + ", ".join(f"{o['pipe_s']:.1f} + {o['fsdp_s']:.1f}" for o in outs))
+
+
+def phase_parallel(torch, card: str, xl: dict | None, train_only=False):
+    """(a) NCCL in a world of one, (b) Lumina-7B over tp = 2, (c)
+    LlamaGen-XL over dp = 2, and (d) GPipe over pp = 2 and (e) FSDP over
+    tp = 2 training LlamaGen-XL, each in rank processes of this script;
+    the two ranks of (b)-(e) share the one card over gloo (NCCL refuses two
+    ranks on one device).  ``train_only``: (a), (d) and (e).  Returns the
+    paths' launches and the K1 / K2 shard records (None with
+    ``train_only``)."""
     from lantern_tpu_torch import trees
 
     torch.cuda.synchronize()
@@ -4933,6 +5557,20 @@ def phase_parallel(torch, card: str, xl: dict):
         f" {a['wall_alone']:.2f} s without the mesh) under set_mesh equals "
         f"the run without it bit for bit; host_mean(3.0) = {a['host_mean']}; "
         f"launches {a['launches']} = the derived counts")
+    at = a["train"]
+    if not (at["fsdp"] and at["pipeline"] and at["moved"]):
+        fail(f"parallel (a): FSDP at Mesh(dp=1, tp=1) bit-equal to "
+             f"train_step: {at['fsdp']}; the pipeline at pp = 1: "
+             f"{at['pipeline']}; the weights moved: {at['moved']}")
+    log(f"parallel (a) [{card}] training over NCCL groups of one: a tiny "
+        f"f32 LlamaGen's two steps (loss {at['loss']:.6f}, grad norm "
+        f"{at['grad_norm']:.6f}) through the FSDP step at Mesh(dp=1, tp=1) "
+        f"and the pipeline at pp = 1 equal finetune.train_step's bit for "
+        f"bit (metrics and parameters)")
+    launches = {"parallel_nccl": a["launches"]}
+    if train_only:
+        check_train(parallel_spawn("train", 2), card)
+        return launches, None
     # (b)
     outs = parallel_spawn("tp2", 2)
     r0, r1 = outs
@@ -5040,11 +5678,14 @@ def phase_parallel(torch, card: str, xl: dict):
         f"one process ({ref_wall:.2f} s, {ref_steps} steps); peak memory a "
         f"rank {', '.join(format(o['peak_gib'], '.2f') for o in outs_c)} GiB;"
         f" launches = the derived counts")
-    launches = {"parallel_nccl": a["launches"]}
     for o in outs:
         launches[f"parallel_tp2_rank{o['rank']}"] = o["launches"]
     for o in outs_c:
         launches[f"parallel_dp2_rank{o['rank']}"] = o["launches"]
+    # (d) and (e)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check_train(parallel_spawn("train", 2), card)
     return launches, r0["kernels"]
 
 
@@ -5057,9 +5698,23 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+PROFILE_SECONDS = [0.0]        # the profiles' cost over the run
+
+
 def profile(what: str, fn, card: str) -> None:
-    """Device time by kernel over one short run (torch.profiler), and the
-    share of the run's wall time the card was busy: the union of the
+    """``_profile``, its seconds summed in ``PROFILE_SECONDS``."""
+    t = time.perf_counter()
+    try:
+        _profile(what, fn, card)
+    finally:
+        PROFILE_SECONDS[0] += time.perf_counter() - t
+
+
+def _profile(what: str, fn, card: str) -> None:
+    """Device time by kernel over one short run (torch.profiler recording
+    the device's activity alone: recording the host's too cost the run's
+    profiles about 2.5x the seconds on the H100's host, PERF.md §6), and
+    the share of the run's wall time the card was busy: the union of the
     device-side events (kernels, copies, fills), so an operator and the
     kernel it launched are counted once."""
     import torch
@@ -5068,8 +5723,7 @@ def profile(what: str, fn, card: str) -> None:
     from torch.profiler import profile as tprofile
 
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -5135,7 +5789,12 @@ def main() -> int:
     ap.add_argument("--parallel-only", action="store_true",
                     help="after the build, run only the parallel phase "
                          "(prints no result line)")
-    ap.add_argument("--parallel-rank", choices=("nccl", "tp2", "dp2"),
+    ap.add_argument("--parallel-train-only", action="store_true",
+                    help="after the build, run only the self-test and the "
+                         "parallel phase's training parts: (a), (d) GPipe "
+                         "and (e) FSDP (prints no result line)")
+    ap.add_argument("--parallel-rank",
+                    choices=("nccl", "tp2", "dp2", "train"),
                     help=argparse.SUPPRESS)   # a rank process of that phase
     args = ap.parse_args()
 
@@ -5167,6 +5826,16 @@ def main() -> int:
         f"in {time.perf_counter() - t:.1f} s")
 
     timer = Timer(torch)
+    if args.parallel_train_only:
+        t = time.perf_counter()
+        phase_selftest(torch)
+        log(f"phase selftest: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_parallel(torch, f"{card}, {smi}", None, train_only=True)
+        log(f"phase parallel_train: {time.perf_counter() - t:.1f} s")
+        log("parallel-train-only run: build, self-test and the parallel "
+            "training parts passed")
+        return 0
     if args.sweep_splits:
         phase_sweep_splits(torch, timer, f"{card}, {smi}")
         return 0
@@ -5203,6 +5872,7 @@ def main() -> int:
               timed("build_xl", build_xl, torch))
         log("parallel-only run: build and parallel phases passed")
         return 0
+    selftest = timed("selftest", phase_selftest, torch)
     records = timed("kernels", phase_kernels, torch, timer, tag, args.grid)
     timed("forward", phase_forward, torch)
     timed("forward_llamagen", phase_forward_llamagen, torch)
@@ -5227,8 +5897,9 @@ def main() -> int:
     timed("evals", phase_evals, torch, tag)
     launches.update(timed("ragged_lumina", phase_ragged, torch, tag))
 
+    log(f"profiles: {PROFILE_SECONDS[0]:.1f} s")
     kernels = []
-    for name, src, rep in (
+    for (name, src, rep), check in zip((
             ("int8_matmul", "lantern_tpu_torch/csrc/int8_matmul.cu",
              "lantern_tpu/ops/quant.py:73"),
             ("tree_attention", "lantern_tpu_torch/csrc/tree_attention.cu",
@@ -5236,7 +5907,8 @@ def main() -> int:
             ("kv_write", "lantern_tpu_torch/csrc/kv_write.cu",
              "lantern_tpu/ops/pallas/kv_update.py:170"),
             ("kv_gather", "lantern_tpu_torch/csrc/kv_gather.cu",
-             "lantern_tpu/ops/pallas/kv_update.py:313")):
+             "lantern_tpu/ops/pallas/kv_update.py:313")),
+            ("int8_matmul", "tree_attention", "kv_write", "kv_rollback")):
         r, x, bt = (records["lumina"][name], records["xl"][name],
                     records["batched"][name])
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -5248,6 +5920,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
+                        "selftest_max_abs_err": selftest[check],
                         "xl": {k: x[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "shape")},

@@ -181,12 +181,14 @@ def hf_to_openai(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def random_state_dict(geom: CLIPGeom = VIT_B32, seed: int = 0
+def random_state_dict(geom: CLIPGeom = VIT_B32, seed: int = 0, rng=None
                       ) -> Dict[str, np.ndarray]:
     """The census with random weights, drawn as the JAX
     ``init_random_params`` draws them: N(0, 0.02) matrices, N(0, 1)
-    vectors, zero biases, unit LayerNorm scales, logit scale log(1/0.07)."""
-    rng = np.random.default_rng(seed)
+    vectors, zero biases, unit LayerNorm scales, logit scale log(1/0.07).
+    ``rng``: what draws the normals (numpy's ``normal(scale=, size=)``;
+    default ``np.random.default_rng(seed)``)."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     sd = {}
     for k, s in expected_state_dict_shapes(geom).items():
         scale = 0.02 if len(s) != 1 else 1.0

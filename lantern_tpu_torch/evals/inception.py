@@ -127,11 +127,13 @@ def expected_state_dict_shapes() -> Dict[str, tuple]:
     return out
 
 
-def random_state_dict(seed: int = 0) -> Dict[str, np.ndarray]:
+def random_state_dict(seed: int = 0, rng=None) -> Dict[str, np.ndarray]:
     """The canonical state dict with random weights, drawn as the JAX
     ``init_random_params`` draws them: He-scaled convs, unit BN scales,
-    running variance 2 (tests and structural runs)."""
-    rng = np.random.default_rng(seed)
+    running variance 2 (tests and structural runs).  ``rng``: what draws
+    the normals (numpy's ``normal(scale=, size=)``; default
+    ``np.random.default_rng(seed)``)."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     sd = {}
     for k, s in expected_state_dict_shapes().items():
         if k.endswith("conv.weight"):

@@ -55,10 +55,12 @@ def expected_state_dict_shapes() -> Dict[str, tuple]:
     return exp
 
 
-def random_state_dict(seed: int = 0) -> Dict[str, np.ndarray]:
+def random_state_dict(seed: int = 0, rng=None) -> Dict[str, np.ndarray]:
     """The canonical state dict with He-scaled random weights and zero
-    biases, drawn as the JAX ``init_random_params`` draws them."""
-    rng = np.random.default_rng(seed)
+    biases, drawn as the JAX ``init_random_params`` draws them.  ``rng``:
+    what draws the normals (numpy's ``normal(scale=, size=)``; default
+    ``np.random.default_rng(seed)``)."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     sd = {}
     for k, s in expected_state_dict_shapes().items():
         fan_in = int(np.prod(s[1:])) if len(s) > 1 else s[0]

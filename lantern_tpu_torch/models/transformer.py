@@ -453,19 +453,25 @@ def train_layer_block(
     mask: torch.Tensor,           # additive [B or 1, 1, T, T]
     idx0: int = 0,                # global index of this block's first layer
     remat: bool = True,
+    gather=None,                  # (name, one layer's weight) -> its whole
 ) -> torch.Tensor:
     """Run a (slice of the) layer stack over ``x``: the cache-free training
     block of ``forward_train`` and of pipeline stages, which apply it to
     consecutive layer slices with their global ``idx0`` (layer 0 of a
     drafter skips the input norm).  Takes the split and the fused layouts;
     dense weights only.  ``remat`` recomputes each layer in the backward
-    (``checkpoint``, non-reentrant) instead of keeping its activations."""
+    (``checkpoint``, non-reentrant) instead of keeping its activations.
+    ``gather`` (FSDP) turns each layer's weight slices into whole weights
+    when the layer runs, inside the recomputed function, so remat gathers
+    again in the backward and no layer's whole weights outlive it."""
     _require_mha(cfg)
     names = sorted(layers)
     # one unbind a weight: its backward stacks the layers' gradients once
     per_layer = list(zip(*(layers[n].unbind(0) for n in names)))
     for i, ws in enumerate(per_layer):
         def layer(h, *ws, idx=idx0 + i):
+            if gather is not None:
+                ws = [gather(n, w) for n, w in zip(names, ws)]
             return _train_layer(cfg, idx, positions, rope, mask, h,
                                 dict(zip(names, ws)))
         if remat and torch.is_grad_enabled():
@@ -484,11 +490,13 @@ def forward_train(
     rope,
     attn_valid: Optional[torch.Tensor] = None,   # [B, T] padding mask
     remat: bool = True,
+    gather=None,
 ) -> torch.Tensor:
     """Cache-free causal forward for training (full-model finetuning,
     teacher-forced distillation): ``train_layer_block`` over every layer,
     then the final norm.  ``remat`` recomputes each layer under grad to
-    trade operations for device memory."""
+    trade operations for device memory; ``gather``: as
+    ``train_layer_block``'s."""
     T = embeds.shape[1]
     cos, _ = rope
     if positions.ndim == 1:
@@ -496,7 +504,7 @@ def forward_train(
     positions = torch.clamp(positions.long(), 0, cos.shape[0] - 1)
     mask = train_mask(T, attn_valid, device=embeds.device)
     hidden = train_layer_block(params["layers"], cfg, embeds, positions, rope,
-                               mask, remat=remat)
+                               mask, remat=remat, gather=gather)
     if cfg.final_norm:
         hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
     return hidden

@@ -432,12 +432,14 @@ def load_taming_state_dict(sd: dict, cfg: VQGANConfig, device=None) -> dict:
     return _load(sd, cfg, device, _TAMING_NAMES)
 
 
-def random_taming_state_dict(cfg: VQGANConfig, seed: int = 0) -> dict:
+def random_taming_state_dict(cfg: VQGANConfig, seed: int = 0,
+                             rng=None) -> dict:
     """Random numpy state dict in the taming-transformers naming that
     ``load_taming_state_dict`` reads (a synthetic checkpoint: weights
     N(0, 0.02), zero biases, unit norms, a N(0, 1) codebook, drawn from
-    ``np.random.default_rng(seed)`` in the JAX module's order)."""
-    rng = np.random.default_rng(seed)
+    ``np.random.default_rng(seed)`` in the JAX module's order, or from
+    ``rng``: anything with numpy's ``standard_normal(size)``)."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     sd: dict = {}
 
     def conv(prefix, cout, cin, k):

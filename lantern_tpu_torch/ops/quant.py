@@ -11,20 +11,21 @@ same: a quantized kernel replaces params entry ``name`` with ``name + "_q"``
 the plain PyTorch version.
 
 Under a tensor-parallel mesh (``parallel/mesh.py``) the two Megatron
-collectives live here: ``mm_row`` all-reduces a row-split kernel's f32
-partial products over tp and rounds them to the activation dtype once, and
-``head_matmul`` all-gathers a vocab-split head's logits (``head_of`` marks
-such a head as a ``VocabShard``).  Without a mesh, or at ``tp == 1``,
+collectives are called here (their forms live in ``parallel/dist.py``):
+``mm_row`` all-reduces a row-split kernel's f32 partial products over tp
+and rounds them to the activation dtype once, and ``head_matmul``
+all-gathers a vocab-split head's logits (``head_of`` marks such a head as
+a ``VocabShard``).  Without a mesh, or at ``tp == 1``,
 neither runs.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.distributed as tdist
 
 from . import _cuda
 from ..kv import _127
+from ..parallel import dist as pdist
 from ..parallel.mesh import tp_group
 
 LAYER_KERNELS = ("wqkv", "w_gu", "wq", "wk", "wv", "wo",
@@ -162,9 +163,7 @@ def mm_row(x: torch.Tensor, w: dict, name: str, group) -> torch.Tensor:
     summation order away from one process's.  ``group`` None: ``mm``."""
     if group is None:
         return mm(x, w, name)
-    part = mm(x, w, name, torch.float32)
-    tdist.all_reduce(part, group=group)
-    return part.to(x.dtype)
+    return pdist.all_reduce(mm(x, w, name, torch.float32), group).to(x.dtype)
 
 
 def has_kernel(w: dict, name: str) -> bool:
@@ -193,36 +192,12 @@ def head_of(params: dict):
     return head
 
 
-def tp_all_gather(local: torch.Tensor, group) -> torch.Tensor:
-    """The tp ranks' ``[.., n]`` pieces side by side in rank order:
-    ``[.., n * tp]``.  NCCL, and gloo on host tensors, run ``all_gather``;
-    gloo has no all-gather of CUDA tensors, so there ``gather_by_reduce``
-    stands in."""
-    if local.is_cuda and tdist.get_backend(group) == "gloo":
-        return gather_by_reduce(local, group)
-    pieces = [torch.empty_like(local)
-              for _ in range(tdist.get_world_size(group))]
-    tdist.all_gather(pieces, local.contiguous(), group=group)
-    return torch.cat(pieces, dim=-1)
-
-
-def gather_by_reduce(local: torch.Tensor, group) -> torch.Tensor:
-    """``tp_all_gather`` by an all-reduce: each rank writes its piece into
-    a zero-filled ``[.., n * tp]`` buffer and the buffers are summed (exact:
-    every element is one rank's value plus zeros)."""
-    n, r = local.shape[-1], tdist.get_rank(group)
-    full = local.new_zeros(local.shape[:-1]
-                           + (n * tdist.get_world_size(group),))
-    full[..., r * n:(r + 1) * n] = local
-    tdist.all_reduce(full, group=group)
-    return full
-
-
 def head_matmul(hidden: torch.Tensor, head) -> torch.Tensor:
     """f32 logits from a ``head_of`` value (all vocab columns: a
     ``VocabShard``'s are gathered over tp)."""
     if isinstance(head, VocabShard):
-        return tp_all_gather(head_matmul(hidden, head.head), head.group)
+        return pdist.all_gather(head_matmul(hidden, head.head), -1,
+                                head.group)
     if isinstance(head, tuple):
         return w8a16_matmul(hidden, head[0], head[1], out_dtype=torch.float32)
     return (hidden @ head).float()

@@ -131,3 +131,84 @@ def shard_requests(items, process_id: Optional[int] = None,
     n = (tdist.get_world_size() if initialized else 1) \
         if num_processes is None else num_processes
     return items[pid::n]
+
+
+# ---------------------------------------------------------------------------
+# the collectives of every parallel path (tp serving, FSDP, the pipeline)
+#
+# Each takes the group it runs over (None: the whole world) and picks its
+# form by the group's backend and the tensor's device:
+# - NCCL, and gloo on host tensors: ``all_gather_into_tensor``,
+#   ``reduce_scatter_tensor``, ``all_reduce``, ``send`` / ``recv`` on the
+#   tensor itself;
+# - gloo holding CUDA tensors (two ranks sharing one card): ``all_reduce``
+#   on the tensor itself (gloo reduces CUDA tensors); the others on host
+#   copies, staged through the host and copied back.  Gloo has no CUDA
+#   all-gather or reduce-scatter, and its send / recv do not check the
+#   device.
+# Without a process group (one process) each is the identity.
+# ---------------------------------------------------------------------------
+
+def host_staged(x: torch.Tensor, group=None) -> bool:
+    """True where ``x``'s all-gather, reduce-scatter, send or receive over
+    ``group`` goes through a host copy: gloo holding a CUDA tensor."""
+    return x.is_cuda and tdist.get_backend(group) == "gloo"
+
+
+def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The group's ranks' pieces of one tensor concatenated along ``dim`` in
+    rank order (contiguous, in ``x``'s layout)."""
+    if not tdist.is_initialized():
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    if host_staged(x, group):
+        src = src.cpu()
+    out = src.new_empty((tdist.get_world_size(group) * src.shape[0],)
+                        + tuple(src.shape[1:]))
+    tdist.all_gather_into_tensor(out, src, group=group)
+    return out.to(x.device).movedim(0, dim).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the group's sum of ``x`` (``dim``
+    divides by the group size; slices in rank order, as ``all_gather``
+    concatenates them)."""
+    if not tdist.is_initialized():
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    if host_staged(x, group):
+        src = src.cpu()
+    n = tdist.get_world_size(group)
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    tdist.reduce_scatter_tensor(out, src, op=tdist.ReduceOp.SUM, group=group)
+    return out.to(x.device).movedim(0, dim).contiguous()
+
+
+def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The group's sum of ``x``, written into ``x``; returns ``x``."""
+    if tdist.is_initialized():
+        tdist.all_reduce(x, group=group)
+    return x
+
+
+def _global_rank(group, rank: int) -> int:
+    return rank if group is None else tdist.get_global_rank(group, rank)
+
+
+def send(x: torch.Tensor, dst: int, group=None) -> None:
+    """Send ``x`` to the group's rank ``dst``."""
+    x = x.detach().contiguous()
+    if host_staged(x, group):
+        x = x.cpu()
+    tdist.send(x, _global_rank(group, dst), group=group)
+
+
+def recv(shape, dtype, device, src: int, group=None) -> torch.Tensor:
+    """A ``shape`` / ``dtype`` tensor on ``device`` from the group's rank
+    ``src``."""
+    device = torch.device(device)
+    staged = device.type == "cuda" and tdist.get_backend(group) == "gloo"
+    buf = torch.empty(shape, dtype=dtype,
+                      device="cpu" if staged else device)
+    tdist.recv(buf, _global_rank(group, src), group=group)
+    return buf.to(device)

@@ -13,11 +13,19 @@ FinetuneSolverBase equivalent):
   only on 2-D+ kernels (``_decay_mask``: no norms, biases or embeddings),
   linear warmup then cosine decay (``lr_schedule``);
 - checkpoints ``step_XXXXXXXX`` through ``utils.checkpoint.save_pytree``,
-  the newest ``keep_last`` kept, resumed from the newest.
+  the newest ``keep_last`` kept, resumed from the newest;
+- FSDP, the reference's FULL_SHARD (the JAX module's
+  ``fsdp_param_specs``), over a ``(dp, tp)`` mesh of processes
+  (``parallel/mesh.make_mesh``): ``init_state(..., mesh=)`` keeps each
+  rank's contiguous slice, along the dim ``fsdp_param_specs`` picks, of
+  every split leaf and of its AdamW moments; ``train_step(..., mesh=)``
+  gathers a layer's weights when the layer runs (its backward
+  reduce-scatters their gradients over tp), gives each of the ``dp x tp``
+  ranks its own rows of the batch, sums the gradients over dp, and clips
+  by the whole model's gradient norm.  Every rank returns the
+  one-process loss, accuracy and gradient norm.
 
-The JAX module also shards parameters for FSDP over a mesh
-(``fsdp_param_specs``); that needs the port's parallelism, not this one
-card.  ``train_step`` updates the state's parameters in place.
+``train_step`` updates the state's parameters in place.
 """
 
 from __future__ import annotations
@@ -28,12 +36,15 @@ import shutil
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as tdist
 
 from ..configs import ModelConfig
 from ..models import transformer as tfm
+from ..parallel import dist as pdist
+from ..parallel.mesh import TP, Mesh
 from ..utils.checkpoint import restore_pytree, save_pytree
-from .optim import AdamState, AdamW, flatten, global_norm, unflatten
-from .optim import warmup_cosine_decay_schedule
+from .optim import AdamState, AdamW, clip_by_norm_, flatten, global_norm
+from .optim import unflatten, warmup_cosine_decay_schedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,19 +96,66 @@ class FinetuneState(NamedTuple):
     params: dict
     opt_state: AdamState
     step: int
+    # FSDP: ``fsdp_param_specs`` of the whole leaves (``params`` holds this
+    # rank's slices of them); None for an unsharded state
+    specs: Optional[dict] = None
 
 
-def init_state(params: dict, fcfg: FinetuneConfig) -> FinetuneState:
+def init_state(params: dict, fcfg: FinetuneConfig,
+               mesh: Optional[Mesh] = None) -> FinetuneState:
+    """A fresh state.  With ``mesh`` (FSDP) ``params`` are the whole leaves
+    and the state keeps this rank's slices of them (copies: the whole tree
+    can be freed) with AdamW moments of the slices' shapes."""
+    specs = None
+    if mesh is not None:
+        specs = fsdp_param_specs(params, mesh)
+        params = fsdp_shard(params, specs, mesh)
     return FinetuneState(
         params=params,
         opt_state=build_optimizer(fcfg, params).init(flatten(params)[1]),
-        step=0)
+        step=0, specs=specs)
+
+
+def ce_sums(params, hidden, tokens, loss_mask, z_loss: float = 0.0):
+    """The next-token cross entropy's sums over ``hidden`` [B, T, H]
+    (position t predicts token t+1): ``(nll, z, hits, count)``, the masked
+    NLL sum, the masked sum of the squared log-partition (None without
+    ``z_loss``), the masked count of top-1 hits and the mask's sum.  Sums,
+    so that shards of a batch add up to the whole batch's."""
+    logits = tfm.logits_head(params, hidden)                  # [B, T, V]
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    tgt = tokens[:, 1:].long()
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    mask = loss_mask[:, 1:]
+    z = None
+    if z_loss:
+        z = torch.sum((torch.logsumexp(logits[:, :-1], dim=-1) ** 2) * mask)
+    with torch.no_grad():
+        hits = torch.sum((torch.argmax(logits[:, :-1], -1) == tgt) * mask)
+    return torch.sum(nll * mask), z, hits, torch.sum(mask)
+
+
+def mean_loss(nll, z, hits, count, z_loss: float = 0.0):
+    """``(loss, acc)`` from ``ce_sums``' sums over ``count`` masked
+    positions (the whole batch's, where the sums are a shard's)."""
+    loss = nll / (count + 1e-6)
+    if z_loss:
+        loss = loss + z_loss * z / (count + 1e-6)
+    return loss, hits / (count + 1e-6)
 
 
 def token_loss(params, cfg: ModelConfig, rope, batch, fcfg: FinetuneConfig):
     """``(loss, acc)``: next-token CE over ``(tokens, loss_mask)``, with the
     optional conditioning prefix ``cond`` and token-aligned ``attn_valid``
     (the prefix's columns are always valid)."""
+    return mean_loss(*token_sums(params, cfg, rope, batch, fcfg),
+                     fcfg.z_loss)
+
+
+def token_sums(params, cfg: ModelConfig, rope, batch, fcfg: FinetuneConfig,
+               gather=None):
+    """``token_loss``'s ``ce_sums``; ``gather``: the layers' FSDP gather
+    (``transformer.train_layer_block``)."""
     tokens = batch["tokens"]                  # [B, T]
     B, T = tokens.shape
     embeds = tfm.token_embed(params, tokens)
@@ -112,28 +170,20 @@ def token_loss(params, cfg: ModelConfig, rope, batch, fcfg: FinetuneConfig):
                                            device=attn_valid.device),
                                 attn_valid], dim=1)
     hidden = tfm.forward_train(params, cfg, embeds, positions, rope,
-                               attn_valid=attn_valid, remat=fcfg.remat)
-    logits = tfm.logits_head(params, hidden[:, Tc:])          # [B, T, V]
-    # predict token t+1 from position t
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
-    tgt = tokens[:, 1:].long()
-    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-    mask = batch["loss_mask"][:, 1:]
-    loss = torch.sum(nll * mask) / (torch.sum(mask) + 1e-6)
-    if fcfg.z_loss:
-        z = torch.logsumexp(logits[:, :-1], dim=-1)
-        loss = loss + fcfg.z_loss * torch.sum((z ** 2) * mask) / (
-            torch.sum(mask) + 1e-6)
-    with torch.no_grad():
-        acc = torch.sum((torch.argmax(logits[:, :-1], -1) == tgt) * mask) / (
-            torch.sum(mask) + 1e-6)
-    return loss, acc
+                               attn_valid=attn_valid, remat=fcfg.remat,
+                               gather=gather)
+    return ce_sums(params, hidden[:, Tc:], tokens, batch["loss_mask"],
+                   fcfg.z_loss)
 
 
 def train_step(state: FinetuneState, cfg: ModelConfig, fcfg: FinetuneConfig,
-               rope, batch):
+               rope, batch, mesh: Optional[Mesh] = None):
     """One optimizer step: ``(state, {"loss", "acc", "grad_norm"})``, the
-    grad norm before clipping; the parameters are updated in place."""
+    grad norm before clipping; the parameters are updated in place.  With
+    ``mesh``: the FSDP step (``fsdp_step``) of a state from
+    ``init_state(..., mesh=)``."""
+    if mesh is not None:
+        return fsdp_step(state, cfg, fcfg, rope, batch, mesh)
     paths, leaves = flatten(state.params)
     with torch.enable_grad():
         live = [p.detach().requires_grad_() for p in leaves]
@@ -147,6 +197,165 @@ def train_step(state: FinetuneState, cfg: ModelConfig, fcfg: FinetuneConfig,
         leaves, grads, state.opt_state)
     return (FinetuneState(state.params, opt_state, state.step + 1),
             {"loss": loss.detach(), "acc": acc, "grad_norm": grad_norm})
+
+
+# ---------------------------------------------------------------------------
+# FSDP
+# ---------------------------------------------------------------------------
+
+def fsdp_param_specs(params: dict, mesh: Mesh) -> dict:
+    """FULL_SHARD: every >= 2-D leaf split over ``tp`` on its largest dim
+    that ``tp`` divides (ties to the lower dim, as JAX's stable sort breaks
+    them), smaller leaves replicated.  Per leaf (a fused kernel takes its
+    own largest dim), in the tuple form of ``parallel/mesh.py``."""
+    def spec(leaf: torch.Tensor) -> tuple:
+        dims = [None] * leaf.ndim
+        if leaf.ndim >= 2:
+            for d in sorted(range(leaf.ndim), key=lambda d: -leaf.shape[d]):
+                if leaf.shape[d] % mesh.tp == 0:
+                    dims[d] = TP
+                    break
+        return tuple(dims)
+
+    paths, leaves = flatten(params)
+    return unflatten(params, paths, [spec(x) for x in leaves])
+
+
+def split_dims(specs: dict) -> list:
+    """Per leaf, in ``flatten`` order: the dim split over tp, or None."""
+    return [s.index(TP) if TP in s else None for s in flatten(specs)[1]]
+
+
+def fsdp_shard(params: dict, specs: dict, mesh: Mesh) -> dict:
+    """This rank's contiguous slice, along its split dim, of every split
+    leaf (a copy of its own); replicated leaves as they are.  A contiguous
+    slice is what ``all_gather`` along that dim inverts (unlike
+    ``parallel/mesh.shard_pytree``'s part-by-part cut of fused kernels)."""
+    paths, leaves = flatten(params)
+    out = []
+    for x, d in zip(leaves, split_dims(specs)):
+        if d is not None:
+            w = x.shape[d] // mesh.tp
+            x = x.narrow(d, mesh.tp_rank * w, w).clone(
+                memory_format=torch.contiguous_format)
+        out.append(x)
+    return unflatten(params, paths, out)
+
+
+def fsdp_gather(state: FinetuneState, mesh: Mesh) -> dict:
+    """The whole parameters of an FSDP state, gathered over tp (every rank
+    of a tp row calls it and gets the whole tree)."""
+    paths, leaves = flatten(state.params)
+    return unflatten(state.params, paths, [
+        x if d is None else pdist.all_gather(x, d, mesh.tp_group)
+        for x, d in zip(leaves, split_dims(state.specs))])
+
+
+def batch_rows(batch: dict, part: int, parts: int) -> dict:
+    """Part ``part`` of ``parts`` equal parts of the whole batch's rows (a
+    shared ``[1, T]`` ``attn_valid`` stays whole): a rank's rows where the
+    ranks split the batch."""
+    B = batch["tokens"].shape[0]
+    if B % parts:
+        raise ValueError(f"a batch of {B} rows does not split into {parts} "
+                         f"equal parts")
+    b = B // parts
+    return {k: v if k == "attn_valid" and v.shape[0] == 1
+            else v[part * b:(part + 1) * b] for k, v in batch.items()}
+
+
+class _GatherOnUse(torch.autograd.Function):
+    """The whole leaf from the tp ranks' slices; the backward reduce-scatters
+    the whole leaf's gradient (summed over tp) back to this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        out = pdist.all_gather(x, dim, group)
+        return out.clone() if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return pdist.reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+def sum_grads_(grads, sharded, dp_group) -> None:
+    """In place: every leaf's gradient summed over the ranks that hold the
+    same part of it.  ``sharded`` leaves (an FSDP slice, a pipeline
+    stage's layers) are held by one rank of each dp replica: summed over
+    ``dp_group``; whole leaves are on every rank: summed over the world."""
+    for g, part in zip(grads, sharded):
+        pdist.all_reduce(g, dp_group if part else None)
+
+
+def sharded_global_norm(grads, sharded, group) -> torch.Tensor:
+    """``optax.global_norm`` of a model whose ``sharded`` leaves are split
+    over ``group`` (each rank a distinct part, their squared norms summed
+    over it) and whose other leaves are whole on every rank (counted once).
+    Summed in leaf order as ``global_norm`` sums, so over a group of one its
+    bits are ``global_norm``'s."""
+    sq = torch.stack([torch.sum(g.float() * g.float()) for g in grads])
+    part = torch.tensor(list(sharded), device=sq.device)
+    total = pdist.all_reduce(torch.where(part, sq, 0.0), group)
+    return torch.sqrt(sum(torch.where(part, total, sq).unbind()))
+
+
+def fsdp_step(state: FinetuneState, cfg: ModelConfig, fcfg: FinetuneConfig,
+              rope, batch, mesh: Mesh):
+    """``train_step`` over a ``(dp, tp)`` mesh (FULL_SHARD, each rank on its
+    own rows): every rank passes the whole ``batch`` and takes its rows
+    (``batch_rows``).  Split leaves outside the layer stack are gathered
+    once, each layer's inside the layer loop; each rank divides its masked
+    NLL sum by the whole batch's mask count, so the ranks' gradients sum to
+    the one-process gradient: split leaves' over tp (the gathers'
+    backward), then over dp; whole leaves' over every rank.  The clip is by
+    the whole model's norm (``sharded_global_norm``), then AdamW runs on
+    the slices without clipping again (optax's ``chain(clip_by_global_norm,
+    adamw)``)."""
+    if state.specs is None:
+        raise ValueError("train_step(mesh=) needs a state from "
+                         "init_state(..., mesh=)")
+    if tdist.is_initialized() and (mesh.tp_group is None
+                                   or mesh.dp_group is None):
+        raise ValueError("FSDP needs the mesh's process groups: build it "
+                         "with parallel.mesh.make_mesh after "
+                         "init_distributed")
+    paths, leaves = flatten(state.params)
+    dims = split_dims(state.specs)
+    # a layer leaf split past the layer axis is gathered a layer at a time
+    per_layer = {p[len("layers/"):]: d - 1 for p, d in zip(paths, dims)
+                 if d and p.startswith("layers/")}
+
+    def gather(name, w):
+        d = per_layer.get(name)
+        return w if d is None else _GatherOnUse.apply(w, d, mesh.tp_group)
+
+    rows = batch_rows(batch, mesh.rank, mesh.dp * mesh.tp)
+    with torch.enable_grad():
+        live = [p.detach().requires_grad_() for p in leaves]
+        use = [x if d is None or (p.startswith("layers/")
+                                  and p[len("layers/"):] in per_layer)
+               else _GatherOnUse.apply(x, d, mesh.tp_group)
+               for p, x, d in zip(paths, live, dims)]
+        nll, z, hits, count = token_sums(unflatten(state.params, paths, use),
+                                         cfg, rope, rows, fcfg, gather=gather)
+        total = pdist.all_reduce(count.detach().clone())
+        loss, _ = mean_loss(nll, z, hits, total, fcfg.z_loss)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    split = [d is not None for d in dims]
+    sum_grads_(grads, split, mesh.dp_group)
+    grad_norm = sharded_global_norm(grads, split, mesh.tp_group)
+    clip_by_norm_(grads, grad_norm, fcfg.grad_clip_norm)
+    opt = dataclasses.replace(build_optimizer(fcfg, state.params),
+                              clip_norm=None)
+    opt_state = opt.update(leaves, grads, state.opt_state)
+    metrics = {"loss": pdist.all_reduce(loss.detach().clone()),
+               "acc": pdist.all_reduce(hits.clone()) / (total + 1e-6),
+               "grad_norm": grad_norm}
+    return (FinetuneState(state.params, opt_state, state.step + 1,
+                          state.specs), metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +379,12 @@ def _tree(state: FinetuneState) -> dict:
 def save_checkpoint(save_dir: str, state: FinetuneState,
                     keep_last: int = 3) -> str:
     """Save ``state`` as ``save_dir/step_XXXXXXXX`` (written to a ``.tmp``
-    name, then renamed) and prune all but the newest ``keep_last``."""
+    name, then renamed) and prune all but the newest ``keep_last``.  An
+    FSDP state holds one rank's slices and is refused (save
+    ``fsdp_gather``'s whole parameters instead)."""
+    if state.specs is not None:
+        raise ValueError("save_checkpoint: an FSDP state holds this rank's "
+                         "slices; a sharded checkpoint is not implemented")
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, f"step_{int(state.step):08d}")
     save_pytree(path + ".tmp", _tree(state))

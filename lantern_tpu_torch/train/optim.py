@@ -138,6 +138,21 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
 
 
+@torch.no_grad()
+def clip_by_norm_(grads: Sequence[torch.Tensor], norm: torch.Tensor,
+                  max_norm: float) -> None:
+    """``optax.clip_by_global_norm``'s scaling, in place, by a norm the
+    caller computed (a sharded trainer's is the whole model's, not its
+    shard's): ``t / norm * max_norm`` where ``norm >= max_norm``, else
+    ``t / 1 * 1 == t``, with no read-back to the host."""
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    den = torch.where(keep, one, norm)
+    num = torch.where(keep, one, torch.full_like(norm, max_norm))
+    for t in grads:
+        t.div_(den.to(t.dtype)).mul_(num.to(t.dtype))
+
+
 # ---------------------------------------------------------------- AdamW
 
 class AdamState(NamedTuple):
@@ -189,15 +204,7 @@ class AdamW:
             torch._foreach_clamp_min_(g, -self.clip_value)
             torch._foreach_clamp_max_(g, self.clip_value)
         if self.clip_norm is not None:
-            norm = global_norm(g)
-            keep = norm < self.clip_norm
-            # t / norm * max_norm where the norm reaches max_norm, else
-            # t / 1 * 1 == t: no read-back to the host
-            one = torch.ones_like(norm)
-            den = torch.where(keep, one, norm)
-            num = torch.where(keep, one, torch.full_like(norm, self.clip_norm))
-            for t in g:
-                t.div_(den.to(t.dtype)).mul_(num.to(t.dtype))
+            clip_by_norm_(g, global_norm(g), self.clip_norm)
         count = state.count + 1
         bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(count))

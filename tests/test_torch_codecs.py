@@ -234,6 +234,9 @@ def test_random_taming_state_dict_matches_jax():
     assert list(a) == list(b)
     for k in a:
         np.testing.assert_array_equal(a[k], b[k])
+    # a generator passed in draws the same stream as its seed
+    c = tvq.random_taming_state_dict(ct, rng=np.random.default_rng(5))
+    assert all(np.array_equal(a[k], c[k]) for k in a)
 
 
 def to_llamagen_names(sd, n_levels):

@@ -148,6 +148,9 @@ def test_clip_census_and_random_weights_match_jax():
     tiny_t, tiny_j = tclip.CLIPGeom(**TINY), jclip.CLIPGeom(**TINY)
     sd = tclip.random_state_dict(tiny_t, seed=4)
     pj = jclip.init_random_params(tiny_j, seed=4)
+    # a generator passed in draws the same stream as its seed
+    again = tclip.random_state_dict(tiny_t, rng=np.random.default_rng(4))
+    assert all(np.array_equal(sd[k], again[k]) for k in sd)
     pt = tclip.params_from_openai(sd, tiny_t, device="cpu")
     np.testing.assert_array_equal(pt["visual.proj"].numpy(), pj["v_proj"])
     np.testing.assert_array_equal(

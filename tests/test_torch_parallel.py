@@ -514,14 +514,15 @@ def test_mesh_coordinates(world):
 @pytest.mark.parametrize("tp", ["tp2", "tp4"])
 def test_head_gather(world, tp):
     """The vocab-split head's gather puts every tp rank's columns side by
-    side in rank order, and the zero-filled all-reduce that stands in for
-    it (gloo on CUDA tensors) gives the same values."""
+    side in rank order: ``dist.all_gather`` on the last dim, and
+    ``head_matmul`` of a ``VocabShard`` through it."""
     outs = [o[f"gather/{tp}"] for o in results(world, "mesh")]
     n = int(tp[2:])
-    for r, (got, by_reduce, _) in enumerate(outs):
+    for r, (got, logits, _) in enumerate(outs):
         group = r // n * n
         want = torch.cat([outs[group + i][2] for i in range(n)], dim=-1)
-        assert torch.equal(got, want) and torch.equal(by_reduce, want)
+        assert torch.equal(got, want)
+        assert torch.equal(logits, want[0])
 
 
 @pytest.mark.parametrize("layout", ["split", "fused"])

@@ -204,13 +204,14 @@ def job_mesh(rank: int, world: int, root: str, inp: dict) -> dict:
     dist.init_distributed(f"file://{root}/mesh", world, rank, device="cpu")
     m4, m22 = pm.make_mesh(dp=1), pm.make_mesh(dp=2)
     out = {"coords": [(m.dp_rank, m.tp_rank) for m in (m4, m22)]}
-    # the head's gather, and the all-reduce that stands in for it where
-    # gloo holds CUDA tensors
+    # the head's gather: a vocab-split head's logits, gathered on the last
+    # dim (the form head_matmul calls)
     for tag, m in (("tp2", m22), ("tp4", m4)):
         x = torch.randn((2, 3, 5),
                         generator=torch.Generator().manual_seed(rank))
-        out[f"gather/{tag}"] = (quant.tp_all_gather(x, m.tp_group),
-                                quant.gather_by_reduce(x, m.tp_group), x)
+        head = quant.VocabShard(torch.eye(5), m.tp_group)
+        out[f"gather/{tag}"] = (dist.all_gather(x, -1, m.tp_group),
+                                quant.head_matmul(x[0], head), x)
     # the forwards: both families, tp 2 and 4, split and fused layouts
     for name in ("cham", "lg"):
         cfg, p, ids = inp[name]["cfg"], inp[name]["p"], inp[name]["ids"]
