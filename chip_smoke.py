@@ -100,13 +100,14 @@ Phases (any failure exits non-zero and prints no result line):
    there), if a stream is short or leaves the vocab, if the launch counts
    differ from the derived ones (one K2 a layer, one K3 and one K4 a
    batched step; K1 ``ceil(2R * 9 / 64)`` launches a base matmul; the
-   drafter per slot), if a request's tokens or steps differ from its lone
-   ``spec.generate`` run of the same seed (sampled, the 12 requests) or if
-   pinned (``pin = 0.5``, 64 tokens) batched runs of 3 requests differ
-   from their lone runs; ``step_many`` must run under
-   ``torch.cuda.set_sync_debug_mode("error")``.  It prints the aggregate
-   tokens/s over the slots, the same requests' lone tokens/s and a profile
-   of the batched step.  Last a ragged Lumina
+   drafter per slot), if a request that refills a slot (``BATCH_ALONE``,
+   4 of the 12) differs in tokens or steps from its lone ``spec.generate``
+   run of the same seed (sampled) or if a pinned (``pin = 0.5``, 64 tokens)
+   batched run of all 12 requests on the 8 slots (first fills and refills)
+   differs from their lone runs; ``step_many``
+   must run under ``torch.cuda.set_sync_debug_mode("error")``.  It prints
+   the aggregate tokens/s over the slots, the refills' lone tokens/s and a
+   profile of the batched step.  Last a ragged Lumina
    batch (full width, 4 layers, prompts of 16, 9 and 4 text tokens on 3
    slots under one grid FSM, pinned): each stream must equal its lone run
    under its own FSM, with derived launch counts;
@@ -123,6 +124,12 @@ Phases (any failure exits non-zero and prints no result line):
    ``ChameleonSession`` (4 layers, full width) takes a 16x16 grid through
    ``generate`` and ``decode_generated`` with the Chameleon VQGAN at its
    published config.  Every path's launch counts equal the derived ones.
+   Then the serving policy (``phase_policy``): every ``MEASURED_BEST``
+   entry builds; ``generate_batch(tree="auto", slots=4)`` on both sessions
+   equals a run of the tree or mode ``serving_plan(4)`` names; and
+   ``python -m lantern_tpu_torch.engine.sweep`` in a subprocess (XL
+   width, ``CUT_LAYERS`` layers, R 1 and 4, ``chain_bush_8`` and AR, one
+   repeat of 16 tokens) prints its schema.
    ``--session-only`` runs the build and this phase alone;
 10. tools (``phase_tools``, after the sessions): K1 at the autotune
    verify's rows (M = 80-120) and K2 at the autotune and teacher-forcing
@@ -165,8 +172,8 @@ Phases (any failure exits non-zero and prints no result line):
    on the (dp, tp) mesh of ``lantern_tpu_torch/parallel``.  (a) NCCL in a
    world of one (``init_distributed()`` from ``RANK=0 WORLD_SIZE=1
    MASTER_ADDR=127.0.0.1``, ``Mesh(dp=1, tp=1)``): the pinned stale +
-   deferred Lumina-7B path at 16x16 under ``set_mesh`` equals the run
-   without it bit for bit, with the derived launch counts, and
+   deferred Lumina-7B path at 16x16 (64 tokens) under ``set_mesh``
+   equals the run without it bit for bit, with the derived launch counts, and
    ``host_mean(3.0) == 3.0``.  (b) Lumina-7B at full width and depth over
    tp = 2, two ranks on the one card over gloo (NCCL refuses two ranks on
    one device): the prefill's and a tree verify's logits within
@@ -262,6 +269,10 @@ BATCH_CAPTIONS = [
 # and the batched phase's tokens a request
 CUT_LAYERS = 12
 BATCH_TOKENS = 256
+# the batched requests also run alone: every request that refills a slot
+# (all 12, first fills and refills, are held batched against alone by the
+# pinned check)
+BATCH_ALONE = tuple(range(BATCH_SLOTS, len(BATCH_CAPTIONS)))
 # the ragged Lumina batch: full Lumina width, 4 layers, token prompts of
 # three lengths on 3 slots, an 8 x 8 image grid
 RAGGED_TEXTS = [list(range(60000, 60016)), list(range(61000, 61009)),
@@ -274,6 +285,8 @@ SESSION_REQUESTS = 6
 SESSION_SLOTS = 4
 SESSION_TOKENS = 32
 LUMINA_PROMPT = "a watercolor painting of a harbor town in the morning fog"
+# the policy phase's sweep subprocess: its time limit
+POLICY_SWEEP_TIMEOUT = 240
 # the tools phase: the verify rows K1 takes at autotune's candidate tree
 # sizes (M = 2L, two launches a matmul past 64 rows); the calibration's
 # rollout and tree budget; the tokens of the runtime-point runs and of each
@@ -293,8 +306,8 @@ TRAIN_EPOCHS, TRAIN_LR = 30, 1e-3
 FT_STEPS, FT_LR = 4, 1e-4
 TRAIN_SERVE_TOKENS = 64
 # the parallel phase: where the rank processes write their logs and
-# results, each part's time limit, the tokens of the tp = 2 and dp = 2
-# runs, the tp = 2 logits' tolerance, the layer the skipped-reduce variant
+# results, each part's time limit, the tokens of the NCCL, tp = 2 and
+# dp = 2 runs, the tp = 2 logits' tolerance, the layer the skipped-reduce variant
 # hits, and the steps of the run that times every collective.  The
 # tolerance is a multiple of a floor measured in the same run: one
 # process's logits with K1 and K2 at one split each (the same products
@@ -2141,11 +2154,13 @@ def phase_batched(torch, card: str, xl: dict):
     are refilled.  Fails unless every request ends without an error with
     ``BATCH_TOKENS`` tokens in the vocab, the run's launch counts
     equal the derived ones (one K2 a layer, one K3 and one K4 a step for all
-    slots; the drafter per slot), every request's tokens and steps equal
-    ``spec.generate`` alone with its seed (sampled), pinned (``pin = 0.5``,
-    64 tokens) batched runs of 3 requests equal their lone runs, and
-    ``step_many`` synchronizes nothing.  Prints the aggregate and the
-    single-request tokens/s and a profile of the batched step."""
+    slots; the drafter per slot), the tokens and steps of every request
+    that refills a slot (``BATCH_ALONE``) equal ``spec.generate`` alone
+    with its seed (sampled), a pinned (``pin = 0.5``, 64 tokens) batched
+    run of all 12 requests on the 8 slots equals their lone runs, and
+    ``step_many`` synchronizes
+    nothing.  Prints the aggregate and the single-request tokens/s and a
+    profile of the batched step."""
     import dataclasses
 
     from lantern_tpu_torch import trees
@@ -2238,28 +2253,34 @@ def phase_batched(torch, card: str, xl: dict):
         f"base verify forward {base} (K1 {k1_base} launches a matmul over "
         f"{2 * R * tree.num_nodes} rows), drafter per slot, {R} slots "
         f"{drafter_step}")
-    # the same requests alone, one after the other: under sampling too a
-    # request draws the same numbers batched as alone, so its tokens and
-    # steps must match
+    # the requests that refill a slot alone, one after the other: under
+    # sampling too a request draws the same numbers batched as alone, so
+    # its tokens and steps must match
+    by_uid = {r.uid: r for r in done}
+    lone = [r for r in requests(len(reqs)) if r.uid in BATCH_ALONE]
     t0 = time.perf_counter()
-    singles = [alone(ecfg, r) for r in requests(len(reqs))]
+    singles = [alone(ecfg, r) for r in lone]
     torch.cuda.synchronize()
     t_alone = time.perf_counter() - t0
-    for r, a in zip(done, singles):
+    for req, a in zip(lone, singles):
+        r = by_uid[req.uid]
         if not (np_equal(r.tokens, a.tokens.cpu().numpy())
                 and r.steps == a.steps):
             fail(f"batched XL request {r.uid}: batched {r.steps} steps, "
                  f"alone {a.steps}; tokens equal "
                  f"{np_equal(r.tokens, a.tokens.cpu().numpy())}")
-    log(f"batched XL [{card}] the same {len(singles)} requests alone "
-        f"(spec.generate, same seeds): {len(singles) * n_img / t_alone:.2f} "
-        f"tok/s ({t_alone:.2f} s, step compression "
+    log(f"batched XL [{card}] the {len(singles)} requests that refill a "
+        f"slot ({list(BATCH_ALONE)}) alone (spec.generate, same seeds): "
+        f"{len(singles) * n_img / t_alone:.2f} tok/s ({t_alone:.2f} s, "
+        f"{t_alone / len(singles):.2f} s a request, step compression "
         f"{sum(x.accept_sum for x in singles) / sum(x.steps for x in singles):.3f})"
         f"; batched/alone {toks / wall / (len(singles) * n_img / t_alone):.3f}; "
-        f"every request's tokens and steps equal its batched run's")
-    # pinned: batched equals alone, tokens and steps
+        f"every one's tokens and steps equal its batched run's")
+    # pinned: batched equals alone, tokens and steps, for every request:
+    # the 8 first fills and the 4 refills that enter while they run
     pinned = dataclasses.replace(ecfg, pin=0.5, max_new=64)
-    done_p = Scheduler(engine(pinned)).run(requests(3))
+    t0 = time.perf_counter()
+    done_p = Scheduler(engine(pinned)).run(requests(len(caps)))
     for r in done_p:
         a = alone(pinned, r)
         if r.error is not None or not (
@@ -2268,9 +2289,10 @@ def phase_batched(torch, card: str, xl: dict):
             fail(f"batched XL pinned request {r.uid}: batched {r.steps} "
                  f"steps, alone {a.steps}; error {r.error}; tokens equal "
                  f"{r.error is None and np_equal(r.tokens, a.tokens.cpu().numpy())}")
-    log(f"batched XL pinned check [{card}]: 3 requests (pin=0.5, 64 tokens) "
-        f"batched on {R} slots equal spec.generate alone, tokens and steps "
-        f"({[r.steps for r in done_p]} steps)")
+    log(f"batched XL pinned check [{card}]: {len(done_p)} requests (pin=0.5, "
+        f"64 tokens) batched on {R} slots (slots refilled) equal "
+        f"spec.generate alone, tokens and steps ({[r.steps for r in done_p]} "
+        f"steps; {time.perf_counter() - t0:.2f} s)")
     # a profile of the batched step with every slot busy
     pres = [eng.prefill(r.cond, r.uncond, spec.request_generator(r.seed),
                         prefix_valid=r.prefix_valid) for r in requests(R)]
@@ -2674,6 +2696,7 @@ def phase_session(torch, card: str, xl: dict, timer):
     caps = BATCH_CAPTIONS[:SESSION_REQUESTS]
     n_tok = SESSION_TOKENS
     common = dict(max_new=n_tok, kv_quant=True, **lant)
+    batch_runs = {}
     for mode, kw in (("static", dict(tree=tree_path)),
                      ("dynamic", dict(pin=0.5)), ("ar", {})):
         name = f"session_{mode}_batch"
@@ -2681,6 +2704,7 @@ def phase_session(torch, card: str, xl: dict, timer):
             done, t_b = run(name, lambda: sess.generate_batch(
                 caps, slots=SESSION_SLOTS, mode=mode, seed=100, **common,
                 **kw))
+        batch_runs[mode, kw.get("tree")] = done
         for r in done:
             if r.error is not None:
                 fail(f"{name}: request {r.uid} failed: {r.error}")
@@ -2799,7 +2823,130 @@ def phase_session(torch, card: str, xl: dict, timer):
         f"{limg.shape} uint8, pixel std {limg.std():.2f}; "
         f"{1.0 / (t_lgen + t_ldec):.3f} images/s; launches "
         f"{launches['session_lumina']} = the derived counts")
+    launches.update(phase_policy(torch, card, sess, lsess, batch_runs, lant))
     return launches, rec
+
+
+def phase_policy(torch, card: str, sess, lsess, batch_runs: dict,
+                 lant: dict) -> dict:
+    """The serving policy (``engine/policy.py``) on the card, inside the
+    session phase and on its sessions (XL at ``CUT_LAYERS`` layers, Lumina
+    at 4): every entry of ``MEASURED_BEST`` names a tree that
+    ``trees.get_tree`` builds, or lockstep AR; ``generate_batch(tree=
+    "auto", slots=SESSION_SLOTS)`` serves the session phase's captions (XL)
+    and 4 Lumina prompts with the tokens (and steps, where speculative) of
+    a ``generate_batch`` run of the tree or mode ``serving_plan`` names
+    (the session phase's own run where it is the same), with derived launch
+    counts; and ``python -m lantern_tpu_torch.engine.sweep`` in a
+    subprocess at XL width, ``CUT_LAYERS`` layers, R in {1, 4},
+    ``chain_bush_8`` and AR, one repeat of 16 tokens, prints its schema.
+    Prints the phase's seconds.  Returns the auto runs' launches."""
+    from lantern_tpu_torch import trees
+    from lantern_tpu_torch.engine import policy
+    from lantern_tpu_torch.models.item_processor import hash_tokenize
+    from lantern_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    for geometry, table in policy.MEASURED_BEST.items():
+        for R, (mode, name) in table.items():
+            if (mode, name) == ("ar", None):
+                continue
+            if mode != "spec":
+                fail(f"policy: {geometry} R={R} holds {(mode, name)}")
+            trees.get_tree(policy.resolve_tree(name))
+    launches = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = dict(_cuda.LAUNCHES)
+        return out, time.perf_counter() - t
+
+    def check(what, s, prompts, kw, rows, geometry, runs):
+        """``s.generate_batch(tree="auto")`` against the named plan (the
+        run in ``runs`` under its ``(mode, tree)`` key, where it is)."""
+        plan = policy.serving_plan(SESSION_SLOTS, geometry=geometry)
+        name = f"policy_{what}_auto"
+        with StepCounter() as steps:
+            auto, t_auto = run(name, lambda: s.generate_batch(
+                prompts, slots=SESSION_SLOTS, tree="auto", **kw))
+        key = ("ar", None) if plan[0] == "ar" else ("static", plan[1])
+        ref, reused = runs.get(key), key in runs
+        if ref is None:
+            named = (dict(mode="ar") if plan[0] == "ar"
+                     else dict(tree=policy.resolve_tree(plan[1])))
+            ref = s.generate_batch(prompts, slots=SESSION_SLOTS, **named,
+                                   **kw)
+        for a, b in zip(auto, ref):
+            if a.error is not None or b.error is not None or not (
+                    np_equal(a.tokens, b.tokens)
+                    and (plan[0] == "ar" or a.steps == b.steps)):
+                fail(f"policy {what}: request {a.uid} under tree='auto' "
+                     f"(plan {plan}) differs from the named run; errors "
+                     f"{a.error} / {b.error}")
+        L = s.cfg.num_layers
+        if plan[0] == "ar":
+            chunks = [min(SESSION_SLOTS, len(prompts) - lo)
+                      for lo in range(0, len(prompts), SESSION_SLOTS)]
+            want = ar_launches(L, rows, kw["max_new"], chunks)
+        else:
+            t = trees.get_tree(policy.resolve_tree(plan[1]))
+            want, _ = spec_launches(
+                L, [rows] * len(prompts), steps.n, t.num_nodes, t.path_len,
+                [len(lv.child_flat_idx) for lv in t.levels], deferred=False,
+                slots=SESSION_SLOTS, stale=True)
+        if launches[name] != want:
+            fail(f"{name} launched {launches[name]}, but its shapes give "
+                 f"{want}")
+        log(f"policy {what} [{card}] serving_plan({SESSION_SLOTS}, "
+            f"{geometry!r}) = {plan}: generate_batch({len(prompts)} prompts,"
+            f" slots={SESSION_SLOTS}, tree='auto') {t_auto:.3f} s, equal to "
+            f"the named run ({'reused' if reused else 'run here'}), tokens{'' if plan[0] == 'ar' else ' and steps'}; launches "
+            f"{launches[name]} = the derived counts")
+
+    xcfg = sess.cfg
+    check("xl", sess, BATCH_CAPTIONS[:SESSION_REQUESTS],
+          dict(seed=100, max_new=SESSION_TOKENS, kv_quant=True, **lant),
+          xcfg.cls_token_num, "llamagen_xl", batch_runs)
+    check("lumina", lsess, [LUMINA_PROMPT] * SESSION_SLOTS,
+          dict(seed=200, max_new=SESSION_TOKENS, kv_quant=True, **lant),
+          len(hash_tokenize(LUMINA_PROMPT)) + 3, "lumina_7b", {})
+
+    # the sweep, as an operator runs it, cut to a schema check
+    t = time.perf_counter()
+    cmd = [sys.executable, "-m", "lantern_tpu_torch.engine.sweep", "--geom",
+           "xl", "--layers", str(xcfg.num_layers), "--rs", "1,4", "--trees",
+           "chain_bush_8", "--repeats", "1", "--tokens", "16"]
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=POLICY_SWEEP_TIMEOUT)
+    t_sweep = time.perf_counter() - t
+    if proc.returncode:
+        fail(f"policy: {' '.join(cmd[1:])} exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines()]
+    rows, last = lines[:-1], lines[-1]
+    keys = {"geom", "R", "config", "tok_s", "compression", "repeat"}
+    got = sorted((r["R"], r["config"]) for r in rows)
+    if got != [(1, "ar"), (1, "spec:chain_bush_8"), (4, "ar"),
+               (4, "spec:chain_bush_8")] or any(
+            set(r) != keys or not r["tok_s"] > 0 for r in rows):
+        fail(f"policy: the sweep printed the rows {rows}")
+    if (set(last) != {"summary", "winners", "within_spread", "device"}
+            or len(last["summary"]) != 4 or sorted(last["winners"])
+            != ["1", "4"] or last["device"] != torch.cuda.get_device_name(0)):
+        fail(f"policy: the sweep's summary line is {last}")
+    log(f"policy sweep [{card}] python -m lantern_tpu_torch.engine.sweep "
+        f"(XL width, {xcfg.num_layers} layers, R 1 and 4, chain_bush_8 and "
+        f"AR, 1 repeat of 16 tokens) in a subprocess, {t_sweep:.1f} s: "
+        + "; ".join(f"R={p['R']} {p['config']} {p['median_tok_s']:.2f} tok/s"
+                    f" C {p['compression']:.3f}" for p in last["summary"])
+        + f"; winners {last['winners']}")
+    log(f"phase policy: {time.perf_counter() - t0:.1f} s (the sweep "
+        f"{t_sweep:.1f} s)")
+    return launches
 
 
 def k2_tool_case(torch, timer, card: str, what: str, G: int, hd: int, S: int,
@@ -4547,8 +4694,8 @@ def stale_launches(cfg, tree, steps: int) -> dict:
 def rank_nccl(torch) -> None:
     """(a) A world of one on NCCL: ``init_distributed()`` from the
     environment, ``Mesh(dp=1, tp=1)``, and the pinned stale + deferred
-    Lumina-7B path at 16x16 under ``set_mesh`` against the same run without
-    it."""
+    Lumina-7B path at 16x16 (its first ``PARALLEL_TOKENS`` tokens) under
+    ``set_mesh`` against the same run without it."""
     import dataclasses
 
     from lantern_tpu_torch.engine import spec
@@ -4560,6 +4707,7 @@ def rank_nccl(torch) -> None:
     backend = torch.distributed.get_backend()
     mesh = pm.make_mesh()
     cfg, params, tp, fsm, tree, ecfg, _ = lumina_lane(torch)
+    ecfg = dataclasses.replace(ecfg, max_new=PARALLEL_TOKENS)
 
     def run():
         return spec.generate(params, ecfg, cfg, tree, tp,

@@ -17,12 +17,12 @@ Every request draws from ``spec.request_generator(seed)`` on the session's
 device, so under sampling a request's tokens are the same alone and
 batched.  Latency is read after ``torch.cuda.synchronize()``.
 
-``tree="auto"`` in ``generate_batch`` is where the JAX sessions consult
-``engine/policy.serving_plan``, a table measured on TPU v5e; the port has
-no such table yet (ROADMAP item 12's policy, to be measured on the H100
-once the port bench exists, item 20), so there it raises.  ``pin`` (the
-engines' ``SpecDecodeConfig.pin``) is the port's hook for deterministic
-checks; the JAX sessions do not take it.  A caption session embeds with
+``tree="auto"`` in ``generate_batch`` asks ``engine/policy.serving_plan``
+for the slot count's tree, or for lockstep AR, from the crossover measured
+on the H100 (LlamaGen with a drafter in static mode; Chameleon in static
+and dynamic mode), as the JAX sessions ask theirs.  ``pin`` (the engines'
+``SpecDecodeConfig.pin``) is the port's hook for deterministic checks; the
+JAX sessions do not take it.  A caption session embeds with
 ``utils.t5.T5Embedder`` when ``from_pretrained`` gets a ``t5_dir``, else
 with ``utils.t5.RandomT5`` unless ``t5`` is set to an embedder of the same
 interface.
@@ -46,16 +46,8 @@ from ..models import transformer as tfm
 from ..models import vqgan
 from ..ops.acceptance import LanternSpec
 from ..ops.sampling import LogitsWarp
-from . import ar, spec
+from . import ar, policy, spec
 from .spec import request_generator
-
-POLICY_MESSAGE = (
-    "tree='auto' in generate_batch is the JAX serving policy "
-    "(engine/policy.serving_plan), whose table holds TPU v5e measurements; "
-    "the port has none until the policy is measured on the H100 (ROADMAP "
-    "item 12's policy, after the port bench of item 20): name a tree or a "
-    ".json tree file")
-
 
 @dataclasses.dataclass
 class GenStats:
@@ -277,9 +269,10 @@ class LlamaGenSession:
         slots: the scheduler's ``Request`` list in input order (tokens,
         steps, accept_sum, latency; a failed prompt carries ``error`` and
         the batch keeps serving).  Request ``i`` draws from seed ``seed +
-        i``.  ``mode="ar"`` runs lockstep batched AR; ``tree="auto"``
-        raises with a drafter in static mode (no H100 policy yet) and is
-        else the slot-count rule of the JAX session."""
+        i``.  ``mode="ar"`` runs lockstep batched AR.  ``tree="auto"``
+        with a drafter in static mode takes ``policy.serving_plan(slots)``
+        (a tree, or lockstep AR); otherwise ``naive_extend_57`` below 4
+        slots and ``chain_bush_8`` from 4, the JAX session's rule."""
         from .batch import BatchedEngine
         from .scheduler import Request, Scheduler
 
@@ -288,8 +281,12 @@ class LlamaGenSession:
         warp = LogitsWarp(temperature=temperature, top_k=top_k, top_p=top_p,
                           warp_order=warp_order)
         if tree == "auto" and mode == "static" and self.dparams is not None:
-            raise ValueError(POLICY_MESSAGE)
-        if tree == "auto":
+            pmode, ptree = policy.serving_plan(slots)
+            if pmode == "ar":
+                mode = "ar"
+            else:
+                tree = ptree
+        elif tree == "auto":
             tree = "naive_extend_57" if slots < 4 else "chain_bush_8"
         if mode == "ar" or self.dparams is None:
             return self._generate_batch_ar(prompts, slots, max_new,
@@ -586,8 +583,10 @@ class ChameleonSession:
         """Continuous-batching generation over token or text prompts of any
         lengths (each slot binds its own grid start into the Lumina FSM):
         the scheduler's ``Request`` list in input order.  ``mode="ar"``
-        runs lockstep batched AR bucketed by prompt length; ``tree="auto"``
-        raises (no H100 policy yet)."""
+        runs lockstep batched AR bucketed by prompt length.  In static and
+        dynamic mode ``tree="auto"`` takes ``policy.serving_plan(slots,
+        "lumina_7b")``: a tree (through ``policy.resolve_tree``), or
+        lockstep AR."""
         from .batch import BatchedEngine
         from .scheduler import Request, Scheduler
 
@@ -607,7 +606,12 @@ class ChameleonSession:
             except Exception as e:  # noqa: BLE001
                 reqs.append(_failed(i, seed + i, e))
         if tree == "auto":
-            raise ValueError(POLICY_MESSAGE)
+            pmode, tree = policy.serving_plan(slots, geometry="lumina_7b")
+            if pmode == "ar":
+                return self._generate_batch_ar_tokens(
+                    prompts, slots, max_new, cfg_scale, warp, seed, kv_quant,
+                    grid)
+            tree = policy.resolve_tree(tree)
         if not prompts:
             return []
         mask, logits_fn = self._image_mask(), None

@@ -6,7 +6,9 @@ json), [start, end) slicing, per-prompt ``prompt_{idx}.png``,
 ``global_statistics_{start}_{end}.json`` (prompt, step_compression,
 latency, and error when a batched request failed) and
 ``generation_configs.json``.  ``run(args, device)`` runs on ``device``
-(``None`` is the card).  Images are written by ``utils.png``: no path here
+(``None`` is the card).  ``--tree-choices auto --slots N`` leaves the tree,
+or lockstep AR, to ``engine/policy.serving_plan`` (the production recipe
+``run.sh`` serves so).  Images are written by ``utils.png``: no path here
 imports an imaging library.
 
 A random-weight Chameleon-family session gets a random Chameleon VQGAN at
@@ -52,8 +54,10 @@ def add_args(p):
     p.add_argument("--static-tree", action="store_true", default=True)
     p.add_argument("--dynamic-tree", dest="static_tree", action="store_false")
     p.add_argument("--tree-choices", default="naive_extend_57",
-                   help="library tree name, or a .json file from "
-                        "scripts/optimize_bench_tree.py (calibrated shape)")
+                   help="library tree name, a .json file from "
+                        "scripts/optimize_bench_tree.py (calibrated shape), "
+                        "or auto (with --slots > 1 the serving policy's "
+                        "tree or lockstep AR for that slot count)")
     p.add_argument("--lantern", action="store_true")
     p.add_argument("--lantern-k", type=int, default=1000)
     p.add_argument("--lantern-delta", type=float, default=0.1)

@@ -191,6 +191,13 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     return x
 
 
+def barrier(group=None) -> None:
+    """Wait until every rank of ``group`` reaches this call; the identity
+    for one process."""
+    if tdist.is_initialized():
+        tdist.barrier(group=group)
+
+
 def _global_rank(group, rank: int) -> int:
     return rank if group is None else tdist.get_global_rank(group, rank)
 

@@ -13,7 +13,9 @@ FinetuneSolverBase equivalent):
   only on 2-D+ kernels (``_decay_mask``: no norms, biases or embeddings),
   linear warmup then cosine decay (``lr_schedule``);
 - checkpoints ``step_XXXXXXXX`` through ``utils.checkpoint.save_pytree``,
-  the newest ``keep_last`` kept, resumed from the newest;
+  the newest ``keep_last`` kept, resumed from the newest; an FSDP state is
+  gathered and written whole by one rank, and restored into any sharding
+  (orbax's global arrays), so one file serves FSDP and one process alike;
 - FSDP, the reference's FULL_SHARD (the JAX module's
   ``fsdp_param_specs``), over a ``(dp, tp)`` mesh of processes
   (``parallel/mesh.make_mesh``): ``init_state(..., mesh=)`` keeps each
@@ -376,38 +378,101 @@ def _tree(state: FinetuneState) -> dict:
             "step": torch.tensor(int(state.step), dtype=torch.int64)}
 
 
-def save_checkpoint(save_dir: str, state: FinetuneState,
-                    keep_last: int = 3) -> str:
+def _fsdp_mesh(state: FinetuneState, mesh: Optional[Mesh], what: str):
+    if state.specs is not None and mesh is None:
+        raise ValueError(f"{what}: an FSDP state holds this rank's slices; "
+                         f"pass the mesh it is sharded over (mesh=)")
+    return None if state.specs is None else mesh
+
+
+def fsdp_whole_state(state: FinetuneState, mesh: Mesh) -> FinetuneState:
+    """An FSDP state made whole: the parameters and both AdamW moments of
+    every split leaf gathered over tp (every rank of a tp row calls it)."""
+    dims = split_dims(state.specs)
+
+    def whole(xs):
+        return [x if d is None else pdist.all_gather(x, d, mesh.tp_group)
+                for x, d in zip(xs, dims)]
+    opt = state.opt_state
+    return FinetuneState(fsdp_gather(state, mesh),
+                         AdamState(opt.count, whole(opt.mu), whole(opt.nu)),
+                         state.step)
+
+
+def fsdp_shard_state(state: FinetuneState, specs: dict,
+                     mesh: Mesh) -> FinetuneState:
+    """A whole state's FSDP form under ``specs``: this rank's slices of the
+    parameters and of both AdamW moments (``fsdp_shard``'s cut)."""
+    paths = flatten(state.params)[0]
+    opt = state.opt_state
+
+    def cut(xs):
+        return flatten(fsdp_shard(unflatten(state.params, paths, xs), specs,
+                                  mesh))[1]
+    return FinetuneState(fsdp_shard(state.params, specs, mesh),
+                         AdamState(opt.count, cut(opt.mu), cut(opt.nu)),
+                         state.step, specs)
+
+
+def save_checkpoint(save_dir: str, state: FinetuneState, keep_last: int = 3,
+                    mesh: Optional[Mesh] = None) -> str:
     """Save ``state`` as ``save_dir/step_XXXXXXXX`` (written to a ``.tmp``
     name, then renamed) and prune all but the newest ``keep_last``.  An
-    FSDP state holds one rank's slices and is refused (save
-    ``fsdp_gather``'s whole parameters instead)."""
-    if state.specs is not None:
-        raise ValueError("save_checkpoint: an FSDP state holds this rank's "
-                         "slices; a sharded checkpoint is not implemented")
-    os.makedirs(save_dir, exist_ok=True)
+    FSDP state needs ``mesh``: every rank calls this, the state is gathered
+    whole (``fsdp_whole_state``), world rank 0 writes it in the format of
+    an unsharded state, and the ranks meet at a barrier before returning
+    the path."""
+    mesh = _fsdp_mesh(state, mesh, "save_checkpoint")
+    if mesh is not None:
+        state = fsdp_whole_state(state, mesh)
     path = os.path.join(save_dir, f"step_{int(state.step):08d}")
-    save_pytree(path + ".tmp", _tree(state))
-    os.replace(path + ".tmp", path)
-    for old in _checkpoints(save_dir)[:-keep_last]:
-        old = os.path.join(save_dir, old)
-        if os.path.isdir(old):
-            shutil.rmtree(old, ignore_errors=True)
-        else:
-            os.remove(old)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(save_dir, exist_ok=True)
+        save_pytree(path + ".tmp", _tree(state))
+        os.replace(path + ".tmp", path)
+        for old in _checkpoints(save_dir)[:-keep_last]:
+            old = os.path.join(save_dir, old)
+            if os.path.isdir(old):
+                shutil.rmtree(old, ignore_errors=True)
+            else:
+                os.remove(old)
+    if mesh is not None:
+        pdist.barrier()
     return path
 
 
-def restore_checkpoint(save_dir: str,
-                       like: FinetuneState) -> Optional[FinetuneState]:
+def restore_checkpoint(save_dir: str, like: FinetuneState,
+                       mesh: Optional[Mesh] = None
+                       ) -> Optional[FinetuneState]:
     """The newest checkpoint under ``save_dir`` on ``like``'s device (its
-    structure, shapes and dtypes must equal ``like``'s), or None."""
+    structure, dtypes and whole shapes must equal ``like``'s), or None.
+    With an FSDP ``like`` (and its ``mesh``) the whole state is read and
+    each rank keeps its slices (``fsdp_shard_state``); a checkpoint written
+    by an FSDP run or by one process restores into either."""
+    mesh = _fsdp_mesh(like, mesh, "restore_checkpoint")
     ckpts = _checkpoints(save_dir)
     if not ckpts:
         return None
+    tree = _tree(like)
+    if mesh is not None:
+        # the whole leaves' shapes: a split dim is tp slices long
+        dims = split_dims(like.specs)
+        paths, leaves = flatten(like.params)
+
+        def whole(xs):
+            return [torch.empty(x.shape[:d] + (x.shape[d] * mesh.tp,)
+                                + x.shape[d + 1:], dtype=x.dtype,
+                                device="meta") if d is not None else x
+                    for x, d in zip(xs, dims)]
+        opt = like.opt_state
+        tree = _tree(FinetuneState(
+            unflatten(like.params, paths, whole(leaves)),
+            AdamState(opt.count, whole(opt.mu), whole(opt.nu)), like.step))
     device = flatten(like.params)[1][0].device
-    tree = restore_pytree(os.path.join(save_dir, ckpts[-1]),
-                          like=_tree(like), device=device)
-    return FinetuneState(params=tree["params"],
-                         opt_state=AdamState.from_tree(tree["opt_state"]),
-                         step=int(tree["step"]))
+    tree = restore_pytree(os.path.join(save_dir, ckpts[-1]), like=tree,
+                          device=device)
+    state = FinetuneState(params=tree["params"],
+                          opt_state=AdamState.from_tree(tree["opt_state"]),
+                          step=int(tree["step"]))
+    return state if mesh is None else fsdp_shard_state(state, like.specs,
+                                                       mesh)

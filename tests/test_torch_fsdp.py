@@ -14,7 +14,14 @@ mesh=)``) against ``lantern_tpu``'s.
   parameters after two steps, and each rank's slices of the spec's shapes;
 - with a clip that bites, the right step holds and both known-wrong
   variants miss: the clip by the shard's own norm, and the split leaves'
-  gradients not summed over dp.
+  gradients not summed over dp;
+- the FSDP checkpoint at tp = 2, dp = 1 and dp = 2 (``save_checkpoint`` /
+  ``restore_checkpoint`` with ``mesh=``): restored and stepped once,
+  bit-equal to three uninterrupted steps and held to three JAX steps under
+  ``fsdp_param_specs``; the file (written by world rank 0 alone) restores
+  into a one-process state equal to the gathered parameters and AdamW
+  moments; without ``mesh=`` the save raises; ``keep_last`` prunes as in
+  ``tests/test_finetune.py``.
 """
 
 import numpy as np
@@ -108,22 +115,23 @@ def batch_np(cfg, B=4, T=12):
             "loss_mask": np.ones((B, T), np.float32)}
 
 
-def jax_run(P, cfg, fcfg, rope, batch, mesh=None):
-    """Two JAX ``train_step`` s, unsharded or under ``fsdp_param_specs``."""
+def jax_run(P, cfg, fcfg, rope, batch, mesh=None, steps=ranks.TRAIN_STEPS):
+    """``steps`` JAX ``train_step`` s, unsharded or under
+    ``fsdp_param_specs``: ``(metrics a step, params)``."""
     params = jax.tree.map(jnp.copy, P)
     if mesh is not None:
         params = jpm.shard_pytree(params, jft.fsdp_param_specs(params, mesh),
                                   mesh)
     state = jft.init_state(params, fcfg)
-    steps = []
-    for _ in range(ranks.TRAIN_STEPS):
+    out = []
+    for _ in range(steps):
         if mesh is None:
             state, m = jft.train_step(state, cfg, fcfg, rope, batch)
         else:
             with jax.set_mesh(mesh):
                 state, m = jft.train_step(state, cfg, fcfg, rope, batch)
-        steps.append({k: float(v) for k, v in m.items()})
-    return steps, jax.tree.map(np.asarray, state.params)
+        out.append({k: float(v) for k, v in m.items()})
+    return out, jax.tree.map(np.asarray, state.params)
 
 
 @pytest.fixture(scope="module")
@@ -158,10 +166,11 @@ def outs_of(world):
     return world["ranks"]
 
 
-def failures(run, ref) -> list:
+def failures(run, ref, n_steps=ranks.TRAIN_STEPS) -> list:
     """What of one rank's run misses the JAX reference ``(steps,
     params)``: loss, accuracy and grad norm of each step within 1e-5
-    relative, the gathered parameters by ``assert_adam_close``."""
+    relative, the gathered parameters after ``n_steps`` steps by
+    ``assert_adam_close``."""
     steps, params = ref
     bad = [f"step {i} {k}" for i, (g, w) in enumerate(zip(run["steps"], steps))
            for k in ("loss", "acc", "grad_norm")
@@ -170,7 +179,7 @@ def failures(run, ref) -> list:
     for p, w in zip(*flatten(params)):
         try:
             ranks.assert_adam_close(got[p].numpy(), w, FCFG["lr"],
-                                    ranks.TRAIN_STEPS, p)
+                                    n_steps, p)
         except AssertionError:
             bad.append(p)
     return bad
@@ -214,3 +223,98 @@ def test_fsdp_known_wrong_variants_miss(world):
         for variant in ("shard_norm", "skip_dp_sum"):
             bad = failures(o[variant], ref)
             assert any(not b.startswith("step") for b in bad), (variant, bad)
+
+
+CKPT_MESHES = {"dp1tp2": 1, "dp2tp2": 2}      # name: dp, at tp = 2
+
+
+@pytest.fixture(scope="module", params=list(CKPT_MESHES))
+def ckpt_world(request, tmp_path_factory):
+    """The checkpoint job at tp = 2 (2 ranks at dp = 1, 4 at dp = 2) on
+    the tiny label model, and three JAX steps under ``fsdp_param_specs``
+    on the same mesh shape."""
+    dp = CKPT_MESHES[request.param]
+    root = tmp_path_factory.mktemp(f"fsdp_ckpt_{request.param}")
+    cj = jc.tiny_config(**KW)
+    P = jtfm.init_params(jax.random.key(0), cj)
+    batch = batch_np(cj)
+    params = convert.convert_params(jax.tree.map(np.asarray, P),
+                                    device="cpu")
+    fcfg = tft.FinetuneConfig(**FCFG)
+    torch.save(dict(cfg=tc.tiny_config(**KW), fcfg=fcfg, params=params,
+                    dp=dp, batch={k: torch.as_tensor(v)
+                                  for k, v in batch.items()}),
+               root / "fsdp_ckpt.pt")
+    procs = ranks.launch("fsdp_ckpt", 2 * dp, root)
+    ref = jax_run(P, cj, jft.FinetuneConfig(**FCFG),
+                  jtfm.make_rope_tables(cj),
+                  {k: jnp.asarray(v) for k, v in batch.items()},
+                  jpm.make_mesh(2 * dp, dp=dp), steps=3)
+    return dict(outs=ranks.collect("fsdp_ckpt", procs, root), root=root,
+                params=params, fcfg=fcfg, ref=ref)
+
+
+def _bit_equal(a: dict, b: dict) -> bool:
+    return (a["count"] == b["count"] and a["step"] == b["step"]
+            and all(torch.equal(x, y) for k in ("params", "mu", "nu")
+                    for x, y in zip(a[k], b[k])))
+
+
+def test_fsdp_checkpoint_resume_is_bit_equal(ckpt_world):
+    """Two steps saved at tp = 2, restored into a fresh sharded state and
+    stepped once equal three uninterrupted steps bit for bit, state and
+    metrics, on each rank; without ``mesh=`` the save is refused."""
+    outs = ckpt_world["outs"]
+    if isinstance(outs, str):
+        pytest.fail(outs)
+    for o in outs:
+        assert o["path"] == "step_00000002"
+        assert o["refused"] is not None and "mesh=" in o["refused"]
+        assert _bit_equal(o["restored"], o["saved"])
+        assert o["restored"]["step"] == 2 and o["restored"]["count"] == 2
+        assert _bit_equal(o["resumed"], o["run"])
+        assert all(torch.equal(o["resumed_metrics"][k], o["run_metrics"][k])
+                   for k in ("loss", "acc", "grad_norm"))
+    # the tp ranks hold different slices of the split leaves; the dp
+    # replicas of one tp rank hold the same
+    by = {o["coords"]: o["run"]["params"] for o in outs}
+    assert not all(torch.equal(x, y) for x, y in zip(by[0, 0], by[0, 1]))
+    for (_, t), ps in by.items():
+        assert all(torch.equal(x, y) for x, y in zip(ps, by[0, t]))
+
+
+def test_fsdp_checkpoint_resume_matches_jax(ckpt_world):
+    """The step taken after the restore (the third) holds to three JAX
+    ``train_step`` s under ``fsdp_param_specs``: its metrics, and the
+    parameters every rank gathers after it."""
+    outs = ckpt_world["outs"]
+    if isinstance(outs, str):
+        pytest.fail(outs)
+    for o in outs:
+        run = dict(steps=[{k: float(v) for k, v in
+                           o["resumed_metrics"].items()}],
+                   params=o["resumed_params"])
+        ref = (ckpt_world["ref"][0][-1:], ckpt_world["ref"][1])
+        assert failures(run, ref, n_steps=3) == [], o["coords"]
+
+
+def test_fsdp_checkpoint_restores_into_one_process(ckpt_world):
+    """The newest file (step 7, written by world rank 0 of the tp = 2 run)
+    restored into a one-process ``like`` equals the gathered parameters
+    and moments of the run that wrote it; ``keep_last=2`` kept the newest
+    two, as the JAX save prunes."""
+    outs = ckpt_world["outs"]
+    if isinstance(outs, str):
+        pytest.fail(outs)
+    assert [o["kept"] for o in outs] == [["step_00000006",
+                                          "step_00000007"]] * len(outs)
+    like = tft.init_state(ckpt_world["params"], ckpt_world["fcfg"])
+    got = tft.restore_checkpoint(str(ckpt_world["root"] / "ckpt"), like)
+    assert got.specs is None
+    for o in outs:
+        w = o["whole"]
+        assert _bit_equal(dict(params=flatten(got.params)[1],
+                               mu=got.opt_state.mu, nu=got.opt_state.nu,
+                               count=got.opt_state.count, step=got.step),
+                          dict(w, params=flatten(w["params"])[1]))
+    assert got.step == 7

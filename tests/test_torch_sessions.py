@@ -21,8 +21,8 @@ weights (``convert_params``, ``convert_drafter_params``,
   drafter), dynamic and AR mode, and with ``stop_ids``: tokens and step
   counts equal the JAX sessions' under greedy;
 - ``generate_batch`` in all three modes, per request equal to the JAX
-  ``generate_batch``; ``tree="auto"`` raises where the JAX session reads
-  its TPU policy table;
+  ``generate_batch`` (``tree="auto"``, the serving policy, is held in
+  ``tests/test_torch_policy.py``);
 - ``decode_ids`` / ``decode_generated`` within one uint8 level of JAX;
 - ``from_pretrained`` on checkpoints the test writes (a LlamaGen base,
   drafter, VQ-16-named codec and nearest table; a Chameleon base with a
@@ -393,23 +393,6 @@ def test_generate_batch_failures_and_empty():
         assert done[1].error is not None and done[1].tokens is None
         assert done[0].error is None and done[2].error is None
     assert T.generate_batch([], mode="static", tree="chain") == []
-
-
-def test_generate_batch_auto_tree_raises_where_jax_reads_its_policy():
-    _, L = llamagen("label")
-    with pytest.raises(ValueError, match="item 12"):
-        L.generate_batch([1, 2], tree="auto", mode="static")
-    _, C = chameleon("lumina")
-    for mode in ("static", "dynamic"):
-        with pytest.raises(ValueError, match="item 12"):
-            C.generate_batch([[12]], tree="auto", mode=mode)
-    # the JAX session's policy-free cases: the slot-count rule
-    for mode in ("dynamic", "ar"):
-        done = L.generate_batch([1, 2], slots=2, max_new=4, tree="auto",
-                                mode=mode, **GREEDY)
-        assert all(r.error is None for r in done)
-    assert C.generate_batch([[12]], tree="auto", mode="ar", max_new=4,
-                            **GREEDY)[0].error is None
 
 
 # -------------------------------------------------------------- decoding

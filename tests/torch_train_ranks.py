@@ -14,7 +14,12 @@ results to ``DIR/JOB_RANK.pt``.
 - ``fsdp`` (4 ranks): ``train_step(mesh=)`` for two steps at (dp = 2,
   tp = 2) and (dp = 1, tp = 4), and at (dp = 2, tp = 2) with a clip that
   bites, right and with each known-wrong variant (the clip by the shard's
-  own norm, the dp sum of the split leaves' gradients left out).
+  own norm, the dp sum of the split leaves' gradients left out);
+- ``fsdp_ckpt`` (tp = 2 at the input's dp: 2 or 4 ranks): three
+  uninterrupted steps, and two steps saved by ``save_checkpoint(mesh=)``,
+  restored into a fresh state and stepped once (its gathered parameters
+  kept); ``save_checkpoint`` without ``mesh=``; four more steps saved
+  with ``keep_last=2``.
 """
 
 from __future__ import annotations
@@ -175,12 +180,69 @@ def job_fsdp(rank: int, world: int, root: str, inp: dict) -> dict:
     return out
 
 
+def _sharded(state) -> dict:
+    """Copies of a state's own tensors (this rank's slices; a step updates
+    them in place), its count and step."""
+    opt = state.opt_state
+    return dict(params=[x.clone() for x in ft.flatten(state.params)[1]],
+                mu=[x.clone() for x in opt.mu],
+                nu=[x.clone() for x in opt.nu], count=opt.count,
+                step=state.step)
+
+
+def job_fsdp_ckpt(rank: int, world: int, root: str, inp: dict) -> dict:
+    dist.init_distributed(f"file://{root}/fsdp_ckpt", world, rank,
+                          device="cpu")
+    mesh = pm.make_mesh(dp=inp["dp"])
+    cfg, fcfg, batch = inp["cfg"], inp["fcfg"], inp["batch"]
+    rope = tfm.make_rope_tables(cfg, "cpu")
+    ckdir = os.path.join(root, "ckpt")
+
+    def fresh():
+        return ft.init_state(copy(inp["params"]), fcfg, mesh=mesh)
+
+    def step(state):
+        return ft.train_step(state, cfg, fcfg, rope, batch, mesh=mesh)
+
+    run, metrics = fresh(), []
+    for _ in range(3):
+        run, m = step(run)
+        metrics.append({k: v.clone() for k, v in m.items()})
+    saved = fresh()
+    for _ in range(2):
+        saved, _ = step(saved)
+    try:
+        ft.save_checkpoint(ckdir, saved)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    path = ft.save_checkpoint(ckdir, saved, mesh=mesh)
+    resumed = ft.restore_checkpoint(ckdir, fresh(), mesh=mesh)
+    restored = _sharded(resumed)
+    resumed, m = step(resumed)
+    out = dict(run=_sharded(run), saved=_sharded(saved), restored=restored,
+               resumed=_sharded(resumed), run_metrics=metrics[-1],
+               resumed_metrics=m, refused=refused,
+               path=os.path.basename(path),
+               # a copy: the steps below update the unsplit leaves in place
+               resumed_params=copy(ft.fsdp_gather(resumed, mesh)),
+               coords=(mesh.dp_rank, mesh.tp_rank))
+    for _ in range(4):
+        resumed, _ = step(resumed)
+        ft.save_checkpoint(ckdir, resumed, keep_last=2, mesh=mesh)
+    whole = ft.fsdp_whole_state(resumed, mesh)
+    out.update(kept=sorted(os.listdir(ckdir)), whole=dict(
+        params=whole.params, mu=whole.opt_state.mu, nu=whole.opt_state.nu,
+        count=whole.opt_state.count, step=whole.step))
+    return out
+
+
 def main(argv) -> None:
     job, rank, world, root = argv[0], int(argv[1]), int(argv[2]), argv[3]
     torch.set_num_threads(1)
     inp = torch.load(os.path.join(root, f"{job}.pt"), weights_only=False)
-    out = {"pipe2": job_pipe2, "pipe4": job_pipe4,
-           "fsdp": job_fsdp}[job](rank, world, root, inp)
+    out = {"pipe2": job_pipe2, "pipe4": job_pipe4, "fsdp": job_fsdp,
+           "fsdp_ckpt": job_fsdp_ckpt}[job](rank, world, root, inp)
     torch.save(out, os.path.join(root, f"{job}_{rank}.pt"))
     torch.distributed.destroy_process_group()
 
