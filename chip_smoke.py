@@ -15,6 +15,9 @@ Run from the repository root on a machine with one NVIDIA H100:
                                            # (11 below), no result line
     python3 chip_smoke.py --evals-only     # the build and the evals phase
                                            # (12 below), no result line
+    python3 chip_smoke.py --gqa-only       # the build, the self-test and
+                                           # the gqa phase (5b below), no
+                                           # result line
     python3 chip_smoke.py --parallel-only  # the build and the parallel
                                            # phase (13 below), no result line
     python3 chip_smoke.py --parallel-train-only  # the build, the self-test
@@ -67,6 +70,22 @@ Phases (any failure exits non-zero and prints no result line):
      a layer at T = 203) prefilled through ``forward``, then 8 AR tokens;
      the tokens must be legal under the FSM and the launch counts equal
      the derived ones (32 K2 launches for the prefill);
+5b. gqa (``phase_gqa``, after the main paths): ``lumina_gqa8``, the
+   Lumina-7B geometry with 8 KV heads of 128 under its 32 query heads
+   (grouped-query attention; K2 folds the 4 query heads of a KV head into
+   its rows).  (a) Cut to ``GQA_CUT_LAYERS`` layers, the kernels on the
+   card against the plain path on the CPU: a prefill, the tree block under
+   its ancestor mask, the one-layer drafter's ``extend`` and two levels
+   (the second behind its window), ``GQA_GREEDY_STEPS`` greedy T = 1
+   steps whose tokens the CPU's argmax repeats, one more step; logits
+   within ``2e-2 * max|ref|``.  (b) At full width and depth, pinned
+   (``pin = 0.5``) stale + deferred spec and its AR twin, ``GQA_TOKENS``
+   tokens each, legal under the grid FSM, with the derived launch counts,
+   tok/s, C, steps and peak memory.  (c) K2 at grouped-query heads
+   against its plain version with times (G = 8, rep = 4, S = 2560, T = 1
+   and the tree's 32 rows; 20 heads of 64 over 4 KV heads at T = 26), the
+   known-wrong head mapping (query head n reading KV head n % nkv) beyond
+   the tolerance;
 6. rollback check: with pinned choices (``pin=0.5``) and stale drafting,
    ``deferred_commit`` False and True must commit the same tokens in the
    same steps (both modes commit the same bytes; K4 only moves them);
@@ -134,7 +153,8 @@ Phases (any failure exits non-zero and prints no result line):
 10. tools (``phase_tools``, after the sessions): K1 at the autotune
    verify's rows (M = 80-120) and K2 at the autotune and teacher-forcing
    blocks against their plain versions with times; ``autotune_total_tokens``
-   on XL and Lumina-7B (the pick equal to the weighted argmin of the times
+   on XL (cut to ``CUT_LAYERS`` layers, time) and Lumina-7B (the pick
+   equal to the weighted argmin of the times
    it read, derived launch counts a forward); pinned XL static runs with
    ``lantern_rt`` equal to their static counterparts; the XL calibrations
    (``measure_rank_probs`` with derived launch counts,
@@ -174,8 +194,8 @@ Phases (any failure exits non-zero and prints no result line):
    MASTER_ADDR=127.0.0.1``, ``Mesh(dp=1, tp=1)``): the pinned stale +
    deferred Lumina-7B path at 16x16 (64 tokens) under ``set_mesh``
    equals the run without it bit for bit, with the derived launch counts, and
-   ``host_mean(3.0) == 3.0``.  (b) Lumina-7B at full width and depth over
-   tp = 2, two ranks on the one card over gloo (NCCL refuses two ranks on
+   ``host_mean(3.0) == 3.0``.  (b) Lumina-7B at full width over tp = 2
+   (both (a) and (b) cut to ``PARALLEL_LUMINA_LAYERS`` layers), two ranks on the one card over gloo (NCCL refuses two ranks on
    one device): the prefill's and a tree verify's logits within
    ``PARALLEL_TOL_FACTOR`` of the one-split floor of one process's, equal
    on both ranks, and three known-wrong layouts (the ``wo`` reduce skipped
@@ -194,8 +214,9 @@ Phases (any failure exits non-zero and prints no result line):
    fills and refills.  (a) also trains a tiny f32 LlamaGen two steps
    through the FSDP step at ``Mesh(dp=1, tp=1)`` and the pipeline at pp =
    1, both bit-equal to ``finetune.train_step`` (their collectives NCCL's
-   over groups of one).  (d) and (e) train LlamaGen-XL at full width and
-   depth (bf16 weights, ``TRAIN_ROWS`` token-only rows of ``TRAIN_T``),
+   over groups of one).  (d) and (e) train LlamaGen-XL at full width, cut
+   to ``PARALLEL_TRAIN_LAYERS`` layers (bf16 weights, ``TRAIN_ROWS``
+   token-only rows of ``TRAIN_T``),
    two ranks over gloo in one spawn: (d) GPipe over pp = 2 with
    ``TRAIN_MICRO`` microbatches, (e) FSDP over tp = 2 with the weights
    and AdamW state sharded and a biting clip.  Loss, gradients (d), grad
@@ -216,7 +237,8 @@ Each phase prints its seconds.  The line before the last two is
 path that runs all four kernels; every path's counts are under
 ``launches_by_path``; each kernel's XL record is under ``xl``, its per-row
 record at the XL batch under ``batched``, K2's per-slot-mask record
-under ``dynamic_batched``, and K1's and K2's tools-phase records under
+under ``dynamic_batched``, its grouped-query records under ``gqa``, and
+K1's and K2's tools-phase records under
 ``tools``, their tp = 2 shard records under ``parallel_tp2``); then
 the ``nvidia-smi`` name/power-limit line; the last line is the device
 record.  Each kernel record also carries the self-test's error of its
@@ -267,7 +289,14 @@ BATCH_CAPTIONS = [
 # the XL layers of the batched and session phases, cut from 36 for time
 # (the parallel phase holds batched XL at full depth against lone runs),
 # and the batched phase's tokens a request
-CUT_LAYERS = 12
+CUT_LAYERS = 6
+# the gqa phase: lumina_gqa8 (Lumina-7B with 8 KV heads of 128 under its 32
+# query heads), card vs CPU at GQA_CUT_LAYERS layers over GQA_GREEDY_STEPS
+# greedy steps, then at full depth GQA_TOKENS tokens a run
+GQA_KV_HEADS = 8
+GQA_CUT_LAYERS = 4
+GQA_GREEDY_STEPS = 16
+GQA_TOKENS = 64
 BATCH_TOKENS = 256
 # the batched requests also run alone: every request that refills a slot
 # (all 12, first fills and refills, are held batched against alone by the
@@ -323,10 +352,14 @@ PARALLEL_TOKENS = 64
 # two requests of the first fill of the 8 slots and two refills
 PARALLEL_ALONE = (0, 5, 8, 11)
 PARALLEL_TOL_FACTOR = 1.3
-PARALLEL_WRONG_LAYER = 16
+PARALLEL_WRONG_LAYER = 8
+# (a) and (b) run Lumina-7B at full width cut to this many of its 32 layers
+# (the smoke's time limit)
+PARALLEL_LUMINA_LAYERS = 16
 PARALLEL_PROFILE_STEPS = 8
 # the parallel phase's training parts, (d) GPipe at pp = 2 and (e) FSDP at
-# tp = 2, on LlamaGen-XL at full width and depth with bf16 weights: the
+# tp = 2, on LlamaGen-XL at full width, cut to PARALLEL_TRAIN_LAYERS of its
+# 36 layers (the smoke's time limit), with bf16 weights: the
 # batch's token-only rows (the pipeline refuses a cond prefix, as JAX's
 # does), (d)'s microbatches and learning rate, (e)'s learning rate and
 # clip.  (e) clips to a norm far under the gradient's so that the clipped
@@ -338,6 +371,7 @@ PARALLEL_PROFILE_STEPS = 8
 # in the parts the sharded run splits them into (4 microbatches; 2 ranks'
 # rows), each part's backward alone, summed, against the whole batch's
 TRAIN_ROWS, TRAIN_T, TRAIN_MICRO = 4, 256, 4
+PARALLEL_TRAIN_LAYERS = 12
 PIPE_LR = 1e-3
 FSDP_LR, FSDP_CLIP = 1e-1, 1e-5
 TRAIN_TOL_FACTOR = 3.0
@@ -1939,6 +1973,311 @@ def phase_main_path(torch, grid: int, card: str):
             "ar": ar_launch, "long_prompt": long_launch}
 
 
+def k2_gqa_case(torch, timer, card: str, T: int, G: int, pk: int, rep: int,
+                S: int, length: int, mask, seed: int) -> dict:
+    """K2 at grouped-query heads (``rep`` query heads a KV head, ``pk`` KV
+    heads a 128-lane group), int8 KV, B = 2, against its plain version;
+    the known-wrong head mapping (query head ``n`` reading KV head ``n %
+    nkv``) must miss; times against the plain version, SDPA with
+    ``enable_gqa`` over the dequantized K/V and, with one KV head a group,
+    K2 over the KV plane repeated per query head (the MHA launch of the
+    same work)."""
+    import torch.nn.functional as F
+
+    from lantern_tpu_torch.kv import (dequant_cache, group_blocks,
+                                      quantize_rows, ungroup_cache)
+    from lantern_tpu_torch.ops.tree_attention import (
+        NEG_INF, tree_attention_cuda, tree_attention_plain)
+
+    B, W, hd = 2, 128, 128 // pk
+    nkv, nh = G * pk, G * pk * rep
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, kn, vn = randn(B, T, nh, hd), randn(B, T, nkv, hd), randn(B, T, nkv, hd)
+    (kc, ks), (vc, vs) = quantize_rows(randn(B, G, S, W)), quantize_rows(
+        randn(B, G, S, W))
+    mask = mask.expand(B, T, T).contiguous()
+    bias = torch.zeros((B, S), device="cuda")
+    bias[1, :7] = NEG_INF
+    ln = torch.tensor(length, dtype=torch.int32, device="cuda")
+    args = (q, kn, vn, kc, vc, ln, mask, bias, hd ** -0.5)
+    kw = dict(k_scale=ks, v_scale=vs)
+    got = tree_attention_cuda(*args, **kw)
+    ref = tree_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = 2e-2 * ref.float().abs().max().item()
+    what = (f"K2 tree_attention GQA {nh} heads of {hd} over {nkv} KV heads "
+            f"(G={G} pk={pk} rep={rep}) S={S} T={T} length={length} int8 KV")
+    if not (err <= tol and torch.isfinite(got.float()).all()):
+        fail(f"{what}: max err {err} > tol {tol}")
+    perm = torch.arange(nh, device="cuda").reshape(rep, nkv).T.reshape(-1)
+    bad = tree_attention_plain(q[:, :, perm], *args[1:], **kw)
+    bad = bad[:, :, torch.argsort(perm)]
+    werr = (bad.float() - ref.float()).abs().max().item()
+    if werr <= tol:
+        fail(f"{what}: tol {tol} does not separate the known-wrong head "
+             f"mapping (query head n reading KV head n % nkv: err {werr})")
+    ms = timer(lambda: tree_attention_cuda(*args, **kw))
+    plain = timer(lambda: tree_attention_plain(*args, **kw), reps=5)
+
+    def heads(c, s):             # int8 [B, G, n, 128] -> bf16 [B, nkv, n, hd]
+        return ungroup_cache(dequant_cache(c, s, torch.bfloat16), nkv,
+                             hd).transpose(1, 2)
+    kd = torch.cat([heads(kc[:, :, :length], ks[:, :, :length]),
+                    heads(*quantize_rows(group_blocks(kn)))], 2)
+    vd = torch.cat([heads(vc[:, :, :length], vs[:, :, :length]),
+                    heads(*quantize_rows(group_blocks(vn)))], 2)
+    am = torch.cat([(bias[:, None, None, :length] == 0).expand(
+        B, 1, T, length), mask[:, None]], dim=-1)
+    qh = q.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qh, kd, vd, attn_mask=am, scale=hd ** -0.5, enable_gqa=True)
+    lib_err = (sdpa().transpose(1, 2).float() - ref.float()).abs().max().item()
+    lib = timer(sdpa)
+    mha = ""
+    if pk == 1:
+        # the same function as MHA: the plane repeated for every query head
+        kcr, vcr, ksr, vsr = (x.repeat_interleave(rep, dim=1).contiguous()
+                              for x in (kc, vc, ks, vs))
+        knr, vnr = (x.repeat_interleave(rep, dim=2) for x in (kn, vn))
+        margs = (q, knr, vnr, kcr, vcr) + args[5:]
+        mkw = dict(k_scale=ksr, v_scale=vsr)
+        merr = (tree_attention_cuda(*margs, **mkw).float()
+                - ref.float()).abs().max().item()
+        mha_ms = timer(lambda: tree_attention_cuda(*margs, **mkw))
+        mha = (f"; MHA launch over the plane repeated per query head "
+               f"{mha_ms:.4f} ms (max err {merr:.3e}, "
+               f"{mha_ms / ms:.2f}x the GQA launch)")
+    nbytes = (2 * B * T * nh * hd * 2 + 2 * B * T * nkv * hd * 2
+              + 2 * B * G * length * (W + 4) + B * T * T + B * length * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * B * nh * T * (length + T) * hd)
+    log(f"{what}: max_abs_err {err:.3e} (tol {tol:.3e} = 2e-2 * max|ref|) "
+        f"ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA "
+        f"enable_gqa, max err {lib_err:.3e} against the plain version) bound_ms "
+        f"{b_ms:.4f} ({b_by}){mha} [{card}]")
+    log(f"  wrong variant's max err: query head n reading KV head n % nkv "
+        f"{werr:.3e}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib,
+                shape=f"B=2 T={T} {nh} heads of {hd} over {nkv} KV heads "
+                      f"G={G} pk={pk} rep={rep} S={S} length={length} int8 KV")
+
+
+def gqa_card_vs_cpu(torch, card: str) -> None:
+    """(a) of the gqa phase: ``lumina_gqa8`` cut to ``GQA_CUT_LAYERS``
+    layers through the kernels on the card and the plain path on the CPU,
+    the same int8 weights: a 19-row prefill, the Lumina tree block under
+    its ancestor mask, the one-layer drafter's ``extend`` and two tree
+    levels (the second behind its window), ``GQA_GREEDY_STEPS`` greedy T =
+    1 steps on the card, whose tokens the CPU's argmax must repeat over
+    the same rows (one teacher-forced block), and one more T = 1 step.
+    Logits within K2's ``2e-2 * max|ref|``."""
+    from lantern_tpu_torch import configs, trees
+    from lantern_tpu_torch.kv import KVCache
+    from lantern_tpu_torch.models import drafter as drf
+    from lantern_tpu_torch.models import transformer as tfm
+    from lantern_tpu_torch.ops.quant import quantize_params
+
+    cfg = lumina_cfg(16, GQA_KV_HEADS, GQA_CUT_LAYERS)
+    dcfg = configs.drafter_config(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_params(tfm.fuse_params(
+        tfm.init_params(gen, cfg, device="cuda")))
+    dparams = quantize_params(tfm.fuse_params(drf.init_drafter_params(
+        gen, dcfg, params["embed"])))
+    tree = trees.get_tree(os.path.join("ckpts", "bench_tree_lumina.json"))
+    g2 = torch.Generator().manual_seed(9)
+    ids = torch.randint(4, 8196, (2, 19), generator=g2)
+    tids = torch.randint(4, 8196, (2, tree.num_nodes), generator=g2)
+    lv_ids = [torch.randint(4, 8196, (2, len(lv.child_flat_idx)),
+                            generator=g2) for lv in tree.levels[:2]]
+    n = GQA_GREEDY_STEPS
+    outs, toks = {}, None
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else on_device(params, dev)
+        dp = dparams if dev == "cuda" else on_device(dparams, dev)
+        rope = tfm.make_rope_tables(cfg, dev)
+        kv = KVCache.create(cfg, 2, quantized=True, device=dev)
+        got = {}
+        res = tfm.forward(p, cfg, tfm.token_embed(p, ids.to(dev)), kv,
+                          torch.arange(19, device=dev), rope)
+        got["prefill"] = tfm.logits_head(p, res.hidden[:, -1:])
+        pos = 19 + torch.as_tensor(tree.depth, device=dev).long()
+        rt = tfm.forward(p, cfg, tfm.token_embed(p, tids.to(dev)), res.kv,
+                         pos, rope, block_mask=torch.as_tensor(
+                             tree.attn_mask, device=dev), commit=False)
+        got["tree block"] = tfm.logits_head(p, rt.hidden)
+        # the drafter: extend over the prefill, then two tree levels
+        head = (p["lm_head_q"], p["lm_head_s"])
+        drope = tfm.make_rope_tables(dcfg.model, dev)
+        dkv = KVCache.create(dcfg.model, 2, device=dev)
+        hidden, dkv = drf.extend(dp, dcfg, drope, dkv, ids.to(dev),
+                                 res.hidden, 19)
+        parent = hidden[:, -1:]
+        for i, lv in enumerate(tree.levels[:2]):
+            off = int(lv.block_offset)
+            m = torch.as_tensor(lv.attn_mask, device=dev)
+            x = drf.fuse_inputs(dp, lv_ids[i].to(dev), parent.index_select(
+                1, torch.as_tensor(lv.parent_row, device=dev).long()))
+            r = tfm.forward(dp, dcfg.model, x, dkv, dkv.length.expand(
+                x.shape[1]), drope, block_mask=m[:, off:].contiguous(),
+                window_mask=m[:, :off].contiguous() if off else None,
+                commit=False, write_offset=off)
+            dkv, parent = r.kv, r.hidden
+            got[f"drafter level {i} (window {off})"] = drf._head_logits(
+                head, r.hidden, 3.0)
+        kv = rt.kv
+        if dev == "cuda":
+            t = int(got["prefill"][0, -1].argmax())
+            toks, steps = [t], []
+            for i in range(n):
+                r = tfm.forward(p, cfg, tfm.token_embed(p, torch.full(
+                    (2, 1), t, device=dev)), kv, torch.tensor(
+                    [19 + i], device=dev), rope)
+                kv = r.kv
+                steps.append(tfm.logits_head(p, r.hidden)[:, 0])
+                t = int(steps[-1][0].argmax())
+                toks.append(t)
+            got["greedy steps"] = torch.stack(steps, 1)
+        else:
+            block = torch.tensor(toks[:n])[None].expand(2, n)
+            r = tfm.forward(p, cfg, tfm.token_embed(p, block), kv,
+                            torch.arange(19, 19 + n), rope)
+            kv = r.kv
+            got["greedy steps"] = tfm.logits_head(p, r.hidden)
+        r = tfm.forward(p, cfg, tfm.token_embed(p, torch.full(
+            (2, 1), toks[n], device=dev)), kv, torch.tensor([19 + n],
+                                                            device=dev), rope)
+        got["T=1 step"] = tfm.logits_head(p, r.hidden)
+        outs[dev] = {k: v.float().cpu() for k, v in got.items()}
+    for what, ref in outs["cpu"].items():
+        cur = outs["cuda"][what]
+        err = (cur - ref).abs().max().item()
+        tol = 2e-2 * ref.abs().max().item()
+        if not (err <= tol and torch.isfinite(cur).all()):
+            fail(f"gqa (a) {what}: card vs CPU logits max err {err} > tol "
+                 f"{tol}")
+        log(f"gqa (a) lumina_gqa8 at {GQA_CUT_LAYERS} layers, {what}: card "
+            f"kernels vs CPU plain logits max_abs_err {err:.3e} (tol "
+            f"{tol:.3e} = 2e-2 * max|ref|)")
+    ref = outs["cpu"]["greedy steps"][0]
+    cpu_toks = [int(outs["cpu"]["prefill"][0, -1].argmax())] + [
+        int(t) for t in ref.argmax(-1)]
+    top2 = ref.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).min().item()
+    if cpu_toks != toks:
+        i = next(k for k, (a, b) in enumerate(zip(cpu_toks, toks)) if a != b)
+        fail(f"gqa (a): greedy tokens differ at step {i}: card {toks}, CPU "
+             f"{cpu_toks} (the CPU's least top-2 gap {gap:.3e})")
+    log(f"gqa (a): {n} greedy T = 1 steps on the card, {len(toks)} tokens, "
+        f"equal to the CPU's argmax over the same rows (least top-2 logit "
+        f"gap on the CPU {gap:.3e})")
+
+
+def phase_gqa(torch, card: str, timer):
+    """Grouped-query attention: (a) ``gqa_card_vs_cpu``; (b) ``lumina_gqa8``
+    (Lumina-7B, 32 query heads over 8 KV heads of 128, int8 weights and KV)
+    at full width and depth on the 16x16 lane, pinned (``pin = 0.5``)
+    stale + deferred spec and its AR twin, ``GQA_TOKENS`` tokens each, with
+    the launch counts derived for the path, tok/s, C, steps and peak
+    memory; (c) K2 GQA records at ``lumina_gqa8``'s shapes and at an
+    XL-width ``pk = 2`` shape.  Returns ``(launches by path, records)``."""
+    import dataclasses
+
+    from lantern_tpu_torch.engine import ar, spec
+    from lantern_tpu_torch.models import chameleon as cham
+    from lantern_tpu_torch.ops import _cuda
+
+    t = time.perf_counter()
+    gqa_card_vs_cpu(torch, card)
+    log(f"gqa (a): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params, tp, fsm, tree, ecfg, _ = lumina_lane(
+        torch, 16, kv_heads=GQA_KV_HEADS)
+    ecfg = dataclasses.replace(ecfg, max_new=GQA_TOKENS)
+    log(f"gqa (b): lumina_gqa8 int8 params built on the card in "
+        f"{time.perf_counter() - t:.1f} s (L={cfg.num_layers} "
+        f"H={cfg.hidden_size} heads {cfg.num_heads} over "
+        f"{cfg.num_kv_heads} KV heads)")
+
+    def run_spec(n):
+        return spec.generate(params, dataclasses.replace(ecfg, max_new=n),
+                             cfg, tree, tp, torch.Generator(
+                                 device="cuda").manual_seed(8), logits_fn=fsm)
+
+    def run_ar(n):
+        return ar.generate_tokens(params, cfg, tp, n, 3.0, ecfg.warp,
+                                  torch.Generator(device="cuda").manual_seed(8),
+                                  logits_fn=fsm, kv_quant=True)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, dict(_cuda.LAUNCHES)
+
+    run_spec(8)                                   # warm-up
+    run_ar(4)
+    torch.cuda.reset_peak_memory_stats()
+    sres, t_spec, spec_launch = counted(lambda: run_spec(GQA_TOKENS))
+    ares, t_ar, ar_launch = counted(lambda: run_ar(GQA_TOKENS))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prompt = len(TEXT) + 3
+    want = {"gqa_stale_deferred": stale_launches(cfg, tree, sres.steps),
+            "gqa_ar": ar_launches(cfg.num_layers, prompt, GQA_TOKENS, [1])}
+    for path, got in (("gqa_stale_deferred", spec_launch),
+                      ("gqa_ar", ar_launch)):
+        if got != want[path]:
+            fail(f"gqa (b) {path} launched {got}, the path gives "
+                 f"{want[path]}")
+    for name, toks in (("spec", sres.tokens[:GQA_TOKENS].tolist()),
+                       ("AR", ares.tokens.tolist())):
+        if len(toks) != GQA_TOKENS:
+            fail(f"gqa (b) {name}: {len(toks)} tokens, want {GQA_TOKENS}")
+        for i, tok in enumerate(toks):
+            ok = (tok == cham.LUMINA_NEWLINE_ID if i % 17 == 16 else
+                  cham.IMAGE_TOKEN_START <= tok <= cham.IMAGE_TOKEN_END)
+            if not ok:
+                fail(f"gqa (b) {name} stream breaks the grid FSM at {i}: "
+                     f"{tok}")
+    if sres.n_valid != GQA_TOKENS or sres.step_compression < 1.0:
+        fail(f"gqa (b) spec: {sres.n_valid} tokens, C "
+             f"{sres.step_compression}")
+    log(f"gqa (b) lumina_gqa8 [{card}] 16x16 lane, {GQA_TOKENS} tokens: "
+        f"pinned stale + deferred spec {GQA_TOKENS / t_spec:.2f} tok/s "
+        f"({t_spec:.2f} s, {sres.steps} verify steps, step compression "
+        f"{sres.step_compression:.3f}); AR {GQA_TOKENS / t_ar:.2f} tok/s "
+        f"({t_ar:.2f} s); peak memory {peak:.2f} GiB")
+    log(f"gqa (b) launches = the derived counts: spec {spec_launch}; AR "
+        f"{ar_launch}")
+    del params
+    torch.cuda.empty_cache()
+    # (c) K2 at grouped-query heads: lumina_gqa8's AR and tree blocks, and
+    # 20 heads of 64 over 4 KV heads at XL width
+    from lantern_tpu_torch import trees
+
+    dev_mask = torch.as_tensor(tree.attn_mask, device="cuda")[None]
+    xl_tree = trees.get_tree(os.path.join("ckpts", "bench_tree_XL.json"))
+    one = torch.ones((1, 1, 1), dtype=torch.bool, device="cuda")
+    records = [
+        k2_gqa_case(torch, timer, card, 1, 8, 1, 4, 2560, 2371, one, 21),
+        k2_gqa_case(torch, timer, card, tree.num_nodes, 8, 1, 4, 2560, 1237,
+                    dev_mask, 22),
+        k2_gqa_case(torch, timer, card, xl_tree.num_nodes, 2, 2, 5, 512, 300,
+                    torch.as_tensor(xl_tree.attn_mask, device="cuda")[None],
+                    23)]
+    return {"gqa_stale_deferred": spec_launch, "gqa_ar": ar_launch}, records
+
+
 def cut_depth(xl: dict, layers: int) -> dict:
     """The XL lane's model cut to its first ``layers`` layers (views of the
     same weights, the same drafter and captions): the depth cut of a path
@@ -3058,8 +3397,9 @@ def phase_tools(torch, card: str, xl: dict, timer):
       cache) and the teacher-forcing blocks (XL T = 376 at length 0; the
       Lumina teacher's 512-row segment holding 19 prompt rows and 273
       tokens), each against its plain version with times, SDPA and bound;
-    - ``autotune_total_tokens`` on XL (int8, full depth) and Lumina-7B
-      (int8, full depth): each candidate's ms, the pick equal to the
+    - ``autotune_total_tokens`` on XL (int8, cut to ``CUT_LAYERS`` layers
+      for time, as every XL path of the phase) and Lumina-7B (int8, full
+      depth): each candidate's ms, the pick equal to the
       weighted argmin of the times it read, and each candidate's verify
       forward launching the derived K1 / K2 / K3 counts;
     - pinned (0.9) XL static runs: ``lantern_rt`` at the static point, and a
@@ -3276,7 +3616,7 @@ def phase_tools(torch, card: str, xl: dict, timer):
     with open(tree_json, "w") as f:
         json.dump({"paths": [list(p) for p in paths]}, f)
     ctree = trees.get_tree(tree_json)
-    log(f"calibrate XL [{card}] (36 layers, int8, passthrough drafter, one "
+    log(f"calibrate XL [{card}] ({L} layers, int8, passthrough drafter, one "
         f"{CALIB_TOKENS}-token rollout, top-2000, cfg 3.0): "
         f"measure_rank_probs {t_rank:.1f} s -> "
         f"{np.round(rank, 4).tolist()} (launches = the derived counts); "
@@ -4635,21 +4975,29 @@ def write_rank_result(part: str, rank: int, rec: dict) -> None:
         json.dump(rec, f)
 
 
-def lumina_cfg(grid: int = 16):
+def lumina_cfg(grid: int = 16, kv_heads: int | None = None,
+               layers: int | None = None):
     """Lumina-7B (Chameleon geometry, swin norm) sized for the main path's
-    lane at ``grid``."""
+    lane at ``grid``; ``kv_heads``: its grouped-query form with that many
+    KV heads (``lumina_gqa8`` at 8); ``layers``: cut to its first
+    ``layers`` layers."""
     from lantern_tpu_torch import configs
 
-    return configs.chameleon_7b_config(max_seq_len=lane_dims(grid)[1],
-                                       swin_norm=True)
+    cfg = configs.chameleon_7b_config(max_seq_len=lane_dims(grid)[1],
+                                      swin_norm=True)
+    if kv_heads is not None:
+        cfg = cfg.replace(num_kv_heads=kv_heads)
+    return cfg if layers is None else cfg.replace(num_layers=layers)
 
 
-def lumina_lane(torch, grid: int = 16, keep=None):
+def lumina_lane(torch, grid: int = 16, keep=None, kv_heads=None,
+                layers=None):
     """The stale + deferred main path at ``grid``, pinned (``pin = 0.5``):
     Lumina-7B's random int8 weights from seed 0 (the main path's) with the
     shifted nearest table, ``(cfg, params, prompt, fsm, tree, ecfg,
     kept)``; ``keep(dense)`` sees the dense split weights before they are
-    fused and quantized, and its value comes back as ``kept``."""
+    fused and quantized, and its value comes back as ``kept``;
+    ``kv_heads``, ``layers``: as ``lumina_cfg``'s."""
     from lantern_tpu_torch import trees
     from lantern_tpu_torch.engine import spec
     from lantern_tpu_torch.models import chameleon as cham
@@ -4659,7 +5007,7 @@ def lumina_lane(torch, grid: int = 16, keep=None):
     from lantern_tpu_torch.ops.sampling import LogitsWarp
     from lantern_tpu_torch.ops.vq_distance import nearest_latents
 
-    cfg = lumina_cfg(grid)
+    cfg = lumina_cfg(grid, kv_heads, layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     dense = tfm.init_params(gen, cfg, device="cuda")
     kept = keep(dense) if keep is not None else None
@@ -4706,7 +5054,8 @@ def rank_nccl(torch) -> None:
     info = dist.init_distributed()
     backend = torch.distributed.get_backend()
     mesh = pm.make_mesh()
-    cfg, params, tp, fsm, tree, ecfg, _ = lumina_lane(torch)
+    cfg, params, tp, fsm, tree, ecfg, _ = lumina_lane(
+        torch, layers=PARALLEL_LUMINA_LAYERS)
     ecfg = dataclasses.replace(ecfg, max_new=PARALLEL_TOKENS)
 
     def run():
@@ -4893,7 +5242,8 @@ def one_split():
 
 
 def rank_tp2(torch, timer, tag: str) -> None:
-    """(b) Lumina-7B at full width and depth over tp = 2: two processes on
+    """(b) Lumina-7B at full width (``PARALLEL_LUMINA_LAYERS`` layers) over
+    tp = 2: two processes on
     the one card over gloo.  The logits of the prompt's prefill and of a
     tree-verify block against one process on the same weights, the three
     known-wrong variants, the pinned stale + deferred path (64 tokens)
@@ -4925,7 +5275,7 @@ def rank_tp2(torch, timer, tag: str) -> None:
     for r in range(mesh.tp):
         if r == rank:
             cfg, full, tp, fsm, tree, ecfg, requant = lumina_lane(
-                torch, keep=per_shard)
+                torch, keep=per_shard, layers=PARALLEL_LUMINA_LAYERS)
             torch.cuda.empty_cache()
         torch.distributed.barrier()
     build_s = time.perf_counter() - t0
@@ -5201,12 +5551,14 @@ def tree_err(got: dict, want: dict, scale: dict | None = None) -> list:
 
 
 def xl_dense(torch):
-    """LlamaGen-XL t2i (36 x 1280, 20 heads of 64, vocab 16384) with dense
-    bf16 weights from seed 0 on the card, as the train phase trains it."""
+    """LlamaGen-XL t2i (1280 wide, 20 heads of 64, vocab 16384) cut to its
+    first ``PARALLEL_TRAIN_LAYERS`` layers, with dense bf16 weights from
+    seed 0 on the card."""
     from lantern_tpu_torch import configs
     from lantern_tpu_torch.models import transformer as tfm
 
-    cfg = configs.llamagen_config("XL", "t2i", image_tokens=256)
+    cfg = configs.llamagen_config("XL", "t2i", image_tokens=256).replace(
+        num_layers=PARALLEL_TRAIN_LAYERS)
     return cfg, tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
                                 cfg, device="cuda")
 
@@ -5530,7 +5882,8 @@ def train_part_fsdp(torch, rank: int, batch) -> dict:
 
 def rank_train(torch) -> None:
     """(d) and (e): two processes on the card over gloo, LlamaGen-XL at
-    full width and depth, ``TRAIN_ROWS`` token-only rows of ``TRAIN_T``
+    full width (``PARALLEL_TRAIN_LAYERS`` layers), ``TRAIN_ROWS`` token-only
+    rows of ``TRAIN_T``
     tokens from seed 1."""
     from lantern_tpu_torch.parallel import dist
 
@@ -5622,8 +5975,10 @@ def check_train(outs: list, card: str) -> None:
                  f"{w['params']}, every leaf within its tolerance")
     bubble = (2 - 1) / (TRAIN_MICRO + 2 - 1)
     peaks = ", ".join(f"{o['pipeline']['peak_gib']:.2f}" for o in outs)
-    log(f"parallel (d) [{card}] GPipe over pp = 2 (18 of LlamaGen-XL's 36 "
-        f"layers a stage, full width, bf16 weights), two ranks on the one "
+    log(f"parallel (d) [{card}] GPipe over pp = 2 "
+        f"({PARALLEL_TRAIN_LAYERS // 2} of LlamaGen-XL's first "
+        f"{PARALLEL_TRAIN_LAYERS} layers a stage, full width, bf16 weights), "
+        f"two ranks on the one "
         f"card over gloo, {TRAIN_ROWS} x {TRAIN_T} token-only rows in "
         f"{TRAIN_MICRO} microbatches, remat: loss {d['loss']:.6f}, equal on "
         f"both ranks; against one process (largest relative RMS over the "
@@ -5651,7 +6006,8 @@ def check_train(outs: list, card: str) -> None:
         for name, w in e["wrong"].items())
     log(f"parallel (e) [{card}] FSDP over tp = 2 (weights and AdamW state "
         f"sharded, {e['shard_gib']:.2f} GiB of parameters a rank), a "
-        f"whole-base LlamaGen-XL finetune step, two ranks on the one card "
+        f"LlamaGen-XL ({PARALLEL_TRAIN_LAYERS} layers) finetune step, two "
+        f"ranks on the one card "
         f"over gloo, {TRAIN_ROWS // 2} rows a rank, remat, clip "
         f"{FSDP_CLIP} (biting: the gradient's norm is "
         f"{e['metrics'][0]['grad_norm']:.4f}), lr 0 then {FSDP_LR}: loss "
@@ -5757,7 +6113,8 @@ def phase_parallel(torch, card: str, xl: dict | None, train_only=False):
     wrong = {k: min(max(o["wrong"][k]["rms"]) for o in outs)
              for k in r0["wrong"]}
     tol = [PARALLEL_TOL_FACTOR * f for f in r0["floor"]["rms"]]
-    log(f"parallel (b) [{card}] Lumina-7B (32 layers, full width, int8 "
+    log(f"parallel (b) [{card}] Lumina-7B ({PARALLEL_LUMINA_LAYERS} of its "
+        f"32 layers, full width, int8 "
         f"weights and KV) over tp = 2: two ranks on the one card over gloo "
         f"(NCCL refuses two ranks on one device); prefill / verify logits "
         f"{r0['errs']['rms'][0]:.4f} / {r0['errs']['rms'][1]:.4f} RMS of one "
@@ -5934,6 +6291,9 @@ def main() -> int:
     ap.add_argument("--evals-only", action="store_true",
                     help="after the build, run only the evals phase "
                          "(prints no result line)")
+    ap.add_argument("--gqa-only", action="store_true",
+                    help="after the build, run only the self-test and the "
+                         "gqa phase (prints no result line)")
     ap.add_argument("--parallel-only", action="store_true",
                     help="after the build, run only the parallel phase "
                          "(prints no result line)")
@@ -6003,7 +6363,8 @@ def main() -> int:
         return 0
     if args.tools_only:
         timed("tools", phase_tools, torch, tag,
-              timed("build_xl", build_xl, torch), timer)
+              cut_depth(timed("build_xl", build_xl, torch), CUT_LAYERS),
+              timer)
         log("tools-only run: build and tools phases passed")
         return 0
     if args.train_only:
@@ -6014,6 +6375,11 @@ def main() -> int:
     if args.evals_only:
         timed("evals", phase_evals, torch, tag)
         log("evals-only run: build and evals phases passed")
+        return 0
+    if args.gqa_only:
+        timed("selftest", phase_selftest, torch)
+        timed("gqa", phase_gqa, torch, tag, timer)
+        log("gqa-only run: build, self-test and gqa phases passed")
         return 0
     if args.parallel_only:
         timed("parallel", phase_parallel, torch, tag,
@@ -6028,6 +6394,8 @@ def main() -> int:
         log("kernels-only run: build, kernel and forward phases passed")
         return 0
     launches = timed("main_path", phase_main_path, torch, args.grid, tag)
+    gqa_launches, gqa = timed("gqa", phase_gqa, torch, tag, timer)
+    launches.update(gqa_launches)
     xl = timed("build_xl", build_xl, torch)
     launches.update(timed("xl", phase_xl, torch, tag, xl))
     xl_cut = cut_depth(xl, CUT_LAYERS)
@@ -6038,7 +6406,8 @@ def main() -> int:
     session_launches, k2_dynamic = timed("session", phase_session, torch,
                                          tag, xl_cut, timer)
     launches.update(session_launches)
-    tools_launches, tools = timed("tools", phase_tools, torch, tag, xl, timer)
+    tools_launches, tools = timed("tools", phase_tools, torch, tag, xl_cut,
+                                  timer)
     launches.update(tools_launches)
     launches.update(timed("train", phase_train, torch, tag, xl))
     del xl
@@ -6076,6 +6445,8 @@ def main() -> int:
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "shape")}})
     kernels[1]["dynamic_batched"] = k2_dynamic
+    kernels[1]["gqa"] = [dict(r, selftest_max_abs_err=selftest[
+        "tree_attention_gqa"]) for r in gqa]
     for k, name in enumerate(("int8_matmul", "tree_attention")):
         for sub, rec in (("tools", tools), ("parallel_tp2", parallel)):
             kernels[k][sub] = {key: rec[name][key] for key in (

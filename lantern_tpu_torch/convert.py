@@ -2,7 +2,9 @@
 
 The port keeps the JAX package's parameter layout, so the bridge is a
 checked leaf-by-leaf copy.  It accepts the split layout (``wq``/``wk``/
-``wv``, ``w_gate``/``w_up``), the fused layout (``wqkv``, ``w_gu``), the
+``wv``, ``w_gate``/``w_up``), the fused layout (``wqkv``, ``w_gu``; with
+grouped-query attention ``wk``/``wv`` and ``k_norm_*`` hold ``num_kv_heads``
+heads and ``wqkv`` is ``(nh + 2 nkv) * hd`` wide), the
 quantized layout (``*_q`` int8 with ``*_s`` f32 scales, ``lm_head_q``/
 ``lm_head_s``), the LANTERN ``nearest_latents`` table and the LlamaGen
 conditioning adapters ``cond`` (a label ``table``, or the caption MLP's

@@ -17,8 +17,9 @@ int lantern_tree_attention(const void* q, const void* k_new, const void* v_new,
                            const void* mask, const void* wmask,
                            const void* bias, void* out,
                            void* part, void* tickets, int B, int T, int G,
-                           int S, int window, int rows, int heads, int nsplit,
-                           int quantized, float scale, void* stream);
+                           int S, int window, int rows, int heads, int rep,
+                           int nsplit, int quantized, float scale,
+                           void* stream);
 int lantern_kv_write(const void* k_new, const void* v_new, void* k_buf,
                      void* v_buf, void* k_scale, void* v_scale,
                      const void* starts, int start_stride, int L, int B,
@@ -58,10 +59,12 @@ void int8_matmul(const at::Tensor& x, const at::Tensor& q, const at::Tensor& s,
         "int8_matmul");
 }
 
-// q/k_new/v_new/out [B, T, nh, hd] with nh * hd = G * 128 (one head of 128
-// or two of 64 a group); caches [B, G, S, 128]; when nsplit > 1 part holds
-// the per-split partials and tickets (int32, zero between launches) one
-// counter per (b, g, row tile of `rows` query rows); wmask [B, T, window]
+// k_new/v_new [B, T, nkv, hd] with nkv * hd = G * 128 (one KV head of 128
+// or two of 64 a group); q/out [B, T, nh, hd], nh a multiple of nkv (GQA:
+// rep = nh / nkv query heads a KV head); caches [B, G, S, 128]; when
+// nsplit > 1 part holds the per-split partials and tickets (int32, zero
+// between launches) one counter per (b, g, row tile of `rows` folded query
+// rows, T * rep of them); wmask [B, T, window]
 // (or none) is the visibility of cache rows [length, length + window);
 // length int32 [1] (every batch row) or [B] (one a row)
 void tree_attention(const at::Tensor& q, const at::Tensor& k_new,
@@ -84,7 +87,8 @@ void tree_attention(const at::Tensor& q, const at::Tensor& k_new,
             q.size(0), q.size(1),
             k_cache.size(1), k_cache.size(2),
             wmask.has_value() ? wmask->size(2) : 0, rows,
-            q.size(2) / k_cache.size(1), nsplit,
+            k_new.size(2) / k_cache.size(1), q.size(2) / k_new.size(2),
+            nsplit,
             k_scale.has_value(),
             static_cast<float>(scale), stream_of(q)),
         "tree_attention");

@@ -624,9 +624,9 @@ def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
     if ecfg.deferred_commit:
         N1 = int(spec.tree_indices.shape[0])
         D = int(spec.retrieve_indices.shape[1])
-        # this rank's heads under a tp mesh
+        # this rank's KV heads under a tp mesh
         zblk = torch.zeros(
-            (cfg.num_layers, 2, N1, tfm.local_heads(cfg, params["layers"]),
+            (cfg.num_layers, 2, N1, tfm.head_counts(cfg, params["layers"])[1],
              cfg.head_dim), dtype=cfg.torch_dtype, device=dev)
         state = state._replace(
             blk=(zblk, zblk),

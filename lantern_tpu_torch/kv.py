@@ -57,6 +57,27 @@ def ungroup_blocks(grouped: torch.Tensor) -> torch.Tensor:
     return x.reshape(*x.shape[:-2], -1)
 
 
+def group_cache(buf: torch.Tensor) -> torch.Tensor:
+    """[..., S, n_kv, hd] -> grouped [..., G, S, W] (a view)."""
+    *lead, S, nkv, hd = buf.shape
+    G, W = group_dims(nkv, hd)
+    return buf.reshape(*lead, S, G, W).movedim(-2, -3)
+
+
+def ungroup_cache(buf: torch.Tensor, n_kv: int,
+                  head_dim: int) -> torch.Tensor:
+    """Grouped [..., G, S, W] -> [..., S, n_kv, hd]."""
+    *lead, G, S, W = buf.shape
+    x = buf.reshape(*lead, G, S, W // head_dim, head_dim).movedim(-4, -3)
+    return x.reshape(*lead, S, n_kv, head_dim)
+
+
+def dequant_cache(buf: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """int8 grouped [..., G, S, W] and its scales [..., G, S] -> ``dtype``."""
+    return (buf.float() * scale[..., None]).to(dtype)
+
+
 def _127(like: torch.Tensor) -> torch.Tensor:
     """127 as a tensor on ``like``'s device.  Dividing by it is a true f32
     division on every device; dividing a CUDA tensor by the Python float

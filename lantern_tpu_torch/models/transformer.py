@@ -48,16 +48,9 @@ from ..ops.tree_attention import NEG_INF, tree_attention
 from ..parallel.mesh import tp_group
 
 
-def _require_mha(cfg: ModelConfig) -> None:
-    if cfg.num_kv_heads != cfg.num_heads:
-        raise NotImplementedError("GQA is not ported (every LANTERN family "
-                                  "is MHA)")
-
-
 def make_rope_tables(cfg: ModelConfig, device=None):
     """Rope (cos, sin) f32 tables on ``device``: the 2-D grid table (zero
     rows over the conditioning prefix) or the 1-D one."""
-    _require_mha(cfg)
     if cfg.rope_kind == "2d":
         cos, sin = rope_table_2d(cfg.grid_size, cfg.head_dim, cfg.rope_base,
                                  cfg.cls_token_num)
@@ -122,7 +115,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, dtype=None,
 
 def fuse_params(params: dict) -> dict:
     """Fuse per-layer QKV and gate/up projections into single matmuls
-    (``wqkv`` [L, H, 3*nh*hd], ``w_gu`` [L, H, 2I])."""
+    (``wqkv`` [L, H, (nh + 2 nkv) * hd]: the q, k and v columns at their own
+    widths; ``w_gu`` [L, H, 2I])."""
     p = dict(params)
     layers = dict(p["layers"])
     if "wq" in layers:
@@ -180,19 +174,30 @@ def _kernel(lp: dict, name: str) -> torch.Tensor:
     return lp[name] if name in lp else lp[name + "_q"]
 
 
-def local_heads(cfg: ModelConfig, lp: dict) -> int:
-    """Attention heads of the (layer-stacked) weights ``lp``: all of them,
-    or one tp rank's share (MHA: q, k and v have as many)."""
+def head_counts(cfg: ModelConfig, lp: dict) -> tuple[int, int]:
+    """``(query heads, KV heads)`` of the (layer-stacked) weights ``lp``:
+    all of them, or one tp rank's share.  A fused ``wqkv`` is
+    ``(nh + 2 nkv) * hd`` wide, and a rank keeps the config's ratio
+    ``nh / nkv``."""
+    hd = cfg.head_dim
     if has_kernel(lp, "wqkv"):
-        return _kernel(lp, "wqkv").shape[-1] // (3 * cfg.head_dim)
-    return _kernel(lp, "wq").shape[-1] // cfg.head_dim
+        rep = cfg.num_heads // cfg.num_kv_heads
+        nkv = _kernel(lp, "wqkv").shape[-1] // ((rep + 2) * hd)
+        return rep * nkv, nkv
+    return (_kernel(lp, "wq").shape[-1] // hd,
+            _kernel(lp, "wk").shape[-1] // hd)
+
+
+def local_heads(cfg: ModelConfig, lp: dict) -> int:
+    """Query heads of the weights ``lp`` (``head_counts``' first)."""
+    return head_counts(cfg, lp)[0]
 
 
 def cache_groups(cfg: ModelConfig, params: dict) -> int:
     """Head groups of the KV cache that ``params`` serve: all of them, or
     one tp rank's share (``KVCache.create(.., groups=)``)."""
     W = group_dims(cfg.num_kv_heads, cfg.head_dim)[1]
-    return local_heads(cfg, params["layers"]) * cfg.head_dim // W
+    return head_counts(cfg, params["layers"])[1] * cfg.head_dim // W
 
 
 def _row_groups(cfg: ModelConfig, lp: dict):
@@ -271,11 +276,10 @@ def forward(
     restricted to the rows it ever exposes)."""
     if commit and write_offset != 0:
         raise ValueError("forward(commit=True) requires write_offset == 0")
-    _require_mha(cfg)
     B, T, H = embeds.shape
     lp = params["layers"]
     # this rank's heads (all of them without a tp split)
-    nh = nkv = local_heads(cfg, lp)
+    nh, nkv = head_counts(cfg, lp)
     hd = cfg.head_dim
     wo_group, down_group = _row_groups(cfg, lp)
     if kv.k.shape[2] != cache_groups(cfg, params):
@@ -419,6 +423,10 @@ def _train_layer(cfg: ModelConfig, idx: int, positions, rope, mask,
         k = head_layer_norm(k, w["k_norm_w"], w["k_norm_b"], cfg.norm_eps)
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
+    if nkv != nh:
+        # grouped-query: query head n reads KV head n // (nh / nkv)
+        k = k.repeat_interleave(nh // nkv, dim=2)
+        v = v.repeat_interleave(nh // nkv, dim=2)
     # scores and values in f32, as the reference's preferred_element_type
     s = torch.einsum("btnh,bunh->bntu", q.float(), k.float()) * (hd ** -0.5)
     p = torch.softmax(s + mask, dim=-1)
@@ -464,7 +472,6 @@ def train_layer_block(
     ``gather`` (FSDP) turns each layer's weight slices into whole weights
     when the layer runs, inside the recomputed function, so remat gathers
     again in the backward and no layer's whole weights outlive it."""
-    _require_mha(cfg)
     names = sorted(layers)
     # one unbind a weight: its backward stacks the layers' gradients once
     per_layer = list(zip(*(layers[n].unbind(0) for n in names)))

@@ -19,7 +19,12 @@ divergence, so a bench can call it before it times anything:
 - on a card only, the JAX module's TPU check: a tiny 2-layer, hidden-256
   label model over ``chain_bush_8``, 48 sampled tokens with deferred commit
   equal token for token to the run with rollback commit, through the
-  kernels (K2 at S = 1024, K3, K4).
+  kernels (K2 at S = 1024, K3, K4);
+- on a card only, beside the JAX module's checks (its keys stay the
+  CPU's): K2 at grouped-query heads (``tree_attention_gqa``), 8 query
+  heads of 128 over 2 KV heads (G = 2, 4 query heads a KV head), T=16,
+  S=512, length 137, within 3e-2 of dense attention over the KV heads
+  repeated for their query heads, inputs from ``default_rng(1)``.
 
 The inputs come from ``np.random.default_rng(0)`` in the JAX module's
 order (``draw_inputs``), so both modules see the same numbers.
@@ -46,8 +51,11 @@ L, G, W, TN, START, BLK = 4, 2, 128, 24, 200, 32
 REL = [3, 0, 7, 7, 1]
 # K1: rows, contraction, columns
 M, K, N = 8, 256, 512
+# the grouped-query K2 case: KV heads of 128 and query heads a KV head
+GQA_NKV, GQA_REP = 2, 4
 TOL = {"tree_attention": 3e-2, "kv_write": 0.0, "kv_rollback": 0.0,
-       "int8_matmul": 1e-1, "deferred_flash_tokens": 0}
+       "int8_matmul": 1e-1, "deferred_flash_tokens": 0,
+       "tree_attention_gqa": 3e-2}
 
 
 def draw_inputs(seed: int = 0) -> dict:
@@ -128,6 +136,33 @@ def deferred_vs_rollback(device) -> int:
     return int((toks[True] != toks[False]).sum())
 
 
+def gqa_attention_error(device) -> float:
+    """K2 through ``tree_attention`` at grouped-query heads against
+    ``dense_attention`` over the KV heads repeated for their query heads
+    (query head ``n`` reads KV head ``n // GQA_REP``)."""
+    rng = np.random.default_rng(1)
+    nh, hd = GQA_NKV * GQA_REP, 128
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape)).to(
+            torch.bfloat16).to(device)
+
+    q = t(B, T, nh, hd)
+    kn, vn, kc, vc = (t(B, n, GQA_NKV, hd) for n in (T, T, S, S))
+    mask = torch.as_tensor((rng.random((T, T)) < 0.4) | np.eye(T, dtype=bool),
+                           device=device)
+    bias = torch.zeros((B, S), device=device)
+    bias[0, :7] = NEG_INF
+    length = torch.tensor(LENGTH, dtype=torch.int32, device=device)
+    got = tree_attention(q, kn, vn, group_blocks(kc).contiguous(),
+                         group_blocks(vc).contiguous(), length, mask, bias,
+                         hd ** -0.5)
+    kn, vn, kc, vc = (x.repeat_interleave(GQA_REP, dim=2)
+                      for x in (kn, vn, kc, vc))
+    return _max_err(got, dense_attention(q, kn, vn, kc, vc, LENGTH, mask,
+                                         bias, hd ** -0.5))
+
+
 def run_kernel_selftest(device=None, verbose: bool = False) -> dict:
     """``{check: max_abs_err}`` (and ``"backend"``: the device type);
     raises ``AssertionError`` on divergence.  ``device`` defaults to the
@@ -173,6 +208,7 @@ def run_kernel_selftest(device=None, verbose: bool = False) -> dict:
     # --- the TPU module's on-chip check: deferred against rollback commit -
     if dev.type == "cuda":
         errs["deferred_flash_tokens"] = deferred_vs_rollback(dev)
+        errs["tree_attention_gqa"] = gqa_attention_error(dev)
 
     # --- K1: the W8A16 matmul against the dequantized product -------------
     x = t("x")

@@ -36,6 +36,12 @@ no mask, reads their hidden states.
 A 128-lane cache group holds one head of 128 (Chameleon) or two heads of
 64 (LlamaGen, ``pk = 2``): each head then takes the scores of its own 64
 lanes and its own softmax, and both share the group row's int8 scale.
+Grouped-query attention: ``nh = rep * nkv`` query heads over ``nkv`` KV
+heads, query head ``n`` reading KV head ``n // rep`` (the reference's
+``jnp.repeat`` order); each query head keeps its own softmax.  The kernel
+folds the ``rep`` query heads of a KV head into its query rows (``T *
+rep`` rows, each a ``(t, r)`` pair), so that it streams each KV tile once
+for all of them; ``k2_rows`` and ``k2_splits`` take those folded rows.
 
 ``tree_attention`` dispatches by device: the hand-written kernel in
 ``csrc/tree_attention.cu`` on CUDA tensors, ``tree_attention_plain`` on CPU.
@@ -69,15 +75,18 @@ K2_SPLIT_BATCH = 2
 
 
 def k2_rows(T: int, pk: int = 1) -> int:
-    """Query rows one K2 thread block owns: one or two 16-row mma tiles with
-    one head a group; with two heads (``pk = 2``) always 16, whose two
-    heads already take two tiles (and the registers of 32 rows of one)."""
+    """Query rows one K2 thread block owns, of the ``T`` (folded: the
+    block's rows times ``rep``) of a (batch row, group): one or two 16-row
+    mma tiles with one head a group; with two heads (``pk = 2``) always 16,
+    whose two heads already take two tiles (and the registers of 32 rows of
+    one)."""
     return 16 if T <= 16 or pk == 2 else 32
 
 
 def k2_splits(B: int, G: int, S: int, T: int, sms: int, pk: int = 1) -> int:
     """Prefix splits of a K2 launch on a card of ``sms`` SMs, from the shapes
-    alone (``length`` stays on the device): as many as keep the ``B * G * row tiles * splits``
+    alone (``length`` stays on the device; ``T`` the folded rows, as
+    ``k2_rows``'): as many as keep the ``B * G * row tiles * splits``
     thread blocks within one wave of ``K2_BLOCKS_PER_SM`` an SM, at most one
     per ``K2_SPLIT_MIN_ROWS`` rows of the capacity ``S`` and
     ``K2_MAX_SPLIT``."""
@@ -112,18 +121,22 @@ def tree_attention_plain(q, k_new, v_new, k_cache, v_cache, length,
                          k_scale=None, v_scale=None, window_mask=None):
     """K2's plain version (the JAX dense-fused math, any head grouping).
 
-    q/k_new/v_new [B, T, nh, hd]; caches [B, G, S, W] grouped; ``length``
-    int32 [] or [B]; ``block_mask`` [B, T, T] bool; ``prefix_bias``
-    [B, S] f32; ``window_mask`` [B or 1, T, window] bool or None.  Returns
-    [B, T, nh, hd] in q's dtype."""
+    q [B, T, nh, hd]; k_new/v_new [B, T, nkv, hd]; caches [B, G, S, W]
+    grouped, ``nkv = G * W / hd``; ``nh = rep * nkv``: query head ``n``
+    reads KV head ``n // rep`` (grouped-query attention; ``rep = 1`` is
+    MHA); ``length`` int32 [] or [B]; ``block_mask`` [B, T, T] bool;
+    ``prefix_bias`` [B, S] f32; ``window_mask`` [B or 1, T, window] bool or
+    None.  Returns [B, T, nh, hd] in q's dtype."""
     B, T, nh, hd = q.shape
     _, Gd, S, W = k_cache.shape
     pk = W // hd
+    rep = nh // (Gd * pk)
     dt = q.dtype
     quant = k_scale is not None
     k5 = k_cache.reshape(B, Gd, S, pk, hd)
     v5 = v_cache.reshape(B, Gd, S, pk, hd)
-    qg = q.reshape(B, T, Gd, pk, hd).permute(0, 2, 3, 1, 4).float()
+    # [B, G, pk, rep, T, hd]: the rep query heads of each KV head
+    qg = q.reshape(B, T, Gd, pk, rep, hd).permute(0, 2, 3, 4, 1, 5).float()
     if quant:
         kq_blk, ks_blk = quantize_rows(group_blocks(k_new))     # [B,G,T,W]
         vq_blk, vs_blk = quantize_rows(group_blocks(v_new))
@@ -147,29 +160,29 @@ def tree_attention_plain(q, k_new, v_new, k_cache, v_cache, length,
         block_mask = block_mask[None]
     mb = torch.where(block_mask.bool(), 0.0, NEG_INF)        # [B or 1,T,T]
 
-    s_pre = torch.einsum("bgptd,bgspd->bgpts", qg, k5.float()) * scale
+    s_pre = torch.einsum("bgprtd,bgspd->bgprts", qg, k5.float()) * scale
     if quant:
-        s_pre = s_pre * k_scale[:, :, None, None, :]
-    s_pre = s_pre + mp[:, None, None]
-    s_blk = torch.einsum("bgptd,bgpud->bgptu", qg, ku.float()) * scale
+        s_pre = s_pre * k_scale[:, :, None, None, None, :]
+    s_pre = s_pre + mp[:, None, None, None]
+    s_blk = torch.einsum("bgprtd,bgpud->bgprtu", qg, ku.float()) * scale
     if quant:
-        s_blk = s_blk * ks_blk[:, :, None, None, :]
-    s_blk = s_blk + mb[:, None, None]
+        s_blk = s_blk * ks_blk[:, :, None, None, None, :]
+    s_blk = s_blk + mb[:, None, None, None]
 
     m = torch.maximum(s_pre.amax(-1), s_blk.amax(-1))[..., None]
     e_pre = torch.exp(s_pre - m)
     e_blk = torch.exp(s_blk - m)
-    den = e_pre.sum(-1) + e_blk.sum(-1)                           # [B,G,pk,T]
+    den = e_pre.sum(-1) + e_blk.sum(-1)                      # [B,G,pk,rep,T]
     if quant:
-        ep = (e_pre * v_scale[:, :, None, None, :]).to(dt)
-        eb = (e_blk * vs_blk[:, :, None, None, :]).to(dt)
+        ep = (e_pre * v_scale[:, :, None, None, None, :]).to(dt)
+        eb = (e_blk * vs_blk[:, :, None, None, None, :]).to(dt)
         vv = v5.to(dt)
     else:
         ep, eb, vv = e_pre.to(dt), e_blk.to(dt), v5
-    o = torch.einsum("bgpts,bgspd->bgptd", ep.float(), vv.float())
-    o = o + torch.einsum("bgptu,bgpud->bgptd", eb.float(), vu.float())
+    o = torch.einsum("bgprts,bgspd->bgprtd", ep.float(), vv.float())
+    o = o + torch.einsum("bgprtu,bgpud->bgprtd", eb.float(), vu.float())
     o = o / torch.clamp(den, min=1e-30)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(B, T, nh, hd).to(dt)
+    return o.permute(0, 4, 1, 2, 3, 5).reshape(B, T, nh, hd).to(dt)
 
 
 def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
@@ -180,14 +193,17 @@ def tree_attention_cuda(q, k_new, v_new, k_cache, v_cache, length,
     length[b])`` through the tensor cores with an online softmax, the last
     split also the provisional window's cache rows and the block rows under
     their masks; the last split to finish merges all of them.  Needs W ==
-    128 lanes a group holding one head of 128 or two of 64, MHA and bf16
-    activations; any T, any window."""
-    B, T, nh = q.shape[:3]
-    _, G, S, _ = k_cache.shape
+    128 lanes a group holding one KV head of 128 or two of 64, ``rep``
+    query heads a KV head (1: MHA) and bf16 activations; any T, any
+    window."""
+    B, T, nh, hd = q.shape
+    _, G, S, W = k_cache.shape
+    pk = W // hd
     return tree_attention_launch(
         q, k_new, v_new, k_cache, v_cache, length, block_mask, prefix_bias,
-        scale, k2_splits(min(B, K2_SPLIT_BATCH), G, S, T,
-                         _cuda.sm_count(q.device), nh // G),
+        scale, k2_splits(min(B, K2_SPLIT_BATCH), G, S,
+                         T * max(1, nh // (G * pk)),
+                         _cuda.sm_count(q.device), pk),
         k_scale=k_scale, v_scale=v_scale, window_mask=window_mask)
 
 
@@ -203,13 +219,17 @@ def tree_attention_launch(q, k_new, v_new, k_cache, v_cache, length,
     _, G, S, W = k_cache.shape
     quant = k_scale is not None
     pk = W // hd
-    _cuda.require(W == 128 and hd in (64, 128) and nh == G * pk,
-                  f"tree_attention: needs 128-lane groups of one head of 128 "
-                  f"or two of 64, got nh={nh} hd={hd} cache G={G} W={W}")
+    _cuda.require(W == 128 and hd in (64, 128) and nh % (G * pk) == 0,
+                  f"tree_attention: needs 128-lane groups of one KV head of "
+                  f"128 or two of 64 and query heads a multiple of the KV "
+                  f"heads, got nh={nh} hd={hd} cache G={G} W={W}")
+    rep = nh // (G * pk)
+    kv_shape = (B, T, G * pk, hd)
     for t in (q, k_new, v_new):
-        _cuda.require(t.dtype == torch.bfloat16 and t.shape == q.shape,
-                      "tree_attention: q/k_new/v_new must be bf16 "
-                      "[B, T, nh, hd]")
+        _cuda.require(t.dtype == torch.bfloat16 and t.shape == (
+            q.shape if t is q else kv_shape),
+                      "tree_attention: q must be bf16 [B, T, nh, hd], "
+                      "k_new/v_new bf16 [B, T, nkv, hd]")
     want = torch.int8 if quant else torch.bfloat16
     for t in (k_cache, v_cache):
         _cuda.require(t.dtype == want and t.is_contiguous()
@@ -233,10 +253,10 @@ def tree_attention_launch(q, k_new, v_new, k_cache, v_cache, length,
     out = torch.empty_like(q)
     _cuda.require(1 <= nsplit <= K2_MAX_SPLIT, f"tree_attention: takes 1 to "
                   f"{K2_MAX_SPLIT} prefix splits, got {nsplit}")
-    rows = k2_rows(T, pk)
+    rows = k2_rows(T * rep, pk)
     part = tickets = None
     if nsplit > 1:
-        units = B * G * -(-T // rows)
+        units = B * G * -(-T * rep // rows)
         part = torch.empty((units * nsplit * rows * (128 + 2 * pk),),
                            dtype=torch.float32, device=q.device)
         tickets = _cuda.tickets(q.device, "tree_attention", units)

@@ -28,7 +28,9 @@ alone:
 - **shard the split layout, then fuse on each rank**: a fused ``wqkv`` /
   ``w_gu`` carries the spec of ``wq`` / ``w_gate``, and ``shard_pytree``
   slices each of its q/k/v (gate/up) parts and concatenates the rank's
-  pieces; a fused kernel's columns are never cut contiguously;
+  pieces; a fused kernel's columns are never cut contiguously.  The parts
+  of ``wqkv`` are ``(nh, nkv, nkv) * hd`` wide (grouped-query attention
+  makes them unequal): q as wide as ``wo`` has rows;
 - **attention splits only where the head groups divide**: heads go over tp
   only when ``num_heads % tp == 0`` and the KV cache's 128-lane groups
   ``G % tp == 0`` (the JAX rule asks the heads alone); otherwise the
@@ -48,8 +50,8 @@ from ..configs import ModelConfig
 from ..kv import KVCache, group_dims
 
 TP = "tp"
-# fused kernels: the split kernel whose spec they carry, and their parts
-FUSED = {"wqkv": ("wq", 3), "w_gu": ("w_gate", 2)}
+# fused kernels: the split kernel whose spec they carry
+FUSED = {"wqkv": "wq", "w_gu": "w_gate"}
 
 
 @dataclasses.dataclass
@@ -204,7 +206,7 @@ def _match_layout(specs: dict, params: dict) -> dict:
                 out[key] = rewrite(spec_d.get(key, {}), val)
                 continue
             base = key[:-2] if key.endswith(("_q", "_s")) else key
-            ref = spec_d.get(base, spec_d.get(FUSED.get(base, (base,))[0]))
+            ref = spec_d.get(base, spec_d.get(FUSED.get(base, base)))
             if ref is None:
                 ref = (None,) * val.ndim
             if key.endswith("_s") and len(ref) >= 2:
@@ -260,16 +262,27 @@ def _split_axis(spec) -> Optional[int]:
     return axes[0] if axes else None
 
 
-def _parts(key: str) -> int:
+def _widths(key: str, x: torch.Tensor, axis: int, level: dict) -> list:
+    """The widths along ``axis`` of the parts of leaf ``key`` of the dict
+    ``level``: a fused kernel's (``w_gu``: two halves; ``wqkv``: q as wide
+    as ``wo`` has rows, ``nh * hd``, then k and v at half the rest each,
+    ``nkv * hd``), else the whole leaf as one part."""
     base = key[:-2] if key.endswith(("_q", "_s")) else key
-    return FUSED.get(base, (None, 1))[1]
+    n = x.shape[axis]
+    if base == "w_gu":
+        return [n // 2, n // 2]
+    if base == "wqkv":
+        q = (level["wo"] if "wo" in level else level["wo_q"]).shape[-2]
+        return [q, (n - q) // 2, (n - q) // 2]
+    return [n]
 
 
-def _slice(x: torch.Tensor, axis: int, parts: int, tp: int, r: int):
-    """Rank ``r``'s piece of every one of ``x``'s ``parts`` along ``axis``,
-    concatenated (a copy of its own, so the full tensor can be freed)."""
+def _slice(x: torch.Tensor, axis: int, widths: list, tp: int, r: int):
+    """Rank ``r``'s piece of every one of ``x``'s parts (``widths`` along
+    ``axis``), concatenated (a copy of its own, so the full tensor can be
+    freed)."""
     pieces = []
-    for p in x.chunk(parts, dim=axis):
+    for p in x.split(widths, dim=axis):
         w = p.shape[axis] // tp
         pieces.append(p.narrow(axis, r * w, w))
     return torch.cat(pieces, dim=axis).contiguous()
@@ -281,8 +294,9 @@ def shard_pytree(tree, specs, mesh: Mesh, tp_rank: Optional[int] = None):
     kernel part by part; replicated leaves are returned as they are.
     ``tp_rank`` defaults to the mesh's."""
     r = mesh.tp_rank if tp_rank is None else tp_rank
+    level = dict(_items(tree))
     out = {}
-    for key, val in _items(tree):
+    for key, val in level.items():
         spec = _spec_of(specs, key)
         if isinstance(val, dict):
             out[key] = shard_pytree(val, spec, mesh, r)
@@ -291,7 +305,8 @@ def shard_pytree(tree, specs, mesh: Mesh, tp_rank: Optional[int] = None):
         if val is None or axis is None or mesh.tp == 1:
             out[key] = val
             continue
-        out[key] = _slice(val, axis, _parts(key), mesh.tp, r)
+        out[key] = _slice(val, axis, _widths(key, val, axis, level), mesh.tp,
+                          r)
     return _rebuild(tree, out)
 
 
@@ -299,10 +314,11 @@ def gather_pytree(shards: list, specs):
     """The inverse of ``shard_pytree``: the full tree from the ``tp``
     ranks' shards, in tp-rank order (on the host, no collective)."""
     first = shards[0]
+    levels = [dict(_items(s)) for s in shards]
     out = {}
-    for key, val in _items(first):
+    for key, val in levels[0].items():
         spec = _spec_of(specs, key)
-        mine = [dict(_items(s))[key] for s in shards]
+        mine = [lv[key] for lv in levels]
         if isinstance(val, dict):
             out[key] = gather_pytree(mine, spec)
             continue
@@ -310,8 +326,8 @@ def gather_pytree(shards: list, specs):
         if val is None or axis is None or len(shards) == 1:
             out[key] = val
             continue
-        parts = _parts(key)
-        split = [m.chunk(parts, dim=axis) for m in mine]
+        split = [m.split(_widths(key, m, axis, lv), dim=axis)
+                 for m, lv in zip(mine, levels)]
         out[key] = torch.cat([torch.cat([s[p] for s in split], dim=axis)
-                              for p in range(parts)], dim=axis)
+                              for p in range(len(split[0]))], dim=axis)
     return _rebuild(first, out)

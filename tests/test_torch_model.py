@@ -599,9 +599,3 @@ def test_forward_matches_jax(dtype, kvq, weights, defer):
             # max: compare against the stage's scale
             rel = 2e-2 if dtype == "bfloat16" else 5e-3
             assert np.abs(g - r).max() <= rel * np.abs(r).max(), kind
-
-
-def test_forward_rejects_unported_variants():
-    cfg = tc.tiny_config(vocab_size=64, hidden_size=256, num_heads=2)
-    with pytest.raises(NotImplementedError, match="GQA"):
-        ttfm.make_rope_tables(cfg.replace(num_kv_heads=1), "cpu")

@@ -18,6 +18,9 @@ and write their results to ``DIR/JOB_RANK.pt``.
   split and fused layouts; the known-wrong variants; greedy
   ``spec.generate`` in three modes and ``BatchedEngine`` + ``Scheduler``
   over (dp=2, tp=2);
+- ``gqa`` (2 ranks, from ``tests/test_torch_gqa.py``): a grouped-query
+  Chameleon (4 heads over 2 KV heads) at tp 2, fused f32 and int8 logits
+  and greedy stale + deferred ``spec.generate``;
 - ``card`` (2 ranks, the card only): gloo on one card, the int8 bf16
   LlamaGen lane at tp 2 through the CUDA kernels against one process.
 """
@@ -265,6 +268,30 @@ def job_mesh(rank: int, world: int, root: str, inp: dict) -> dict:
     return out
 
 
+def job_gqa(rank: int, world: int, root: str, inp: dict) -> dict:
+    """Grouped-query attention over a (dp=1, tp=2) mesh: the fused f32 and
+    int8 Chameleon forwards' logits, and greedy stale + deferred
+    ``spec.generate`` over the 4x4 Lumina prompt (no grid FSM)."""
+    from lantern_tpu_torch.models import chameleon as cham
+
+    dist.init_distributed(f"file://{root}/gqa", world, rank, device="cpu")
+    mesh = pm.make_mesh(dp=1)
+    cfg, ids = inp["cfg"], inp["ids"]
+    out = {}
+    for name in ("f32", "int8"):
+        sp = sharded(cfg, inp["p" if name == "f32" else "q"], mesh)
+        _, out[name], out["groups"] = forward_logits(cfg, sp, ids, mesh)
+    out["heads"] = tfm.head_counts(cfg, sp["layers"])
+    ecfg = spec_config(dict(stale_draft=True, deferred_commit=True), 8)
+    tp = cham.lumina_token_prompt([60, 61, 62, 63, 9], grid=(4, 4))
+    with pm.set_mesh(mesh):
+        r = tspec.generate(sp, ecfg, cfg, ttr.get_tree(
+            os.path.join(REPO, "ckpts", "bench_tree_lumina.json")), tp, None,
+            device="cpu")
+    out["tokens"], out["steps"] = r.tokens.tolist(), int(r.steps)
+    return out
+
+
 def job_card(rank: int, world: int, root: str, inp: dict) -> dict:
     """Two ranks on one card over gloo: the int8 bf16 LlamaGen lane at tp 2
     through the CUDA kernels against one process on the same card."""
@@ -312,7 +339,7 @@ def main(argv) -> None:
     path = os.path.join(root, "inputs.pt")
     inp = (torch.load(path, weights_only=False) if os.path.exists(path)
            else {})
-    out = {"dist": job_dist, "mesh": job_mesh,
+    out = {"dist": job_dist, "mesh": job_mesh, "gqa": job_gqa,
            "card": job_card}[job](rank, world, root, inp)
     torch.save(out, os.path.join(root, f"{job}_{rank}.pt"))
     torch.distributed.destroy_process_group()
