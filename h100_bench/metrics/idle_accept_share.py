@@ -1,0 +1,9 @@
+"""The share of the traced window in which the device idles while the
+program's ``step.accept`` span (one slot's acceptance walk) is open, in %:
+the device trace's idle gaps labelled by the port's own spans."""
+
+from h100_bench.program_spans import idle_share
+
+
+def read(run):
+    return idle_share(run, {"step.accept"})

@@ -31,6 +31,7 @@ from ..kv import KVCache
 from ..models import transformer as tfm
 from ..models.chameleon import TokenPrompt
 from ..ops.sampling import LogitsWarp, cfg_combine, sample_token
+from ..utils.profiling import count, span
 
 
 class ARResult(NamedTuple):
@@ -194,38 +195,48 @@ def generate_many(
     if rope is None:
         rope = tfm.make_rope_tables(cfg, dev)
     R, Tc = conds.shape[0], cfg.cls_token_num
-    # each request's conditioning embeds as in a lone run (one pair at a
-    # time), then the pairs stack on the batch axis
-    embeds = torch.cat([tfm.cond_embed(
-        params, cfg, torch.cat([conds[r].reshape((1,) + uncond.shape[1:]),
-                                uncond], dim=0).to(dev)) for r in range(R)])
-    kv = KVCache.create(cfg, 2 * R, quantized=kv_quant, device=dev,
-                        row_lengths=True,
-                        groups=tfm.cache_groups(cfg, params))
-    block = None
-    if prefix_valid is not None:
-        pv = torch.ones((2 * R, kv.max_len), dtype=torch.bool, device=dev)
-        pv[:, :prefix_valid.shape[-1]] = prefix_valid.to(dev).bool().reshape(
-            2 * R, -1)
-        prefix_valid = pv
-        block = (torch.tril(torch.ones((Tc, Tc), dtype=torch.bool,
-                                       device=dev))[None]
-                 & pv[:, None, :Tc])
-    res = tfm.forward(params, cfg, embeds, kv,
-                      torch.arange(Tc, device=dev), rope, block_mask=block)
-    kv = res.kv
-    logits = tfm.logits_head(params, res.hidden[:, -1])          # [2R, V]
-    tok = _sample_rows(generators, cfg_combine(logits, cfg_scale), warp)
+    with span("ar.prefill"):
+        # each request's conditioning embeds as in a lone run (one pair at
+        # a time), then the pairs stack on the batch axis
+        embeds = torch.cat([tfm.cond_embed(
+            params, cfg, torch.cat([conds[r].reshape((1,) + uncond.shape[1:]),
+                                    uncond], dim=0).to(dev))
+            for r in range(R)])
+        kv = KVCache.create(cfg, 2 * R, quantized=kv_quant, device=dev,
+                            row_lengths=True,
+                            groups=tfm.cache_groups(cfg, params))
+        block = None
+        if prefix_valid is not None:
+            pv = torch.ones((2 * R, kv.max_len), dtype=torch.bool,
+                            device=dev)
+            pv[:, :prefix_valid.shape[-1]] = prefix_valid.to(
+                dev).bool().reshape(2 * R, -1)
+            prefix_valid = pv
+            block = (torch.tril(torch.ones((Tc, Tc), dtype=torch.bool,
+                                           device=dev))[None]
+                     & pv[:, None, :Tc])
+        res = tfm.forward(params, cfg, embeds, kv,
+                          torch.arange(Tc, device=dev), rope,
+                          block_mask=block)
+        kv = res.kv
+        logits = tfm.logits_head(params, res.hidden[:, -1])      # [2R, V]
+        with span("sample"):
+            tok = _sample_rows(generators, cfg_combine(logits, cfg_scale),
+                               warp)
     out = torch.zeros((R, max_new), dtype=torch.int32, device=dev)
     for i in range(max_new):
-        out[:, i] = tok
-        emb = tfm.token_embed(params, tok.repeat_interleave(2)[:, None])
-        res = tfm.forward(params, cfg, emb, kv,
-                          torch.full((1,), Tc + i, device=dev), rope,
-                          prefix_valid=prefix_valid)
-        kv = res.kv
-        logits = tfm.logits_head(params, res.hidden[:, -1])
-        tok = _sample_rows(generators, cfg_combine(logits, cfg_scale), warp)
+        with span("ar.token"):
+            count("ar_tokens")
+            out[:, i] = tok
+            emb = tfm.token_embed(params, tok.repeat_interleave(2)[:, None])
+            res = tfm.forward(params, cfg, emb, kv,
+                              torch.full((1,), Tc + i, device=dev), rope,
+                              prefix_valid=prefix_valid)
+            kv = res.kv
+            logits = tfm.logits_head(params, res.hidden[:, -1])
+            with span("sample"):
+                tok = _sample_rows(generators, cfg_combine(logits, cfg_scale),
+                                   warp)
     return out
 
 
@@ -270,46 +281,56 @@ def generate_tokens_many(
             logits = logits_fn(logits, cond_pos)
         return logits
 
-    kv = KVCache.create(cfg, 2 * R, quantized=kv_quant, device=dev,
-                        row_lengths=True,
-                        groups=tfm.cache_groups(cfg, params))
-    block = (torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))[None]
-             & valid[:, None, :])
-    res = tfm.forward(params, cfg,
-                      tfm.token_embed(params, tokens.reshape(2 * R, L)), kv,
-                      positions=positions, rope=rope, block_mask=block)
-    pv = torch.ones((2 * R, kv.max_len), dtype=torch.bool, device=dev)
-    pv[:, :L] = valid
-    last_pos = positions[:, -1]                                  # [2R]
-    logits = tfm.logits_head(params, res.hidden[:, -1:])
-    tok = _sample_rows(generators, warp_rows(logits, last_pos[0::2]), warp)
-    kv = res.kv
+    with span("ar.prefill"):
+        kv = KVCache.create(cfg, 2 * R, quantized=kv_quant, device=dev,
+                            row_lengths=True,
+                            groups=tfm.cache_groups(cfg, params))
+        block = (torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                       device=dev))[None]
+                 & valid[:, None, :])
+        res = tfm.forward(params, cfg,
+                          tfm.token_embed(params, tokens.reshape(2 * R, L)),
+                          kv, positions=positions, rope=rope,
+                          block_mask=block)
+        pv = torch.ones((2 * R, kv.max_len), dtype=torch.bool, device=dev)
+        pv[:, :L] = valid
+        last_pos = positions[:, -1]                              # [2R]
+        logits = tfm.logits_head(params, res.hidden[:, -1:])
+        with span("sample"):
+            tok = _sample_rows(generators, warp_rows(logits, last_pos[0::2]),
+                               warp)
+        kv = res.kv
     out = torch.zeros((R, max_new), dtype=torch.int32, device=dev)
     stops = (torch.tensor(stop_ids, dtype=torch.int32, device=dev)
              if stop_ids else None)
     n_valid = [max_new] * R
     live: List[int] = list(range(R))       # requests still generating
     for i in range(max_new):
-        out[live, i] = tok[live]
-        emb = tfm.token_embed(params, tok.repeat_interleave(2)[:, None])
-        pos = (last_pos + 1 + i)[:, None]                        # [2R, 1]
-        res = tfm.forward(params, cfg, emb, kv, pos, rope, prefix_valid=pv)
-        kv = res.kv
-        logits = warp_rows(tfm.logits_head(params, res.hidden[:, -1:]),
-                           pos[0::2, 0])
-        nxt = tok.clone()
-        if warp.greedy:
-            nxt[live] = torch.argmax(logits[live], dim=-1).to(torch.int32)
-        else:
-            for r in live:
-                nxt[r] = sample_token(generators[r], logits[r: r + 1],
-                                      warp)[0]
-        if stops is not None:
-            hit = (tok[:, None] == stops[None, :]).any(-1).tolist()
-            for r in [r for r in live if hit[r]]:
-                n_valid[r] = i + 1
-                live.remove(r)
-            if not live:
-                break
+        with span("ar.token"):
+            count("ar_tokens")
+            out[live, i] = tok[live]
+            emb = tfm.token_embed(params, tok.repeat_interleave(2)[:, None])
+            pos = (last_pos + 1 + i)[:, None]                    # [2R, 1]
+            res = tfm.forward(params, cfg, emb, kv, pos, rope,
+                              prefix_valid=pv)
+            kv = res.kv
+            logits = warp_rows(tfm.logits_head(params, res.hidden[:, -1:]),
+                               pos[0::2, 0])
+            nxt = tok.clone()
+            with span("sample"):
+                if warp.greedy:
+                    nxt[live] = torch.argmax(logits[live], dim=-1).to(
+                        torch.int32)
+                else:
+                    for r in live:
+                        nxt[r] = sample_token(generators[r],
+                                              logits[r: r + 1], warp)[0]
+            if stops is not None:
+                hit = (tok[:, None] == stops[None, :]).any(-1).tolist()
+                for r in [r for r in live if hit[r]]:
+                    n_valid[r] = i + 1
+                    live.remove(r)
+                if not live:
+                    break
         tok = nxt
     return out, torch.tensor(n_valid, dtype=torch.int32, device=dev)

@@ -68,6 +68,7 @@ from ..models import drafter as drf
 from ..models import transformer as tfm
 from ..parallel.mesh import set_mesh
 from ..trees import TreeSpec
+from ..utils.profiling import count, span
 from . import spec
 from .spec import SpecDecodeConfig, SpecState, _Ctx
 
@@ -201,7 +202,7 @@ class BatchedEngine:
                 token_prompt=None, prefix_valid=None):
         """Prefill one request -> ``(SpecState, _Ctx)``, as
         ``spec.prefill_request`` (its draws come from ``generator``)."""
-        with self._on_mesh():
+        with span("prefill"), self._on_mesh():
             return spec.prefill_request(
                 self.params, self.ecfg, self.cfg, self.tree, token_prompt,
                 generator, logits_mask=self.logits_mask,
@@ -245,63 +246,76 @@ class BatchedEngine:
         if not 0 <= slot < self.slots:
             raise ValueError(f"slot {slot} outside [0, {self.slots})")
         r0 = 2 * slot
-        batch.base_kv = batch.base_kv.put_rows(r0, state.base_kv)
-        batch.prefix_valid[r0:r0 + 2] = ctx.prefix_valid
-        batch.pos_offsets[r0:r0 + 2] = ctx.pos_offsets
-        batch.states[slot] = state._replace(base_kv=None)
-        batch.ctxs[slot] = ctx
+        with span("insert", slot=slot):
+            batch.base_kv = batch.base_kv.put_rows(r0, state.base_kv)
+            batch.prefix_valid[r0:r0 + 2] = ctx.prefix_valid
+            batch.pos_offsets[r0:r0 + 2] = ctx.pos_offsets
+            batch.states[slot] = state._replace(base_kv=None)
+            batch.ctxs[slot] = ctx
         return batch
 
     @torch.no_grad()
     def step(self, batch: Batch) -> Batch:
         """One speculative step of every slot (finished slots stay frozen);
         updates ``batch`` in place and returns it."""
-        with self._on_mesh():
+        with span("step"), self._on_mesh():
+            count("steps")
             return self._step(batch)
 
     def _step(self, batch: Batch) -> Batch:
         ecfg, tree = self.ecfg, self._tree
         R = self.slots
         kv = batch.base_kv
-        if tree is not None:
-            blocks = [spec.static_tree_block(ecfg, tree, st)
-                      for st in batch.states]
-            mask, pos = tree.mask, tree.depth
-        else:
-            # every slot's own tree, one node count: one [2R, N+1, N+1]
-            # block mask and [R, N+1] depths for the single verify forward
-            blocks = [spec.dynamic_tree_block(self.dcfg, st)
-                      for st in batch.states]
-            mask = torch.stack([b.mask for b in blocks])
-            pos = torch.stack([b.pos for b in blocks])
+        with span("step.block"):
+            if tree is not None:
+                blocks = [spec.static_tree_block(ecfg, tree, st)
+                          for st in batch.states]
+                mask, pos = tree.mask, tree.depth
+            else:
+                # every slot's own tree, one node count: one [2R, N+1, N+1]
+                # block mask and [R, N+1] depths for the single verify
+                # forward
+                blocks = [spec.dynamic_tree_block(self.dcfg, st)
+                          for st in batch.states]
+                mask = torch.stack([b.mask for b in blocks])
+                pos = torch.stack([b.pos for b in blocks])
         N1 = blocks[0].tokens.shape[0]
-        res, logits_raw = spec.verify_forward(
-            ecfg, self.cfg, self.params, self._rope, kv,
-            torch.stack([b.tokens for b in blocks]), mask, pos,
-            batch.prefix_valid, batch.pos_offsets, kv.length)
-        verdicts = [spec.accept(ecfg, batch.ctxs[r], blocks[r], logits_raw[r],
-                                kv.length[2 * r]) for r in range(R)]
-        active = torch.stack([(st.n_new < ecfg.max_new) & ~st.stopped
-                              for st in batch.states])                # [R]
-        n_acc = torch.stack([v.n_acc for v in verdicts])
-        commit = torch.where(active, n_acc, torch.zeros_like(n_acc))
-        # one K4 launch: every row compacts its own accepted path at its
-        # own length; a frozen slot's rows move above its length and its
-        # length stays
-        kv = res.kv.accept_path(
-            torch.stack([v.sel_slots for v in verdicts]).repeat_interleave(
-                2, dim=0), commit.repeat_interleave(2), block_size=N1)
+        with span("step.verify"):
+            res, logits_raw = spec.verify_forward(
+                ecfg, self.cfg, self.params, self._rope, kv,
+                torch.stack([b.tokens for b in blocks]), mask, pos,
+                batch.prefix_valid, batch.pos_offsets, kv.length)
+        verdicts = []
+        for r in range(R):
+            with span("step.accept", slot=r):
+                verdicts.append(spec.accept(ecfg, batch.ctxs[r], blocks[r],
+                                            logits_raw[r], kv.length[2 * r]))
+        with span("step.commit"):
+            active = torch.stack([(st.n_new < ecfg.max_new) & ~st.stopped
+                                  for st in batch.states])            # [R]
+            n_acc = torch.stack([v.n_acc for v in verdicts])
+            commit = torch.where(active, n_acc, torch.zeros_like(n_acc))
+            # one K4 launch: every row compacts its own accepted path at
+            # its own length; a frozen slot's rows move above its length
+            # and its length stays
+            kv = res.kv.accept_path(
+                torch.stack([v.sel_slots for v in verdicts]
+                            ).repeat_interleave(2, dim=0),
+                commit.repeat_interleave(2), block_size=N1)
         for r in range(R):
             old, ctx = batch.states[r], batch.ctxs[r]
-            new, root_out = spec.advance(ecfg, ctx, old, blocks[r],
-                                         verdicts[r], logits_raw[r],
-                                         res.hidden[2 * r:2 * r + 2])
-            if tree is not None:
-                new = spec.next_static_draft(ecfg, self.tree, ctx, new,
-                                             root_out, kv.length[2 * r])
-            else:
-                new = spec.next_dynamic_draft(ecfg, ctx, new, root_out)
-            batch.states[r] = _freeze(active[r], old, new)
+            with span("step.advance", slot=r):
+                new, root_out = spec.advance(ecfg, ctx, old, blocks[r],
+                                             verdicts[r], logits_raw[r],
+                                             res.hidden[2 * r:2 * r + 2])
+            with span("step.draft", slot=r):
+                if tree is not None:
+                    new = spec.next_static_draft(ecfg, self.tree, ctx, new,
+                                                 root_out, kv.length[2 * r])
+                else:
+                    new = spec.next_dynamic_draft(ecfg, ctx, new, root_out)
+            with span("step.freeze", slot=r):
+                batch.states[r] = _freeze(active[r], old, new)
         batch.base_kv = kv
         return batch
 
@@ -317,9 +331,11 @@ class BatchedEngine:
         """(n_new, steps, accept_sum) per slot as numpy, in one device
         fetch.  With ``ecfg.stop_ids``, stopped slots report ``n_new`` as
         ``max_new`` so schedulers see them as done."""
-        st = torch.stack([x.to(torch.int32) for s in batch.states
-                          for x in (s.n_new, s.steps, s.accept_sum,
-                                    s.stopped)]).reshape(-1, 4).cpu().numpy()
+        with span("slot_status"):
+            st = torch.stack([x.to(torch.int32) for s in batch.states
+                              for x in (s.n_new, s.steps, s.accept_sum,
+                                        s.stopped)]
+                             ).reshape(-1, 4).cpu().numpy()
         n_new, steps, acc, stopped = st.T
         if self.ecfg.stop_ids:
             n_new = np.where(stopped != 0, self.ecfg.max_new, n_new)
@@ -328,7 +344,8 @@ class BatchedEngine:
     def slot_tokens(self, batch: Batch, slot: int) -> np.ndarray:
         """The slot's committed stream, truncated at the first stop id when
         ``ecfg.stop_ids`` is set."""
-        toks = batch.states[slot].tokens[: self.ecfg.max_new].cpu().numpy()
+        with span("slot_tokens", slot=slot):
+            toks = batch.states[slot].tokens[: self.ecfg.max_new].cpu().numpy()
         if self.ecfg.stop_ids:
             hit = np.isin(toks, np.asarray(self.ecfg.stop_ids))
             if hit.any():

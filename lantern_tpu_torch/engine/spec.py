@@ -52,6 +52,7 @@ from ..ops import acceptance as acc
 from ..ops.quant import head_of
 from ..ops.sampling import LogitsWarp, categorical, cfg_combine, sample_token
 from ..trees import TreeSpec
+from ..utils.profiling import count, span
 
 __all__ = ["SpecDecodeConfig", "SpecState", "SpecResult", "TokenPrompt",
            "make_static_step", "make_dynamic_step", "prefill_request",
@@ -391,18 +392,22 @@ def _verify_and_update(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx,
         sel_prev = torch.clamp(state.psel, 0, N1 - 1).long()
         ex = (state.blk[0][:, :, sel_prev], state.blk[1][:, :, sel_prev],
               state.pn)
-    res, logits_raw = verify_forward(
-        ecfg, cfg, ctx.params, ctx.rope, state.base_kv, blk.tokens[None],
-        blk.mask, blk.pos, ctx.prefix_valid, ctx.pos_offsets, eff_len,
-        extra_kv=ex, defer_block=deferred)
-    v = accept(ecfg, ctx, blk, logits_raw[0], eff_len)
+    with span("step.verify"):
+        res, logits_raw = verify_forward(
+            ecfg, cfg, ctx.params, ctx.rope, state.base_kv, blk.tokens[None],
+            blk.mask, blk.pos, ctx.prefix_valid, ctx.pos_offsets, eff_len,
+            extra_kv=ex, defer_block=deferred)
+    with span("step.accept"):
+        v = accept(ecfg, ctx, blk, logits_raw[0], eff_len)
     if deferred:
         base_kv = res.kv             # the previous accepted rows, committed
     else:
         # rollback: compact the accepted rows of the provisional tree block
-        base_kv = res.kv.accept_path(v.sel_slots, v.n_acc, block_size=N1)
-    state, root_out = advance(ecfg, ctx, state, blk, v, logits_raw[0],
-                              res.hidden)
+        with span("step.commit"):
+            base_kv = res.kv.accept_path(v.sel_slots, v.n_acc, block_size=N1)
+    with span("step.advance"):
+        state, root_out = advance(ecfg, ctx, state, blk, v, logits_raw[0],
+                                  res.hidden)
     state = state._replace(base_kv=base_kv)
     if deferred:
         state = state._replace(blk=res.block,
@@ -416,11 +421,16 @@ def make_static_step(ecfg: SpecDecodeConfig, cfg: ModelConfig,
     tree = static_tree(spec, ctx.prefix_valid.device)
 
     def step(state: SpecState) -> SpecState:
-        state, root_out = _verify_and_update(
-            ecfg, cfg, ctx, state, static_tree_block(ecfg, tree, state))
-        committed = state.base_kv.length + (
-            state.pn if ecfg.deferred_commit else 0)
-        return next_static_draft(ecfg, spec, ctx, state, root_out, committed)
+        with span("step"):
+            count("steps")
+            with span("step.block"):
+                blk = static_tree_block(ecfg, tree, state)
+            state, root_out = _verify_and_update(ecfg, cfg, ctx, state, blk)
+            committed = state.base_kv.length + (
+                state.pn if ecfg.deferred_commit else 0)
+            with span("step.draft"):
+                return next_static_draft(ecfg, spec, ctx, state, root_out,
+                                         committed)
 
     return step
 
@@ -462,9 +472,14 @@ def make_dynamic_step(ecfg: SpecDecodeConfig, cfg: ModelConfig, ctx: _Ctx):
     """One EAGLE-2 dynamic-tree speculative step: the draft carries its own
     tree."""
     def step(state: SpecState) -> SpecState:
-        state, root_hidden = _verify_and_update(
-            ecfg, cfg, ctx, state, dynamic_tree_block(ctx.dcfg, state))
-        return next_dynamic_draft(ecfg, ctx, state, root_hidden)
+        with span("step"):
+            count("steps")
+            with span("step.block"):
+                blk = dynamic_tree_block(ctx.dcfg, state)
+            state, root_hidden = _verify_and_update(ecfg, cfg, ctx, state,
+                                                    blk)
+            with span("step.draft"):
+                return next_dynamic_draft(ecfg, ctx, state, root_hidden)
 
     return step
 

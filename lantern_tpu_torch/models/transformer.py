@@ -46,6 +46,7 @@ from ..ops.rope import (apply_rope_half, apply_rope_interleaved,
                         rope_table_1d, rope_table_2d)
 from ..ops.tree_attention import NEG_INF, tree_attention
 from ..parallel.mesh import tp_group
+from ..utils.profiling import span, spanned
 
 
 def make_rope_tables(cfg: ModelConfig, device=None):
@@ -167,7 +168,8 @@ def token_embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def logits_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    return head_matmul(hidden, head_of(params))
+    with span("head"):
+        return head_matmul(hidden, head_of(params))
 
 
 def _kernel(lp: dict, name: str) -> torch.Tensor:
@@ -242,6 +244,7 @@ class ForwardResult(NamedTuple):
     block: object = None
 
 
+@spanned("forward")
 def forward(
     params: dict,
     cfg: ModelConfig,
