@@ -31,11 +31,13 @@ Phases (any failure exits non-zero and prints no result line):
 2. build: compiles the CUDA kernels of ``lantern_tpu_torch/csrc`` through
    ``torch.utils.cpp_extension.load``; then the kernel self-test
    (``ops/selftest.run_kernel_selftest`` on the card: K1-K4 through the
-   dispatching ops against dense forms at the JAX module's shapes, and 48
+   dispatching ops against dense forms at the JAX module's shapes, K5
+   against the plain walk on the benchmark's tree, and 48
    sampled tokens with deferred commit equal to rollback commit through
    the kernels), whose errors the kernel records carry;
 3. kernels: each kernel (K1 W8A16 matmul, K2 tree attention, K3 KV write,
-   K4 tree-rollback gather) against its plain PyTorch version at the
+   K4 tree-rollback gather, K5 acceptance walk) against its plain PyTorch
+   version at the
    Lumina lane's shapes, with known-wrong variants that the comparison
    must catch, median times (CUDA events, L2 flushed before every launch),
    the bound from bytes and operations, and the PyTorch library yardstick;
@@ -48,7 +50,8 @@ Phases (any failure exits non-zero and prints no result line):
    drafter, with a bf16 one-layer cache and the provisional window of each
    tree level; K3 and K4 byte-exact at the lane's shapes and at their edge
    cases (T = 7 and 33, the last and a clamped start, zero rows and rounding
-   ties; A = 1, A = blk in registers and in shared memory);
+   ties; A = 1, A = blk in registers and in shared memory); K5 at the
+   Lumina cell's shapes over four seeds, beside the plain walk;
 4. forward: a tiny head_dim-128 Chameleon forward, and a tiny drafter
    (``extend``, then two tree levels with write offset and window),
    through the kernels on the card against the plain path on the CPU;
@@ -58,7 +61,7 @@ Phases (any failure exits non-zero and prints no result line):
    LANTERN k=10 delta=5, top-2000, cfg 3.0.  Four paths, each with the
    launch counters reset just before and read just after, and (for the
    stale + deferred path) a profile of a few steps (device time by kernel,
-   the four port kernels' rows always among them, device-busy share):
+   the port kernels' rows always among them, device-busy share):
    - the AR twin;
    - the speculative engine with stale drafting and deferred commit (K1,
      K2, K3);
@@ -234,7 +237,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 Each phase prints its seconds.  The line before the last two is
 ``{"kernels": [...]}`` (``launches`` are the rollback path's, the one Lumina
-path that runs all four kernels; every path's counts are under
+path that runs all five kernels; every path's counts are under
 ``launches_by_path``; each kernel's XL record is under ``xl``, its per-row
 record at the XL batch under ``batched``, K2's per-slot-mask record
 under ``dynamic_batched``, its grouped-query records under ``gqa``, and
@@ -269,7 +272,8 @@ K1_SHAPES_XL = {"wqkv": (1280, 3840), "wo": (1280, 1280), "w_gu": (1280, 7168),
 # the port's kernels, and the part of their device names the profile finds
 PORT_KERNELS = (("int8_matmul", "int8_matmul_kernel"),
                 ("tree_attention", "tree_attention_kernel"),
-                ("kv_write", "kv_write_kernel"), ("kv_gather", "kv_gather"))
+                ("kv_write", "kv_write_kernel"), ("kv_gather", "kv_gather"),
+                ("tree_walk", "tree_walk_kernel"))
 TEXT = list(range(60000, 60016))          # 16 text tokens, as bench.py
 LONG_TEXT = list(range(60000, 60200))     # 200 text tokens: a long prompt
 XL_CAPTION = "a photo of a red fox standing in fresh snow at dawn"  # 12 words
@@ -1097,6 +1101,53 @@ class KernelPhase:
                            shape="XL L=36 B=2 T=59 G=10 int8")
         return dict(rep, max_abs_err=k3_err)
 
+    def k5(self) -> dict:
+        """K5, the acceptance walk, against the plain walk at the Lumina
+        cell's shapes (``selftest.walk_inputs``: the benchmark's 32-node
+        tree, V = 65,536, multi-draft, LANTERN k = 10 delta = 5, top-k
+        2,000) over four seeds, whose walks accept different depths; each
+        timed beside the plain walk.  The bound counts the rows the walk
+        needs: each visited node's logits row and drafter row read once,
+        the bonus row written once.  Returns the first seed's record."""
+        import numpy as np
+
+        from lantern_tpu_torch.ops import acceptance as acc
+        from lantern_tpu_torch.ops.selftest import walk_inputs
+
+        torch, rec = self.torch, None
+        for seed in range(4):
+            rng = np.random.default_rng(100 + seed)
+            args, kw = walk_inputs(rng, self.dev)
+            depth, C, V = args[3], args[2].shape[1], args[0].shape[1]
+            u = torch.as_tensor(rng.random((depth, C)), dtype=torch.float32,
+                                device=self.dev)
+            path, alen, dist = acc.stochastic_verify_tree_cuda(*args, u, **kw)
+            rp, ra, rd = acc.stochastic_verify_tree_plain(*args, u, **kw)
+            a = int(alen)
+            err = float((dist - rd).abs().max())
+            what = (f"K5 tree_walk bench tree (N+1={args[0].shape[0]} C={C} "
+                    f"depth={depth}) V={V} multi-draft LANTERN k=10 delta=5 "
+                    f"top-k 2000, seed {seed}: {a} accepted")
+            if (a != int(ra) or not torch.equal(path[:a + 1], rp[:a + 1])
+                    or err > 1e-5):
+                fail(f"{what}: kernel ({a}, {path.tolist()}) and plain "
+                     f"({int(ra)}, {rp.tolist()}) differ, dist error {err}")
+            ms = self.timer(lambda: acc.stochastic_verify_tree_cuda(
+                *args, u, **kw))
+            plain = self.timer(lambda: acc.stochastic_verify_tree_plain(
+                *args, u, **kw), reps=5)
+            levels = min(a + 1, depth)
+            nb = (2 * levels + (a == depth) + 1) * V * 4
+            b, by = bound(nb, 0.0)
+            log(f"{what}: max_abs_err {err:.2e} ms {ms:.4f} plain_ms "
+                f"{plain:.4f} library_ms null (no one PyTorch call) bound_ms "
+                f"{b:.5f} ({by}; {self.judge(ms, b, nb)}) [{self.card}]")
+            if rec is None:
+                rec = dict(ms=ms, plain_ms=plain, library_ms=None,
+                           bound_ms=b, bound_by=by, max_abs_err=err,
+                           shape=what)
+        return rec
+
     def k4(self, xl: bool = False) -> dict:
         from lantern_tpu_torch.kv import (gather_write_block_cuda,
                                           gather_write_block_plain,
@@ -1455,7 +1506,8 @@ def phase_kernels(torch, timer, card: str, grid: int):
     records = {
         "lumina": {
             "int8_matmul": phase.k1(), "tree_attention": phase.k2(grid),
-            "kv_write": phase.k3(), "kv_gather": phase.k4()},
+            "kv_write": phase.k3(), "kv_gather": phase.k4(),
+            "tree_walk": phase.k5()},
         "xl": {
             "int8_matmul": k1_xl, "tree_attention": phase.k2_xl(),
             "kv_write": phase.k3_xl(), "kv_gather": phase.k4(xl=True)},
@@ -1716,7 +1768,8 @@ def spec_launches(layers: int, prompt, steps: int, verify_rows: int,
     K3, one K4), and the drafter runs per slot (``slots`` times its
     single-request launches).  With ``stale`` drafting there are no
     drafter launches: no ``extend``, and a draft is read off the verify
-    forward's logits."""
+    forward's logits.  Every spec path here samples, so every slot's
+    acceptance walk is one K5 launch a step."""
     from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
 
     def k1(rows):
@@ -1728,7 +1781,7 @@ def spec_launches(layers: int, prompt, steps: int, verify_rows: int,
 
     def add(*parts, times=1):
         out = {"int8_matmul": 0, "tree_attention": 0, "kv_write": 0,
-               "kv_gather": 0}
+               "kv_gather": 0, "tree_walk": 0}
         for part in parts:
             for k, n in part.items():
                 out[k] += times * n
@@ -1747,7 +1800,8 @@ def spec_launches(layers: int, prompt, steps: int, verify_rows: int,
                               else [prompt])])
     rows = slots * verify_rows
     step = add(forward(rows, layers),
-               {"int8_matmul": k1(rows), "kv_gather": 0 if deferred else 1},
+               {"int8_matmul": k1(rows), "kv_gather": 0 if deferred else 1,
+                "tree_walk": slots},
                add(extend(path_rows), draft, times=slots))
     return {k: prefill[k] + steps * step[k] for k in step}, step
 
@@ -1916,13 +1970,13 @@ def phase_main_path(torch, grid: int, card: str):
     lres, t_long, long_launch = timed(lambda: run_long(n_long))
     k1_pre = 4 * cfg.num_layers * -(-2 * rows // K1_MAX_ROWS) + 1
     want_pre = {"int8_matmul": k1_pre, "tree_attention": cfg.num_layers,
-                "kv_write": 1, "kv_gather": 0}
+                "kv_write": 1, "kv_gather": 0, "tree_walk": 0}
     if pre_launch != want_pre:
         fail(f"long-prompt prefill ({rows} rows) launched {pre_launch}, want "
              f"{want_pre}")
     want_long = {"int8_matmul": k1_pre + n_long * (4 * cfg.num_layers + 1),
                  "tree_attention": (1 + n_long) * cfg.num_layers,
-                 "kv_write": 1 + n_long, "kv_gather": 0}
+                 "kv_write": 1 + n_long, "kv_gather": 0, "tree_walk": 0}
     if long_launch != want_long:
         fail(f"long-prompt path launched {long_launch}, want {want_long}")
     toks = [int(t) for t in lres.tokens.tolist()]
@@ -2428,7 +2482,7 @@ def phase_xl(torch, card: str, xl: dict):
         return -(-2 * rows // K1_MAX_ROWS)
     want_ar = {"int8_matmul": 4 * L * k1(Tc) + 1 + n_img * (4 * L + 1),
                "tree_attention": (1 + n_img) * L, "kv_write": 1 + n_img,
-               "kv_gather": 0}
+               "kv_gather": 0, "tree_walk": 0}
     want_st, step_st = spec_launches(
         L, Tc, sres.steps, tree.num_nodes, tree.path_len,
         [len(lv.child_flat_idx) for lv in tree.levels], deferred=True)
@@ -2802,7 +2856,7 @@ def ar_launches(layers: int, prompt_rows: int, n_tokens: int, chunks):
         return -(-2 * rows // K1_MAX_ROWS)
 
     out = {"int8_matmul": 0, "tree_attention": 0, "kv_write": 0,
-           "kv_gather": 0}
+           "kv_gather": 0, "tree_walk": 0}
     for r in chunks:
         out["int8_matmul"] += (4 * layers * k1(r * prompt_rows) + k1(r)
                                + n_tokens * (4 * layers * k1(r) + k1(r)))
@@ -3527,7 +3581,8 @@ def phase_tools(torch, card: str, xl: dict, timer):
             fwd = at.verify_forward(params, cfg, c)
             logits, _, got = counted(fwd)
             want = {"int8_matmul": 4 * L * k1(c) + k1(c),
-                    "tree_attention": L, "kv_write": 1, "kv_gather": 0}
+                    "tree_attention": L, "kv_write": 1, "kv_gather": 0,
+                    "tree_walk": 0}
             if got != want:
                 fail(f"autotune {name} L={c}: the verify forward launched "
                      f"{got}, its shapes give {want}")
@@ -3595,7 +3650,7 @@ def phase_tools(torch, card: str, xl: dict, timer):
                             + 4 * L * k1(Tc + n) + k1(Dp) + 4 * k1(Dp)
                             + k1(Dp)),
             "tree_attention": (1 + n) * L + L + 1,
-            "kv_write": 1 + n + 1 + 1, "kv_gather": 0}
+            "kv_write": 1 + n + 1 + 1, "kv_gather": 0, "tree_walk": 0}
     if got != want:
         fail(f"measure_rank_probs XL launched {got}, its shapes give {want}")
     if rank.shape != (10,) or not ((rank > 0) & (rank <= 1)).all():
@@ -3985,7 +4040,7 @@ def phase_train(torch, card: str, xl: dict):
     # forward a sample; each forward K2 once a layer and K3 once
     forwards = -(-TRAIN_SAMPLES // TRAIN_SLOTS) * (1 + n_img) + TRAIN_SAMPLES
     want = {"int8_matmul": 0, "tree_attention": L * forwards,
-            "kv_write": forwards, "kv_gather": 0}
+            "kv_write": forwards, "kv_gather": 0, "tree_walk": 0}
     if gen_launch != want:
         fail(f"generate_train_data launched {gen_launch}, derived {want}")
     names = sorted(os.listdir(data))
@@ -6444,6 +6499,16 @@ def main() -> int:
                         "batched": {k: bt[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "shape")}})
+    k5 = records["lumina"]["tree_walk"]
+    kernels.append(dict(
+        {"name": "tree_walk", "route": "cuda",
+         "source": "lantern_tpu_torch/csrc/tree_walk.cu", "replaces": None,
+         "launches": launches["rollback"]["tree_walk"],
+         "launches_by_path": {path: n["tree_walk"]
+                              for path, n in launches.items()},
+         "selftest_max_abs_err": selftest["tree_walk"]},
+        **{k: k5[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "shape")}))
     kernels[1]["dynamic_batched"] = k2_dynamic
     kernels[1]["gqa"] = [dict(r, selftest_max_abs_err=selftest[
         "tree_attention_gqa"]) for r in gqa]

@@ -28,6 +28,16 @@ int lantern_kv_gather(void* k_buf, void* v_buf, void* k_scale, void* v_scale,
                       const void* starts, int start_stride, const void* rels,
                       int rel_stride, int planes, int B, int G, int S, int A,
                       int blk, int row_bytes, int staging, void* stream);
+int lantern_tree_walk(const void* logits, const void* thr, const void* tokens,
+                      int tok64, const void* children, int kid64,
+                      const void* coins, const void* node_q,
+                      const void* const* level_probs, const int* level_rows,
+                      const long long* level_strides, int n_levels,
+                      const void* level_row, int row64, const void* nearest,
+                      int nn, int nn64, int lantern_k, const void* rt_k,
+                      const void* rt_delta, float delta, int delta_big,
+                      float delta_m1, void* dist, void* path, int V, int C,
+                      int depth, int top_k, void* stream);
 }
 
 namespace {
@@ -129,6 +139,50 @@ void kv_gather(at::Tensor& k_buf, at::Tensor& v_buf,
         "kv_gather");
 }
 
+int wide(const c10::optional<at::Tensor>& t) {
+  return t.has_value() && t->element_size() == 8;
+}
+
+// one request's acceptance walk: logits [N+1, V] f32 (scaled by the
+// temperature); thr [N+1] f32 (top-p) or none; tokens [N+1], children
+// [N+1, C], level_row [N+1] and nearest [V, nn] int32 or int64; coins
+// [depth, C] f32; node_q [N+1] f32 and level_probs [rows_i, V] f32 (columns
+// contiguous) for multi-draft, else none and []; rt_k int32 [] and rt_delta
+// f32 [] or none; dist [V] f32 and path int32 [depth + 2] out
+void tree_walk(const at::Tensor& logits, const c10::optional<at::Tensor>& thr,
+               const at::Tensor& tokens, const at::Tensor& children,
+               const at::Tensor& coins,
+               const c10::optional<at::Tensor>& node_q,
+               const std::vector<at::Tensor>& level_probs,
+               const c10::optional<at::Tensor>& level_row,
+               const c10::optional<at::Tensor>& nearest,
+               const c10::optional<at::Tensor>& rt_k,
+               const c10::optional<at::Tensor>& rt_delta, at::Tensor& dist,
+               at::Tensor& path, int64_t depth, int64_t lantern_k,
+               double delta, double delta_m1, bool delta_big, int64_t top_k) {
+  std::vector<const void*> lp;
+  std::vector<int> rows;
+  std::vector<long long> strides;
+  for (const auto& t : level_probs) {
+    lp.push_back(t.data_ptr());
+    rows.push_back(static_cast<int>(t.size(0)));
+    strides.push_back(t.stride(0));
+  }
+  check(lantern_tree_walk(
+            logits.data_ptr(), ptr(thr), tokens.data_ptr(),
+            tokens.element_size() == 8, children.data_ptr(),
+            children.element_size() == 8, coins.data_ptr(), ptr(node_q),
+            lp.data(), rows.data(), strides.data(),
+            static_cast<int>(lp.size()), ptr(level_row), wide(level_row),
+            ptr(nearest), nearest.has_value() ? nearest->size(1) : 0,
+            wide(nearest), lantern_k, ptr(rt_k), ptr(rt_delta),
+            static_cast<float>(delta), delta_big,
+            static_cast<float>(delta_m1), dist.data_ptr(), path.data_ptr(),
+            logits.size(1), children.size(1), depth, top_k,
+            stream_of(logits)),
+        "tree_walk");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -136,4 +190,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("tree_attention", &tree_attention);
   m.def("kv_write", &kv_write);
   m.def("kv_gather", &kv_gather);
+  m.def("tree_walk", &tree_walk);
 }

@@ -7,9 +7,8 @@ of every weight stream.  As the slot count R grows the one gain overlaps
 the other, so the best configuration moves from big trees to small ones
 to plain AR, and where it moves is a property of the card and of the host
 that drives it, not of the model alone.  On the H100 the serving paths are
-host-bound (the card busy 10-20 % of the wall): the batched speculative
-step pays host glue per slot, lockstep AR pays one forward's launches for
-all slots.
+host-bound: the batched speculative step pays host glue per slot, lockstep
+AR pays one forward's launches for all slots.
 
 ``MEASURED_BEST`` is what ``python -m lantern_tpu_torch.engine.sweep``
 measured on the card (int8 weights and int8 KV on both paths, LANTERN
@@ -33,25 +32,26 @@ CALIBRATED_LUMINA = os.path.join(
 # timed repeats after a warm-up, on "NVIDIA H100 80GB HBM3, 700.00 W"
 # (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader), from
 # ``python -m lantern_tpu_torch.engine.sweep --geom xl`` (36 layers, 128
-# tokens) and ``--geom lumina`` (32 layers, 16x16 grid).  Both draft from
-# the stale distribution, which is what a session with the passthrough
-# drafter serves in static mode; the port has no trained drafter for its
-# base, whose forwards would add a per-slot cost at another compression.
-# Within spread (the winner's slowest repeat under the runner-up's
-# fastest): XL R=1 (chain against naive_extend_57), XL R=4 (chain against
-# AR) and Lumina R=1 (chain against chain_bush_8); every AR entry clears
-# its runner-up.
+# tokens) and ``--geom lumina`` (32 layers, 16x16 grid), with the
+# acceptance walk as one K5 launch a slot.  Both draft from the stale
+# distribution, which is what a session with the passthrough drafter serves
+# in static mode; the port has no trained drafter for its base, whose
+# forwards would add a per-slot cost at another compression.  Within spread
+# (the winner's slowest repeat under the runner-up's fastest), each against
+# another tree: XL R=1 (chain against chain_bush_8), R=4 (naive_extend_57
+# against chain), R=8 (chain_bush_8 against chain), Lumina R=1 and R=2
+# (calibrated against chain_bush_8); every winner clears the other mode.
 MEASURED_BEST = {
     "llamagen_xl": {
         1: ("spec", "chain"),
-        4: ("spec", "chain"),
-        8: ("ar", None),
+        4: ("spec", "naive_extend_57"),
+        8: ("spec", "chain_bush_8"),
         16: ("ar", None),
     },
     "lumina_7b": {
-        1: ("spec", "chain"),
-        2: ("ar", None),
-        4: ("ar", None),
+        1: ("spec", "calibrated"),
+        2: ("spec", "calibrated"),
+        4: ("spec", "calibrated"),
     },
 }
 

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lantern_kernels"
 SOURCES = ("bindings.cpp", "int8_matmul.cu", "tree_attention.cu",
-           "kv_write.cu", "kv_gather.cu")
+           "kv_write.cu", "kv_gather.cu", "tree_walk.cu")
 # torch's default nvcc flags forbid implicit half/bf16 conversions; the
 # kernels convert explicitly, so the -U flags only restore nvcc's defaults
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3",
@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3",
               "-U__CUDA_NO_HALF2_OPERATORS__", "-Xptxas", "-v"]
 
 LAUNCHES = {"int8_matmul": 0, "tree_attention": 0, "kv_write": 0,
-            "kv_gather": 0}
+            "kv_gather": 0, "tree_walk": 0}
 
 _lock = threading.Lock()
 _state: dict = {}

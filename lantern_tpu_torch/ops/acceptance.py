@@ -5,7 +5,9 @@ LANTERN relaxation, the path-table rejection-sampling verifier
 tree walk (``stochastic_verify_tree``).
 
 The functions are written with tensor ops only (no host reads), in the
-same order as the JAX code, so each branch can be compared line by line.
+same order as the JAX code, so each branch can be compared line by line;
+on CUDA tensors the tree walk is instead one launch of kernel K5
+(``csrc/tree_walk.cu``), held to its plain version.
 The stochastic verifiers take ``uniforms`` to pin their coin flips; with
 ``uniforms=None`` they draw them from a ``torch.Generator``.  ``rt``
 (``LanternSpec.runtime``) is the operating point as device tensors: it
@@ -15,11 +17,13 @@ serves a whole (k, delta) sweep.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from .sampling import LogitsWarp, uniform, warp_logits
+from . import _cuda
+from .sampling import LogitsWarp, keep_threshold, uniform, warp_logits
 
 
 def take1(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -311,6 +315,17 @@ def _run_level(state: _LevelState, i: int, uniforms: torch.Tensor,
         adjusted=torch.where(active, adjusted, state.adjusted))
 
 
+def walk_coins(generator: Optional[torch.Generator], depth: int, width: int,
+               device) -> torch.Tensor:
+    """The tree walk's coins [depth, width]: ``width`` uniform draws a level
+    from ``generator``, level by level, each row as ``torch.rand((width,))``
+    draws it; all are drawn before the walk starts."""
+    u = torch.empty((depth, width), dtype=torch.float32, device=device)
+    for row in u:
+        row.uniform_(generator=generator)
+    return u
+
+
 def stochastic_verify_tree(
     generator: Optional[torch.Generator],
     node_logits: torch.Tensor,      # [N+1, V] cfg-combined logits per slot
@@ -331,13 +346,49 @@ def stochastic_verify_tree(
     result as ``stochastic_verify`` over the tree's path table, in
     O(depth x children) steps.  Returns ``(accepted_slots [depth+1],
     accept_len, sample_dist [V])``; ``accepted_slots[0] == 0`` and entries
-    past ``accept_len`` are garbage."""
+    past ``accept_len`` are 0.
+
+    ``uniforms`` pins the coins; ``None`` draws them from ``generator``
+    before the walk (``walk_coins``).  Dispatch by device: one launch of
+    kernel K5 (``stochastic_verify_tree_cuda``) on CUDA tensors, the plain
+    version on CPU tensors; ``batch_warp`` is the plain version's."""
+    if lantern.enabled and nearest is None:
+        raise ValueError("lantern acceptance requires a nearest-latent table")
+    if uniforms is None:
+        uniforms = walk_coins(generator, depth, children.shape[1],
+                              node_logits.device)
+    args = (node_logits, tree_tokens, children, depth, warp, uniforms)
+    kw = dict(nearest=nearest, lantern=lantern, node_q=node_q,
+              level_probs=level_probs, node_level_row=node_level_row, rt=rt)
+    if _cuda.on_cuda(node_logits, tree_tokens, children, uniforms, nearest,
+                     node_q, node_level_row):
+        return stochastic_verify_tree_cuda(*args, **kw)
+    return stochastic_verify_tree_plain(*args, **kw, batch_warp=batch_warp)
+
+
+def stochastic_verify_tree_plain(
+    node_logits: torch.Tensor,      # [N+1, V]
+    tree_tokens: torch.Tensor,      # [N+1]
+    children: torch.Tensor,         # [N+1, C]
+    depth: int,
+    warp: LogitsWarp,
+    uniforms: torch.Tensor,         # [depth, C]
+    nearest: Optional[torch.Tensor] = None,
+    lantern: LanternSpec = LanternSpec(),
+    node_q: Optional[torch.Tensor] = None,
+    level_probs: Optional[Sequence[torch.Tensor]] = None,
+    node_level_row: Optional[torch.Tensor] = None,
+    rt: Optional[LanternRT] = None,
+    batch_warp: Optional[bool] = None,
+):
+    """``stochastic_verify_tree`` as fixed-shape tensor ops with no host
+    read: every child of every level is evaluated, and the result selected
+    by masks.  ``batch_warp`` warps all rows at once (default: when
+    ``N+1 x V`` is at most 2^20)."""
     N1, V = node_logits.shape
     C = children.shape[1]
     dev = node_logits.device
     multidraft = node_q is not None
-    if lantern.enabled and nearest is None:
-        raise ValueError("lantern acceptance requires a nearest-latent table")
     D = depth + 1
     if batch_warp is None:
         batch_warp = N1 * V <= (1 << 20)
@@ -360,8 +411,7 @@ def stochastic_verify_tree(
     ar_c = torch.arange(C, device=dev)
 
     for i in range(1, D):
-        u = (uniforms[i - 1] if uniforms is not None
-             else uniform(generator, (C,), dev))
+        u = uniforms[i - 1]
         active = (~done) & (accept_len == i)
         gtp = node_dist(cur)
         kids = take1(children, cur).long()                        # [C]
@@ -443,3 +493,102 @@ def stochastic_verify_tree(
     use_residual = adjusted & (~full)
     sample_dist = torch.where(use_residual, sample_dist, base_dist)
     return path.to(torch.int32), (accept_len - 1).to(torch.int32), sample_dist
+
+
+MAX_WALK_LEVELS = 16        # csrc/tree_walk.cu: MAX_LEVELS
+MAX_WALK_CHILDREN = 32      # csrc/tree_walk.cu: MAX_CHILDREN
+
+
+def stochastic_verify_tree_cuda(
+    node_logits: torch.Tensor,      # [N+1, V] f32
+    tree_tokens: torch.Tensor,      # [N+1] int32 / int64
+    children: torch.Tensor,         # [N+1, C] int32 / int64
+    depth: int,
+    warp: LogitsWarp,
+    uniforms: torch.Tensor,         # [depth, C] f32
+    nearest: Optional[torch.Tensor] = None,
+    lantern: LanternSpec = LanternSpec(),
+    node_q: Optional[torch.Tensor] = None,
+    level_probs: Optional[Sequence[torch.Tensor]] = None,
+    node_level_row: Optional[torch.Tensor] = None,
+    rt: Optional[LanternRT] = None,
+):
+    """K5 on the card: the whole walk in one launch of one thread block
+    (``csrc/tree_walk.cu``), with the plain version's rule and f32
+    arithmetic.  The rows are scaled by the temperature here (torch's own
+    division); top-k's threshold is selected in the kernel, top-p's comes
+    from ``keep_threshold`` over all rows.  Nothing is read back to the
+    host; the level rows are passed as pointers, not stacked."""
+    _cuda.no_autograd("tree_walk", node_logits, node_q,
+                      *(level_probs or ()))
+    req = _cuda.require
+    N1, V = node_logits.shape
+    C = children.shape[1]
+    dev = node_logits.device
+    multidraft = node_q is not None
+    req(node_logits.dtype == torch.float32 and node_logits.is_contiguous()
+        and V % 4 == 0 and _cuda.aligned(node_logits),
+        f"tree_walk: logits must be contiguous, 16-byte aligned f32 [N+1, V] "
+        f"with V a multiple of 4, got {node_logits.dtype} "
+        f"{tuple(node_logits.shape)}")
+    req(1 <= C <= MAX_WALK_CHILDREN and 0 <= depth <= MAX_WALK_LEVELS,
+        f"tree_walk: {C} children a node (at most {MAX_WALK_CHILDREN}) and "
+        f"depth {depth} (at most {MAX_WALK_LEVELS})")
+    req(tuple(tree_tokens.shape) == (N1,)
+        and tuple(children.shape) == (N1, C),
+        f"tree_walk: tokens {tuple(tree_tokens.shape)} and children "
+        f"{tuple(children.shape)} do not fit {N1} nodes")
+    req(uniforms.dtype == torch.float32 and uniforms.is_contiguous()
+        and tuple(uniforms.shape) == (depth, C),
+        f"tree_walk: coins must be contiguous f32 [{depth}, {C}]")
+    index = (tree_tokens, children, node_level_row,
+             nearest if lantern.enabled else None)
+    for t in index:
+        req(t is None or (t.dtype in (torch.int32, torch.int64)
+                          and t.is_contiguous()),
+            "tree_walk: index tensors must be contiguous int32 or int64")
+    lp = []
+    if multidraft:
+        req(node_q.dtype == torch.float32 and node_q.is_contiguous()
+            and tuple(node_q.shape) == (N1,) and node_level_row is not None
+            and tuple(node_level_row.shape) == (N1,),
+            "tree_walk: multi-draft needs f32 node_q and node_level_row "
+            f"[{N1}]")
+        req(level_probs is not None and len(level_probs) >= depth,
+            f"tree_walk: {depth} levels need as many drafter rows")
+        lp = list(level_probs[:depth])
+        for t in lp:
+            req(t.dtype == torch.float32 and t.ndim == 2
+                and t.shape[1] == V and t.stride(1) == 1
+                and t.stride(0) % 4 == 0 and _cuda.aligned(t)
+                and t.shape[0] >= 1,
+                f"tree_walk: drafter rows must be f32 [rows, {V}], 16-byte "
+                f"aligned, with contiguous columns")
+    if lantern.enabled:
+        req(nearest.ndim == 2 and nearest.shape[0] == V,
+            f"tree_walk: nearest must be [{V}, nn]")
+        if rt is not None:
+            req(rt.k.dtype == torch.int32 and rt.delta.dtype == torch.float32,
+                "tree_walk: LanternRT must be an int32 k and an f32 delta")
+    rows = node_logits
+    top_k, thr = 0, None
+    if warp.active:
+        if warp.temperature != 1.0:
+            rows = node_logits / warp.temperature
+        if 0.0 < warp.top_p < 1.0:
+            thr = keep_threshold(rows, dataclasses.replace(warp,
+                                                           temperature=1.0))
+        elif 0 < warp.top_k < V:
+            top_k = warp.top_k
+    rtk = rt.k if lantern.enabled and rt is not None else None
+    rtd = rt.delta if lantern.enabled and rt is not None else None
+    dist = torch.empty((V,), dtype=torch.float32, device=dev)
+    path = torch.empty((depth + 2,), dtype=torch.int32, device=dev)
+    _cuda.library().tree_walk(
+        rows, thr, tree_tokens, children, uniforms, node_q, lp,
+        node_level_row if multidraft else None,
+        nearest if lantern.enabled else None, rtk, rtd, dist, path, depth,
+        lantern.k if lantern.enabled else 0, float(lantern.delta),
+        float(lantern.delta) - 1.0, float(lantern.delta) > 1.0, top_k)
+    _cuda.LAUNCHES["tree_walk"] += 1
+    return path[: depth + 1], path[depth + 1], dist

@@ -88,6 +88,17 @@ def warp_logits(logits: torch.Tensor, warp: LogitsWarp) -> torch.Tensor:
     return logits
 
 
+def keep_threshold(logits: torch.Tensor, warp: LogitsWarp) -> torch.Tensor:
+    """[...] per row of ``logits`` [..., V], the least value that
+    ``warp_logits`` keeps above float32's lowest (``inf`` where it keeps
+    none): ``warp_logits(logits, warp)`` equals ``where(s >= t, s, NEG_INF)``
+    for the scaled row ``s``, since top-k and top-p each keep every entry
+    at or above a cut."""
+    kept = warp_logits(logits, warp)
+    return torch.where(kept > NEG_INF, kept,
+                       torch.full_like(kept, float("inf"))).amin(dim=-1)
+
+
 def topk_stable(x: torch.Tensor, k: int):
     """``(values, indices)`` of the ``k`` largest entries along the last
     axis, in descending order and, among equal values, the lower index

@@ -24,7 +24,13 @@ divergence, so a bench can call it before it times anything:
   CPU's): K2 at grouped-query heads (``tree_attention_gqa``), 8 query
   heads of 128 over 2 KV heads (G = 2, 4 query heads a KV head), T=16,
   S=512, length 137, within 3e-2 of dense attention over the KV heads
-  repeated for their query heads, inputs from ``default_rng(1)``.
+  repeated for their query heads, inputs from ``default_rng(1)``;
+- on a card only: K5 (``stochastic_verify_tree``) on the benchmark's tree
+  (``ckpts/bench_tree_lumina.json``, 32 nodes, 10 children a node, depth
+  4) at V = 65,536, multi-draft with LANTERN (k = 10, delta = 5) and top-k
+  2,000, against the plain walk under the same coins (drawn, then all 0,
+  then all 1), inputs from ``default_rng(2)``: the accepted slots equal,
+  the bonus distribution within 1e-5.
 
 The inputs come from ``np.random.default_rng(0)`` in the JAX module's
 order (``draw_inputs``), so both modules see the same numbers.
@@ -35,13 +41,16 @@ Run standalone: ``python -m lantern_tpu_torch.ops.selftest [--device cpu]``.
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..kv import gather_write_block, group_blocks, write_block
+from . import acceptance
 from .quant import quantize_weight, w8a16_matmul
+from .sampling import LogitsWarp
 from .tree_attention import NEG_INF, tree_attention
 
 # K2's shape: batch, block rows, heads, head dim, cache rows, live prefix
@@ -53,9 +62,13 @@ REL = [3, 0, 7, 7, 1]
 M, K, N = 8, 256, 512
 # the grouped-query K2 case: KV heads of 128 and query heads a KV head
 GQA_NKV, GQA_REP = 2, 4
+# K5: the benchmark's tree, vocabulary, warp and LANTERN operating point
+WALK_TREE = (Path(__file__).resolve().parents[2] / "ckpts"
+             / "bench_tree_lumina.json")
+WALK_V, WALK_TOP_K, WALK_LANTERN = 65536, 2000, (10, 5.0)
 TOL = {"tree_attention": 3e-2, "kv_write": 0.0, "kv_rollback": 0.0,
        "int8_matmul": 1e-1, "deferred_flash_tokens": 0,
-       "tree_attention_gqa": 3e-2}
+       "tree_attention_gqa": 3e-2, "tree_walk": 1e-5}
 
 
 def draw_inputs(seed: int = 0) -> dict:
@@ -163,6 +176,67 @@ def gqa_attention_error(device) -> float:
                                          bias, hd ** -0.5))
 
 
+def walk_inputs(rng: np.random.Generator, device, V: int = WALK_V):
+    """One acceptance walk's inputs on the benchmark's tree, as stale
+    drafting leaves them: logits that favour the drafted tokens, q in
+    (0, 1) with a few zeros, one drafter row a level broadcast to the
+    level's rows, and a nearest table with high tokens among each draft's
+    neighbours.  Returns ``(args, kwargs)`` of ``stochastic_verify_tree``
+    without its generator and coins."""
+    from .. import trees
+
+    spec = trees.get_tree(str(WALK_TREE))
+    N1, depth = spec.num_nodes, spec.max_depth
+    toks = rng.integers(0, V, size=N1)
+    logits = rng.normal(size=(N1, V)) * 2
+    nearest = rng.integers(0, V, size=(V, WALK_LANTERN[0] + 1))
+    for p in range(N1):
+        kids = spec.children[p][spec.children[p] >= 0]
+        logits[p, toks[kids]] += rng.choice([0.0, 6.0, 9.0], size=len(kids))
+        top = np.argsort(-logits[p])[:12]
+        for s in kids:
+            nearest[toks[s], :6] = rng.permutation(top)[:6]
+    q = rng.uniform(0.02, 0.9, size=N1)
+    q[rng.random(N1) < 0.1] = 0.0
+    rows = [1] + [len(lv.child_flat_idx) for lv in spec.levels]
+    level_probs = [torch.softmax(torch.as_tensor(
+        rng.normal(size=(1, V)) * 3, dtype=torch.float32, device=device),
+        -1).expand(r, V) for r in rows]
+
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    args = (t(logits, torch.float32), t(toks, torch.int32),
+            t(spec.children, torch.long), depth,
+            LogitsWarp(temperature=1.0, top_k=WALK_TOP_K))
+    kw = dict(nearest=t(nearest, torch.int32),
+              lantern=acceptance.LanternSpec(*WALK_LANTERN),
+              node_q=t(q, torch.float32), level_probs=level_probs,
+              node_level_row=t(spec.inlevel_rank, torch.long))
+    return args, kw
+
+
+def walk_error(device) -> float:
+    """K5 through ``stochastic_verify_tree`` against the plain walk on
+    ``walk_inputs``, under drawn coins, then all 0, then all 1: the largest
+    bonus-distribution error (``inf`` where the accepted slots differ)."""
+    rng = np.random.default_rng(2)
+    args, kw = walk_inputs(rng, device)
+    C = args[2].shape[1]
+    err = 0.0
+    for coins in (rng.random((args[3], C)), 0.0, 1.0):
+        u = torch.as_tensor(np.broadcast_to(coins, (args[3], C)).copy(),
+                            dtype=torch.float32, device=device)
+        path, alen, dist = acceptance.stochastic_verify_tree(
+            None, *args, uniforms=u, **kw)
+        rp, ra, rd = acceptance.stochastic_verify_tree_plain(*args, u, **kw)
+        n = int(alen) + 1
+        if int(alen) != int(ra) or not torch.equal(path[:n], rp[:n]):
+            return float("inf")
+        err = max(err, _max_err(dist, rd))
+    return err
+
+
 def run_kernel_selftest(device=None, verbose: bool = False) -> dict:
     """``{check: max_abs_err}`` (and ``"backend"``: the device type);
     raises ``AssertionError`` on divergence.  ``device`` defaults to the
@@ -209,6 +283,7 @@ def run_kernel_selftest(device=None, verbose: bool = False) -> dict:
     if dev.type == "cuda":
         errs["deferred_flash_tokens"] = deferred_vs_rollback(dev)
         errs["tree_attention_gqa"] = gqa_attention_error(dev)
+        errs["tree_walk"] = walk_error(dev)
 
     # --- K1: the W8A16 matmul against the dequantized product -------------
     x = t("x")

@@ -1,4 +1,4 @@
-"""The port's three kernel ops against their ``lantern_tpu`` counterparts.
+"""The port's kernel ops against their ``lantern_tpu`` counterparts.
 
 On the CPU each op runs its plain PyTorch version; it is held against the
 JAX code (Pallas kernels in interpret mode, as the JAX package's own tests
@@ -6,6 +6,8 @@ run them) on inputs made from a numpy seed.  Tolerances: f32 1e-5; bf16
 compared in f32 at rtol 2e-2.  Tests marked ``cuda`` hold each hand-written
 CUDA kernel against its plain version and skip where there is no card.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,8 +21,13 @@ from lantern_tpu.ops import quant as jq
 from lantern_tpu.ops.pallas import kv_update as jkvu
 from lantern_tpu.ops.pallas import tree_attention as jta
 from lantern_tpu_torch import kv as tkv
+from lantern_tpu_torch import trees as ttr
 from lantern_tpu_torch.convert import to_tensor
+from lantern_tpu_torch.engine import spec as tspec
+from lantern_tpu_torch.ops import _cuda
+from lantern_tpu_torch.ops import acceptance as tacc
 from lantern_tpu_torch.ops import quant as tq
+from lantern_tpu_torch.ops import sampling as tsmp
 from lantern_tpu_torch.ops import tree_attention as tta
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -294,6 +301,171 @@ def test_ops_reject_mixed_devices():
         _cuda.on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
 
 
+# --------------------------------------------------------------------- K5
+
+BENCH_TREE = str(Path(__file__).resolve().parents[1] / "ckpts"
+                 / "bench_tree_lumina.json")
+WALK_LANTERN = {"off": (0, 0.0, None), "delta<=1": (10, 0.003, None),
+                "delta>1": (10, 5.0, None), "rt": (10, 5.0, (6, 2.5)),
+                "k1000": (1000, 0.1, None),      # generate_images' defaults
+                "k1000-rt": (1000, 0.1, (100, 0.3))}
+WALK_WARPS = {
+    "topk-ties": tsmp.LogitsWarp(temperature=1.0, top_k=2000),
+    "top_p-hf": tsmp.LogitsWarp(temperature=0.8, top_k=2000, top_p=0.9),
+    "top_p-ar": tsmp.LogitsWarp(temperature=1.2, top_k=1500, top_p=0.85,
+                                warp_order="ar")}
+
+
+def _dynamic_children(rng, n=59, k=10, depth=6):
+    """A random EAGLE-2-shaped tree: ``n`` drafted nodes under the root, at
+    most ``k`` children a node, at most ``depth`` levels; ``children``
+    [n + 1, k] int64 (-1 pads), in slot order."""
+    kids = [[] for _ in range(n + 1)]
+    lvl = [0]
+    for s in range(1, n + 1):
+        open_ = [p for p in range(s) if lvl[p] < depth and len(kids[p]) < k]
+        p = open_[min(int(rng.integers(0, 3)), len(open_) - 1)
+                  if rng.random() < 0.5 else int(rng.integers(len(open_)))]
+        kids[p].append(s)
+        lvl.append(lvl[p] + 1)
+    out = np.full((n + 1, k), -1, np.int64)
+    for p, ks in enumerate(kids):
+        out[p, :len(ks)] = ks
+    return out, max(lvl)
+
+
+def walk_case(seed, tree, V, multidraft, lantern, warp, device="cpu"):
+    """One walk's inputs, drawn from ``seed``: a tree (a library name, the
+    bench tree's file or "dynamic"), node tokens with duplicates among
+    siblings, logits that favour the drafts and carry ties at the top-k
+    threshold, grammar-masked entries, a nearest table that puts high
+    tokens among a draft's neighbours (with k over 32, its first k + 1
+    drawn from the parent's top 2k, so the budget index passes a warp's
+    chunk), and (multi-draft) q with zeros and drafter rows (broadcast views
+    on even seeds, as stale drafting makes)."""
+    rng = np.random.default_rng(seed)
+    if tree == "dynamic":
+        children, depth = _dynamic_children(rng)
+        level_rows = inlevel = None
+    else:
+        ts = ttr.get_tree(BENCH_TREE if tree == "bench" else tree)
+        children, depth = ts.children.astype(np.int64), ts.max_depth
+        level_rows = [1] + [len(lv.child_flat_idx) for lv in ts.levels]
+        inlevel = ts.inlevel_rank.astype(np.int64)
+    N1 = children.shape[0]
+    toks = rng.integers(0, V, size=N1).astype(np.int32)
+    for p in range(N1):
+        ks = children[p][children[p] >= 0]
+        if len(ks) > 2 and rng.random() < 0.3:
+            toks[ks[-1]] = toks[ks[0]]                 # a duplicate sibling
+    logits = (rng.normal(size=(N1, V)) * 2).astype(np.float32)
+    for p in range(N1):
+        for s in children[p][children[p] >= 0]:
+            logits[p, toks[s]] += rng.choice([0.0, 6.0, 9.0])
+        order = np.argsort(-logits[p], kind="stable")
+        k = WALK_WARPS["topk-ties"].top_k
+        logits[p, order[k - 3:k + 3]] = logits[p, order[k - 1]]
+        logits[p, order[-5:]] = tsmp.NEG_INF             # masked entries
+    lk, delta, rt = WALK_LANTERN[lantern]
+    nearest = rng.integers(0, V, size=(V, max(11, lk + 1))).astype(np.int32)
+    for p in range(N1):
+        top = np.argsort(-logits[p])[:max(12, 2 * lk)]
+        for s in children[p][children[p] >= 0]:
+            nearest[toks[s], :6] = rng.permutation(top[:12])[:6]
+            if lk > 32:
+                nearest[toks[s], :lk + 1] = rng.permutation(top)[:lk + 1]
+    lspec = tacc.LanternSpec(lk, delta)
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    kw = dict(nearest=t(nearest), lantern=lspec,
+              rt=None if rt is None else lspec.runtime(*rt, device=device))
+    if multidraft:
+        q = rng.uniform(0.02, 0.9, size=N1).astype(np.float32)
+        q[rng.random(N1) < 0.1] = 0.0
+        lps = []
+        for i, r in enumerate(level_rows):
+            row = torch.softmax(t(rng.normal(size=(1 if seed % 2 == 0 else r,
+                                                   V)) * 3).float(), -1)
+            lps.append(row.expand(r, V) if seed % 2 == 0 else row)
+        kw.update(node_q=t(q), level_probs=lps, node_level_row=t(inlevel))
+    return (t(logits), t(toks), t(children), depth, WALK_WARPS[warp]), kw
+
+
+def walk_coins_for(seed, depth, C, coins, device="cpu"):
+    u = (np.random.default_rng(seed + 1000).random((depth, C))
+         if coins == "random" else np.full((depth, C), coins))
+    return torch.as_tensor(u.astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize("warp", ["topk-ties", "top_p-hf", "top_p-ar",
+                                  "greedy"])
+def test_keep_threshold_reproduces_warp_logits(warp):
+    """K5 keeps ``s >= t`` of the scaled row for ``t = keep_threshold``:
+    that must be ``warp_logits`` entry for entry, ties at the top-k cut and
+    grammar-masked entries included."""
+    (logits, *_), _ = walk_case(3, "chain_bush_8", 4096, False, "off",
+                                "topk-ties")
+    w = (tsmp.LogitsWarp(temperature=0.0) if warp == "greedy"
+         else WALK_WARPS[warp])
+    s = logits / w.temperature if w.active else logits
+    if w.active:
+        w = tsmp.LogitsWarp(1.0, w.top_k, w.top_p, w.warp_order)
+    t = tsmp.keep_threshold(s, w)
+    want = tsmp.warp_logits(s, w)
+    got = torch.where(s >= t[:, None], s, torch.full_like(s, tsmp.NEG_INF))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("multidraft,lantern", [
+    (False, "off"), (False, "rt"), (True, "delta>1"), (True, "delta<=1"),
+    (True, "k1000")])
+def test_tree_walk_dispatch_uses_plain_on_cpu(multidraft, lantern):
+    _cuda.reset_launches()
+    args, kw = walk_case(5, "chain_bush_8", 2048, multidraft, lantern,
+                         "topk-ties")
+    u = walk_coins_for(5, args[3], args[2].shape[1], "random")
+    got = tacc.stochastic_verify_tree(None, *args, uniforms=u, **kw)
+    want = tacc.stochastic_verify_tree_plain(*args, u, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert _cuda.LAUNCHES["tree_walk"] == 0
+
+
+@pytest.mark.parametrize("multidraft", [False, True])
+def test_accept_draws_the_walks_coins_then_the_bonus(multidraft):
+    """``spec.accept`` under a sampling warp draws, from the request's
+    generator, ``depth`` rows of ``rand((C,))`` (the walk's coins, which
+    the benchmark's replay draws again) and then the bonus draw, and the
+    walk decides with those coins."""
+    (logits, toks, children, depth, warp), kw = walk_case(
+        9, "bench", 4096, multidraft, "delta>1", "topk-ties")
+    C = children.shape[1]
+    tree = tspec.static_tree(ttr.get_tree(BENCH_TREE), "cpu")
+    blk = tspec.TreeBlock(
+        tokens=toks, candidates=tree.retrieve, node_q=kw.get("node_q"),
+        level_probs=kw.get("level_probs"), children=children,
+        inlevel_rank=kw.get("node_level_row"), mask=tree.mask,
+        pos=tree.depth, retrieve=tree.retrieve, max_depth=depth)
+    ecfg = tspec.SpecDecodeConfig(warp=warp, lantern=kw["lantern"])
+    g = torch.Generator().manual_seed(11)
+    ctx = tspec._Ctx(params=None, rope=None, nearest=kw["nearest"],
+                     prefix_valid=None, pos_offsets=None, logits_mask=None,
+                     logits_fn=None, generator=g)
+    v = tspec.accept(ecfg, ctx, blk, logits, torch.tensor(0))
+    ref = torch.Generator().manual_seed(11)
+    coins = torch.stack([torch.rand((C,), generator=ref)
+                         for _ in range(depth)])
+    path, alen, dist = tacc.stochastic_verify_tree_plain(
+        logits, toks, children, depth, warp, coins, **kw)
+    bonus = tsmp.categorical(ref, torch.log(torch.clamp(dist, min=1e-30)))
+    assert torch.equal(g.get_state(), ref.get_state())
+    assert int(v.alen) == int(alen) and int(v.bonus) == int(bonus)
+    assert torch.equal(v.sel_slots[: int(alen) + 1],
+                       path[: int(alen) + 1].long())
+
+
 # ------------------------------------------------- CUDA kernels (card only)
 
 @pytest.mark.cuda
@@ -390,3 +562,51 @@ def test_kv_write_cuda_matches_plain(cuda, L, G, T, start, quant, rows):
     for a, b in zip(planes, ref):
         if b is not None:
             assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+# the walk's cases on the card: (tree, V, multi-draft, LANTERN, warp, coins)
+K5_CASES = [
+    ("bench", 65536, True, "delta>1", "topk-ties", "random"),   # the cell's
+    ("bench", 65536, True, "delta>1", "topk-ties", 0.0),
+    ("bench", 65536, True, "delta>1", "topk-ties", 1.0),
+    ("bench", 65536, False, "off", "topk-ties", "random"),
+    ("bench", 65536, True, "delta<=1", "top_p-hf", "random"),
+    ("bench", 65536, True, "rt", "top_p-ar", "random"),
+    ("bench", 16384, True, "off", "top_p-hf", 1.0),
+    ("chain_bush_8", 16384, True, "delta>1", "top_p-ar", "random"),
+    ("chain_bush_8", 16384, False, "delta<=1", "topk-ties", "random"),
+    ("chain_bush_8", 65536, False, "rt", "topk-ties", 0.0),
+    ("chain_bush_8", 65536, True, "rt", "topk-ties", 1.0),
+    ("dynamic", 16384, False, "delta>1", "topk-ties", "random"),
+    ("dynamic", 16384, False, "off", "top_p-hf", 0.0),
+    ("dynamic", 16384, False, "rt", "top_p-ar", 1.0),
+    ("dynamic", 65536, False, "delta<=1", "topk-ties", "random"),
+    ("bench", 65536, True, "k1000", "topk-ties", "random"),
+    ("bench", 16384, True, "k1000", "top_p-hf", "random"),
+    ("dynamic", 65536, False, "k1000", "topk-ties", "random"),
+    ("dynamic", 16384, False, "k1000", "top_p-ar", "random"),
+    ("chain_bush_8", 65536, True, "k1000-rt", "topk-ties", "random"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree,V,multidraft,lantern,warp,coins", K5_CASES,
+                         ids=["-".join(map(str, c)) for c in K5_CASES])
+def test_tree_walk_cuda_matches_plain(cuda, tree, V, multidraft, lantern,
+                                      warp, coins):
+    """K5 against the plain walk on the card, under the same pinned coins,
+    over three seeds: the accepted slots and their count equal, the bonus
+    distribution within 1e-5 (f32 sums in another order)."""
+    for seed in range(3):
+        args, kw = walk_case(seed, tree, V, multidraft, lantern, warp, cuda)
+        u = walk_coins_for(seed, args[3], args[2].shape[1], coins, cuda)
+        n0 = _cuda.LAUNCHES["tree_walk"]
+        path, alen, dist = tacc.stochastic_verify_tree(None, *args,
+                                                       uniforms=u, **kw)
+        assert _cuda.LAUNCHES["tree_walk"] == n0 + 1
+        rp, ra, rd = tacc.stochastic_verify_tree_plain(*args, u, **kw)
+        a = int(alen)
+        assert a == int(ra), (seed, a, int(ra))
+        assert torch.equal(path[: a + 1].cpu(), rp[: a + 1].cpu()), seed
+        err = float((dist - rd).abs().max())
+        assert err <= 1e-5, (seed, err)
