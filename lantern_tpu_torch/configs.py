@@ -158,6 +158,30 @@ def chameleon_7b_config(max_seq_len: int = 4096, swin_norm: bool = False) -> Mod
     )
 
 
+def emu3_gen_config(max_seq_len: int = 8335) -> ModelConfig:
+    """Emu3-Gen (BAAI/Emu3-Gen ``config.json``): 32 x 4,096, 32 query heads
+    over 8 KV heads of 128, SwiGLU 14,336, pre-norm RMSNorm (eps 1e-5), no
+    QK-norm, an untied head, rotate-half 1-D rope at theta 1e6, vocabulary
+    184,622 (Qwen's text ids, special ids, then 32,768 visual ids from
+    151,854).  The default cache holds a 70-token prompt, the 8,191 tokens
+    of a 720-px image (90 rows of 90 visual ids and a row end, then the
+    end of frame) and 74 rows of tree room."""
+    return ModelConfig(
+        vocab_size=184622,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        rms_norm_eps=1e-5,
+        rope_kind="1d",
+        rope_pairing="half",
+        rope_base=1_000_000.0,
+        cond_kind="none",
+        max_seq_len=max_seq_len,
+    )
+
+
 def tiny_config(
     vocab_size: int = 256,
     hidden_size: int = 64,

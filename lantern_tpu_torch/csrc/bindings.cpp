@@ -36,8 +36,8 @@ int lantern_tree_walk(const void* logits, const void* thr, const void* tokens,
                       const void* level_row, int row64, const void* nearest,
                       int nn, int nn64, int lantern_k, const void* rt_k,
                       const void* rt_delta, float delta, int delta_big,
-                      float delta_m1, void* dist, void* path, int V, int C,
-                      int depth, int top_k, void* stream);
+                      float delta_m1, void* dist, void* path, int V, int ld,
+                      int C, int depth, int top_k, void* stream);
 }
 
 namespace {
@@ -144,11 +144,12 @@ int wide(const c10::optional<at::Tensor>& t) {
 }
 
 // one request's acceptance walk: logits [N+1, V] f32 (scaled by the
-// temperature); thr [N+1] f32 (top-p) or none; tokens [N+1], children
+// temperature; rows ld = stride(0) floats apart, ld a multiple of 4);
+// thr [N+1] f32 (top-p) or none; tokens [N+1], children
 // [N+1, C], level_row [N+1] and nearest [V, nn] int32 or int64; coins
 // [depth, C] f32; node_q [N+1] f32 and level_probs [rows_i, V] f32 (columns
 // contiguous) for multi-draft, else none and []; rt_k int32 [] and rt_delta
-// f32 [] or none; dist [V] f32 and path int32 [depth + 2] out
+// f32 [] or none; dist [ld] f32 and path int32 [depth + 2] out
 void tree_walk(const at::Tensor& logits, const c10::optional<at::Tensor>& thr,
                const at::Tensor& tokens, const at::Tensor& children,
                const at::Tensor& coins,
@@ -178,7 +179,7 @@ void tree_walk(const at::Tensor& logits, const c10::optional<at::Tensor>& thr,
             wide(nearest), lantern_k, ptr(rt_k), ptr(rt_delta),
             static_cast<float>(delta), delta_big,
             static_cast<float>(delta_m1), dist.data_ptr(), path.data_ptr(),
-            logits.size(1), children.size(1), depth, top_k,
+            logits.size(1), logits.stride(0), children.size(1), depth, top_k,
             stream_of(logits)),
         "tree_walk");
 }

@@ -653,9 +653,10 @@ class ChameleonSession:
                 mask = None
             for lo in range(0, len(group), max(1, slots)):
                 chunk = group[lo: lo + max(1, slots)]
-                tpb = cham.TokenPrompt(*(torch.stack([getattr(tp, f) for _, tp
-                                                      in chunk])
-                                         for f in cham.TokenPrompt._fields))
+                tpb = cham.TokenPrompt(*(
+                    None if getattr(chunk[0][1], f) is None else
+                    torch.stack([getattr(tp, f) for _, tp in chunk])
+                    for f in cham.TokenPrompt._fields))
                 t0 = time.perf_counter()
                 toks, _ = ar.generate_tokens_many(
                     self.params, self.cfg, tpb, max_new, cfg_scale, warp,

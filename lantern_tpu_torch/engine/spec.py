@@ -138,14 +138,15 @@ class _Ctx(NamedTuple):
     lantern_rt: Optional[acc.LanternRT] = None
 
 
-def bind_logits_fn(logits_fn, pos_offsets):
-    """Bind the request's grid-start index (``pos_offsets[1]``) into a
-    Lumina grid FSM."""
+def bind_logits_fn(logits_fn, start):
+    """Bind the request's grid-start index ``start`` ([] tensor: the token
+    prompt's ``image_start``, else its uncond offset ``pos_diff``) into a
+    grid FSM."""
     if logits_fn is None or not hasattr(logits_fn, "image_start_idx"):
         return logits_fn
 
     def bound(logits, positions):
-        return logits_fn(logits, positions, start=pos_offsets[1])
+        return logits_fn(logits, positions, start=start)
     return bound
 
 
@@ -552,9 +553,11 @@ def prefill_request(params: dict, ecfg: SpecDecodeConfig, cfg: ModelConfig,
         L = tp.tokens.shape[1]
         pv[:, :L] = tp.valid.bool()
         offs = torch.stack([zero2[0], tp.pos_diff.to(torch.int32)])
+        start = (offs[1] if tp.image_start is None
+                 else tp.image_start.to(torch.int32))
         ctx = _Ctx(params=params, rope=rope, nearest=nearest, prefix_valid=pv,
                    pos_offsets=offs, logits_mask=logits_mask,
-                   logits_fn=bind_logits_fn(logits_fn, offs),
+                   logits_fn=bind_logits_fn(logits_fn, start),
                    generator=generator, drafter_pv=pv)
         block = (torch.tril(torch.ones((L, L), dtype=torch.bool,
                                        device=dev))[None]

@@ -175,8 +175,8 @@ class Lane:
                 WARP, gens, prefix_valid=self.pv[None].expand(
                     (R,) + self.pv.shape), kv_quant=True, device=self.dev)
         else:
-            tp = cham.TokenPrompt(*(torch.stack([x] * R)
-                                    for x in self.prompt))
+            tp = cham.TokenPrompt(*(None if x is None else torch.stack(
+                [x] * R) for x in self.prompt))
             toks, _ = ar.generate_tokens_many(
                 self.params, self.cfg, tp, n, ECFG.cfg_scale, WARP, gens,
                 logits_fn=self.fsm, kv_quant=True, device=self.dev)

@@ -9,10 +9,12 @@ constants of ``models/item_processor.py``).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 PAD_ID = 1
 IMAGE_TOKEN_OFFSET = 4          # VQ code c <-> BPE id c + 4
@@ -33,14 +35,19 @@ def grid_token(n_grids: int) -> int:
 
 class TokenPrompt(NamedTuple):
     """Token conditioning prefix: cond/uncond rows with per-branch position
-    ids and left-pad masks."""
+    ids and left-pad masks.  ``image_start`` is the grid FSM's start in the
+    cond row (its first image token sits at ``image_start + 3``); None
+    leaves it at ``pos_diff``, where the Lumina prompts put it (their
+    uncond row restarts its positions at the image header)."""
     tokens: torch.Tensor        # [2, L] int32
     positions: torch.Tensor     # [2, L] int32 base position ids
     valid: torch.Tensor         # [2, L] bool (False on left pads)
     pos_diff: torch.Tensor      # [] int32 uncond position offset
+    image_start: Optional[torch.Tensor] = None    # [] int32, or None
 
     def to(self, device) -> "TokenPrompt":
-        return TokenPrompt(*(t.to(device) for t in self))
+        return TokenPrompt(*(None if t is None else t.to(device)
+                             for t in self))
 
 
 def non_image_token_mask(vocab_size: int = VOCAB) -> np.ndarray:
@@ -50,11 +57,13 @@ def non_image_token_mask(vocab_size: int = VOCAB) -> np.ndarray:
     return m
 
 
-def shift_nearest_table(table: np.ndarray, vocab_size: int = VOCAB) -> np.ndarray:
-    """VQ-code nearest table [n_codes, k] -> BPE-id-indexed table [V, k]."""
+def shift_nearest_table(table: np.ndarray, vocab_size: int = VOCAB,
+                        offset: int = IMAGE_TOKEN_OFFSET) -> np.ndarray:
+    """VQ-code nearest table [n_codes, k] -> BPE-id-indexed table [V, k],
+    code c at id ``c + offset`` (Lumina's 4, Emu3's 151,854)."""
     out = np.zeros((vocab_size, table.shape[1]), np.int32)
     n = table.shape[0]
-    out[IMAGE_TOKEN_OFFSET: IMAGE_TOKEN_OFFSET + n] = table + IMAGE_TOKEN_OFFSET
+    out[offset: offset + n] = table + offset
     return out
 
 
@@ -157,7 +166,12 @@ class LuminaGridFSM(NamedTuple):
     def __call__(self, logits: torch.Tensor, positions: torch.Tensor,
                  start=None) -> torch.Tensor:
         """logits [T, V] scoring the tokens at cond positions+1; ``start``
-        (tensor) overrides the static image-start index."""
+        (tensor) overrides the static image-start index.  Recorded as the
+        span ``grid_fsm``."""
+        with span("grid_fsm"):
+            return self._constrain(logits, positions, start)
+
+    def _constrain(self, logits, positions, start):
         if self.newline_id >= self.vocab_size or self.image_end_id >= self.vocab_size:
             raise ValueError(
                 f"newline_id {self.newline_id} / image_end_id "

@@ -499,6 +499,21 @@ MAX_WALK_LEVELS = 16        # csrc/tree_walk.cu: MAX_LEVELS
 MAX_WALK_CHILDREN = 32      # csrc/tree_walk.cu: MAX_CHILDREN
 
 
+def _ragged_rows(t: torch.Tensor, ld: int) -> torch.Tensor:
+    """``t`` [n, V] as rows ``ld`` floats apart from a 16-byte aligned
+    start, as K5 reads a vocabulary that is no multiple of 4: ``t`` itself
+    where it is laid out so, else a copy into a padded buffer (one row for
+    a broadcast row).  The pads are never read as entries."""
+    n, V = t.shape
+    if t.stride(1) == 1 and t.stride(0) == ld and _cuda.aligned(t):
+        return t
+    src = t[:1] if t.stride(0) == 0 else t
+    buf = torch.empty((src.shape[0], ld), dtype=t.dtype, device=t.device)
+    buf[:, :V] = src
+    return buf[:, :V].expand(n, V) if t.stride(0) == 0 else buf[:, :V]
+
+
+
 def stochastic_verify_tree_cuda(
     node_logits: torch.Tensor,      # [N+1, V] f32
     tree_tokens: torch.Tensor,      # [N+1] int32 / int64
@@ -518,7 +533,10 @@ def stochastic_verify_tree_cuda(
     arithmetic.  The rows are scaled by the temperature here (torch's own
     division); top-k's threshold is selected in the kernel, top-p's comes
     from ``keep_threshold`` over all rows.  Nothing is read back to the
-    host; the level rows are passed as pointers, not stacked."""
+    host; the level rows are passed as pointers, not stacked.  A vocabulary
+    that is no multiple of 4 goes in rows padded to the next one
+    (``_ragged_rows``), whose pads the kernel masks: nothing outside the V
+    columns is kept, summed or written to the bonus row."""
     _cuda.no_autograd("tree_walk", node_logits, node_q,
                       *(level_probs or ()))
     req = _cuda.require
@@ -526,11 +544,12 @@ def stochastic_verify_tree_cuda(
     C = children.shape[1]
     dev = node_logits.device
     multidraft = node_q is not None
+    # rows ld floats apart: V itself, or the next multiple of 4 (ragged)
+    ld = -(-V // 4) * 4
     req(node_logits.dtype == torch.float32 and node_logits.is_contiguous()
-        and V % 4 == 0 and _cuda.aligned(node_logits),
-        f"tree_walk: logits must be contiguous, 16-byte aligned f32 [N+1, V] "
-        f"with V a multiple of 4, got {node_logits.dtype} "
-        f"{tuple(node_logits.shape)}")
+        and _cuda.aligned(node_logits),
+        f"tree_walk: logits must be contiguous, 16-byte aligned f32 [N+1, V], "
+        f"got {node_logits.dtype} {tuple(node_logits.shape)}")
     req(1 <= C <= MAX_WALK_CHILDREN and 0 <= depth <= MAX_WALK_LEVELS,
         f"tree_walk: {C} children a node (at most {MAX_WALK_CHILDREN}) and "
         f"depth {depth} (at most {MAX_WALK_LEVELS})")
@@ -560,10 +579,12 @@ def stochastic_verify_tree_cuda(
         for t in lp:
             req(t.dtype == torch.float32 and t.ndim == 2
                 and t.shape[1] == V and t.stride(1) == 1
-                and t.stride(0) % 4 == 0 and _cuda.aligned(t)
+                and (ld != V or (t.stride(0) % 4 == 0 and _cuda.aligned(t)))
                 and t.shape[0] >= 1,
                 f"tree_walk: drafter rows must be f32 [rows, {V}], 16-byte "
                 f"aligned, with contiguous columns")
+        if ld != V:
+            lp = [_ragged_rows(t, ld) for t in lp]
     if lantern.enabled:
         req(nearest.ndim == 2 and nearest.shape[0] == V,
             f"tree_walk: nearest must be [{V}, nn]")
@@ -580,9 +601,11 @@ def stochastic_verify_tree_cuda(
                                                            temperature=1.0))
         elif 0 < warp.top_k < V:
             top_k = warp.top_k
+    if ld != V:
+        rows = _ragged_rows(rows, ld)
     rtk = rt.k if lantern.enabled and rt is not None else None
     rtd = rt.delta if lantern.enabled and rt is not None else None
-    dist = torch.empty((V,), dtype=torch.float32, device=dev)
+    dist = torch.empty((ld,), dtype=torch.float32, device=dev)
     path = torch.empty((depth + 2,), dtype=torch.int32, device=dev)
     _cuda.library().tree_walk(
         rows, thr, tree_tokens, children, uniforms, node_q, lp,
@@ -591,4 +614,4 @@ def stochastic_verify_tree_cuda(
         lantern.k if lantern.enabled else 0, float(lantern.delta),
         float(lantern.delta) - 1.0, float(lantern.delta) > 1.0, top_k)
     _cuda.LAUNCHES["tree_walk"] += 1
-    return path[: depth + 1], path[depth + 1], dist
+    return path[: depth + 1], path[depth + 1], dist[:V]

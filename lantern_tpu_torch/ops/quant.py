@@ -42,6 +42,9 @@ K1_TILE_COLS = 128
 K1_STAGE_ROWS = 64
 K1_BLOCKS_PER_SM = 2
 K1_SPLIT_MIN_ROWS = 1024
+# K1 copies weight rows in 16-byte pieces: a kernel whose columns are no
+# multiple of this (Emu3's head, 184,622) is stored padded (``pad_columns``)
+K1_COL_MULTIPLE = 16
 
 
 def k1_splits(K: int, N: int, sms: int) -> int:
@@ -71,6 +74,41 @@ def quantize_weight(w: torch.Tensor, axis: int = -2):
     s = torch.where(amax > 0, amax, torch.ones_like(amax)) / _127(amax)
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return q, s
+
+
+def pad_columns(q: torch.Tensor, s: torch.Tensor):
+    """``(q [K, N], s [1, N])`` as views of storage padded to the next
+    multiple of ``K1_COL_MULTIPLE`` columns (int8 zeros, unit scales), made
+    once at load: shapes and values are unchanged, and K1 runs over the
+    padded storage and drops the pad columns.  ``(q, s)`` as they are when
+    ``N`` is a multiple."""
+    K, N = q.shape
+    Np = -(-N // K1_COL_MULTIPLE) * K1_COL_MULTIPLE
+    if Np == N:
+        return q, s
+    qp = torch.zeros((K, Np), dtype=q.dtype, device=q.device)
+    qp[:, :N] = q
+    sp = torch.ones((1, Np), dtype=s.dtype, device=s.device)
+    sp[:, :N] = s.reshape(1, N)
+    return qp[:, :N], sp[:, :N]
+
+
+def _padded_storage(q: torch.Tensor, s: torch.Tensor):
+    """``(q [K, Np], s [Np])`` over the padded storage behind the views
+    ``pad_columns`` returns (``Np`` the next multiple of 16 columns), padding
+    a copy where ``q`` or ``s`` is not such a view (moved or loaded since:
+    correct, but one copy of the kernel a call)."""
+    K, N = q.shape
+    Np = -(-N // K1_COL_MULTIPLE) * K1_COL_MULTIPLE
+
+    def holds(t, stride, need):
+        return (t.stride() == stride and (t.storage_offset() + need)
+                * t.element_size() <= t.untyped_storage().nbytes())
+
+    if not (holds(q, (Np, 1), K * Np) and s.ndim == 2 and holds(
+            s, (Np, 1), Np)):
+        q, s = pad_columns(q.contiguous(), s.reshape(1, N))
+    return q.as_strided((K, Np), (Np, 1)), s.as_strided((Np,), (1,))
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -114,28 +152,32 @@ def int8_matmul_launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     _cuda.require(1 <= nsplit <= max(1, K // K1_STAGE_ROWS),
                   f"int8_matmul: {nsplit} splits of K={K}: needs 1 to one "
                   f"per {K1_STAGE_ROWS} k rows")
-    _cuda.require(K % 8 == 0 and N % 16 == 0,
-                  f"int8_matmul: needs K % 8 == 0 and N % 16 == 0, got "
-                  f"K={K} N={N}")
+    _cuda.require(K % 8 == 0, f"int8_matmul: needs K % 8 == 0, got K={K}")
     x2 = x.reshape(-1, K).contiguous()
-    q = q.contiguous()
-    s = s.contiguous()
+    # the columns the kernel runs over: N, or the padded storage's Np
+    Nk = N
+    if N % K1_COL_MULTIPLE:
+        q, s = _padded_storage(q, s)
+        Nk = q.shape[1]
+    else:
+        q = q.contiguous()
+        s = s.contiguous()
     _cuda.require(_cuda.aligned(x2) and _cuda.aligned(q),
                   "int8_matmul: x and q must be 16-byte aligned")
     M = x2.shape[0]
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    out = torch.empty((M, Nk), dtype=out_dtype, device=x.device)
     ext = _cuda.library()
     part = tickets = None
     if nsplit > 1:
-        part = torch.empty((nsplit, min(M, K1_MAX_ROWS), N),
+        part = torch.empty((nsplit, min(M, K1_MAX_ROWS), Nk),
                            dtype=torch.float32, device=x.device)
         tickets = _cuda.tickets(x.device, "int8_matmul",
-                                -(-N // K1_TILE_COLS))
+                                -(-Nk // K1_TILE_COLS))
     for m0 in range(0, M, K1_MAX_ROWS):
         rows = slice(m0, m0 + K1_MAX_ROWS)
         ext.int8_matmul(x2[rows], q, s, out[rows], part, tickets, nsplit)
         _cuda.LAUNCHES["int8_matmul"] += 1
-    return out.reshape(*lead, N)
+    return out[:, :N].reshape(*lead, N)
 
 
 def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -227,5 +269,6 @@ def quantize_params(params: dict) -> dict:
     if "fc_w" in p:
         p["fc_w_q"], p["fc_w_s"] = quantize_weight(p.pop("fc_w"))
     if "lm_head" in p:
-        p["lm_head_q"], p["lm_head_s"] = quantize_weight(p.pop("lm_head"))
+        p["lm_head_q"], p["lm_head_s"] = pad_columns(
+            *quantize_weight(p.pop("lm_head")))
     return p
