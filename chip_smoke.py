@@ -269,6 +269,13 @@ K1_SHAPES = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w_gu": (4096, 22016),
 K1_SHAPES_XL = {"wqkv": (1280, 3840), "wo": (1280, 1280), "w_gu": (1280, 7168),
                 "w_down": (3584, 1280), "lm_head": (1280, 16384),
                 "fc_w": (2560, 1280)}
+# Emu3-Gen's (GQA 4:1, a head of 184,622 columns, stored padded)
+K1_SHAPES_EMU3 = {"wqkv": (4096, 6144), "wo": (4096, 4096),
+                  "w_gu": (4096, 28672), "w_down": (14336, 4096),
+                  "lm_head": (4096, 184622)}
+# the spec cells' verify: 16 CFG rows x 32 tree nodes, one K1 call of the
+# wide form a matmul
+VERIFY_ROWS = 512
 # the port's kernels, and the part of their device names the profile finds
 PORT_KERNELS = (("int8_matmul", "int8_matmul_kernel"),
                 ("tree_attention", "tree_attention_kernel"),
@@ -321,7 +328,7 @@ LUMINA_PROMPT = "a watercolor painting of a harbor town in the morning fog"
 # the policy phase's sweep subprocess: its time limit
 POLICY_SWEEP_TIMEOUT = 240
 # the tools phase: the verify rows K1 takes at autotune's candidate tree
-# sizes (M = 2L, two launches a matmul past 64 rows); the calibration's
+# sizes (M = 2L, the wide form past 64 rows); the calibration's
 # rollout and tree budget; the tokens of the runtime-point runs and of each
 # CLI request (64 tokens: a 128 px image)
 AUTOTUNE_M = (80, 96, 100, 112, 120)
@@ -507,14 +514,16 @@ class KernelPhase:
                    for x, y in zip(a, b))
 
     def k1_shape(self, name: str, K: int, N: int, rows, rep_M, lane: str,
-                 out_dt=None):
+                 verify=None, out_dt=None):
         """K1 at one weight shape and each row count of ``rows``: error
         against the plain version, a dropped k split caught, times.  The
-        output is f32 for the lm_head (or ``out_dt``), else bf16.  Returns
-        ``(max error, record at rep_M or None, q, s)``."""
+        output is f32 for the lm_head (or ``out_dt``), else bf16.  The
+        record at ``VERIFY_ROWS`` rows is appended to ``verify`` when given.
+        Returns ``(max error, record at rep_M or None, q, s)``."""
         from lantern_tpu_torch.ops.quant import (K1_STAGE_ROWS, int8_matmul,
-                                                 int8_matmul_cuda,
-                                                 k1_split_stages, k1_splits)
+                                                 int8_matmul_cuda, k1_form,
+                                                 k1_split_stages, k1_splits,
+                                                 pad_columns)
         from lantern_tpu_torch.ops._cuda import sm_count
 
         torch, timer, card, dev = self.torch, self.timer, self.card, self.dev
@@ -522,6 +531,7 @@ class KernelPhase:
         q = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
                           dtype=torch.int8)
         s = (torch.rand((1, N), generator=gen, device=dev) + 0.5) * 2e-4
+        q, s = pad_columns(q, s)        # stored as a loaded head is
         if out_dt is None:
             out_dt = torch.float32 if name == "lm_head" else torch.bfloat16
         nsplit = k1_splits(K, N, sm_count(torch.device(dev, 0)))
@@ -559,51 +569,68 @@ class KernelPhase:
                 f"max_abs_err {err:.3e} (tol {tol:.3e}; a dropped k split "
                 f"errs {werr:.3e}) ms {ms:.4f} plain_ms {plain:.4f} "
                 f"library_ms {lib:.4f} bound_ms {b_ms:.4f} ({b_by}) [{card}]")
+            rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                       bound_by=b_by, shape=f"{lane}M={M} K={K} N={N} ({name})")
             if M == rep_M:
-                rep = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=b_ms, bound_by=b_by,
-                           shape=f"{lane}M={M} K={K} N={N} ({name})")
+                rep = rec
+            if M == VERIFY_ROWS and verify is not None:
+                verify.append(dict(rec, form=k1_form(M)))
         return k1_err, rep, q, s
 
     def k1(self) -> dict:
-        from lantern_tpu_torch.ops.quant import K1_MAX_ROWS, int8_matmul_cuda
+        """K1 at Lumina-7B's shapes and the Lumina paths' rows, then the
+        wide form at the verify's 512 rows on Emu3-Gen's shapes too.  The
+        record at M = 64 (w_gu), with ``verify_512``: the records of both
+        models' four matmuls and head at M = 512."""
+        from lantern_tpu_torch.ops.quant import (K1_NARROW_ROWS,
+                                                 int8_matmul_cuda, k1_form)
 
         torch = self.torch
-        # rows: AR 2, prefill 38, tree verify 64; the drafter's levels and
-        # its extension run 2 x the level's / the path's rows; the long
-        # prompt's prefill ends on a launch of 22 rows.  Together they take
-        # every width of the kernel's instruction (8, 16, 32, 64 rows)
-        k1_rows = sorted({2, 38, 64, 2 * max(self.level_rows),
-                          2 * self.tree.path_len,
-                          2 * (len(LONG_TEXT) + 3) % K1_MAX_ROWS})
-        if {min(w for w in (8, 16, 32, 64) if M <= w)
-                for M in k1_rows} != {8, 16, 32, 64}:
-            fail(f"K1: the row counts {k1_rows} miss a width of the kernel")
-        k1_err, k1_rep = 0.0, None
+        # rows: AR 2, prefill 38, a 64-row tree verify, 10 and 22; the
+        # drafter's levels and its extension run 2 x the level's / the
+        # path's rows; the long prompt's 406-row prefill and the spec
+        # cells' 512-row verify.  Together they take every width of the
+        # narrow form's instruction (8, 16, 32, 64 rows) and the wide form
+        k1_rows = sorted({2, 10, 22, 38, 64, 2 * max(self.level_rows),
+                          2 * self.tree.path_len, 2 * (len(LONG_TEXT) + 3),
+                          VERIFY_ROWS})
+        if {min(w for w in (8, 16, 32, 64) if M <= w) for M in k1_rows
+                if M <= K1_NARROW_ROWS} != {8, 16, 32, 64} or k1_form(
+                    max(k1_rows)) != "wide":
+            fail(f"K1: the row counts {k1_rows} miss a width of the narrow "
+                 f"form or the wide form")
+        k1_err, k1_rep, verify = 0.0, None, []
         for name, (K, N) in K1_SHAPES.items():
-            err, rep, q, s = self.k1_shape(name, K, N, k1_rows,
-                                           64 if name == "w_gu" else None, "")
+            err, rep, q, s = self.k1_shape(
+                name, K, N, k1_rows, 64 if name == "w_gu" else None, "",
+                verify if name != "fc_w" else None)
             k1_err, k1_rep = max(k1_err, err), rep or k1_rep
             # a row's result depends on neither M nor the other rows: every
-            # row of a launch of 1, 10 and 22 rows (the instruction's 8-, 16-
-            # and 32-row widths) equals its row of the 64-row launch
-            x = self.randn(64, K)
+            # row of a call of 1, 10, 22 and 64 rows (the narrow form's 8-,
+            # 16-, 32- and 64-row widths) and of 130 rows (the wide form,
+            # a ragged row tile) equals its row of the 512-row call
+            x = self.randn(VERIFY_ROWS, K)
             full = int8_matmul_cuda(x, q, s, torch.float32)
-            for M in (1, 10, 22):
+            for M in (1, 10, 22, 64, 130):
                 few = int8_matmul_cuda(x[:M], q, s, torch.float32)
                 torch.cuda.synchronize()
                 if not torch.equal(few, full[:M]):
-                    fail(f"K1 {name}: the rows of an M={M} launch differ from "
-                         f"those of the M=64 launch (max diff "
+                    fail(f"K1 {name}: the rows of an M={M} call differ from "
+                         f"those of the M={VERIFY_ROWS} call (max diff "
                          f"{(few - full[:M]).abs().max().item():.3e})")
-            log(f"K1 int8_matmul {name} K={K} N={N}: row 0 at M=64 equals the "
-                f"M=1 launch bit for bit, and so do all rows of M=10 and M=22")
-        return dict(k1_rep, max_abs_err=k1_err)
+            log(f"K1 int8_matmul {name} K={K} N={N}: every row of the calls "
+                f"of 1, 10, 22, 64 and 130 rows equals its row of the "
+                f"{VERIFY_ROWS}-row call bit for bit")
+        for name, (K, N) in K1_SHAPES_EMU3.items():
+            err, _, _, _ = self.k1_shape(name, K, N, (VERIFY_ROWS,), None,
+                                         "Emu3 ", verify)
+            k1_err = max(k1_err, err)
+        return dict(k1_rep, max_abs_err=k1_err, verify_512=verify)
 
     def k1_xl(self) -> dict:
         """K1 at LlamaGen-XL's six weight shapes and the XL paths' rows: 2
         (AR), 52 (the 26-row tree), 118 (a 59-row dynamic tree), 144 (the
-        batched verify: 8 slots x CFG 2 x the 9-row tree, three launches),
+        batched verify: 8 slots x CFG 2 x the 9-row tree, the wide form),
         240 (the caption prefill).  Returns ``(record at M = 52, record at
         M = 144)``."""
         k1_err, k1_rep, k1_batch = 0.0, None, None
@@ -1750,6 +1777,29 @@ def phase_forward_llamagen(torch):
             f"card kernels vs CPU plain max_abs_err {err:.3e} (tol {tol:.3e})")
 
 
+def k1_calls(rows: int, calls: int = 1) -> dict:
+    """K1's launches for ``calls`` matmul calls of ``rows`` rows each, as
+    ``_cuda.LAUNCHES`` counts them: one launch a call whatever ``rows``,
+    counted again under ``int8_matmul_wide`` when ``quant.k1_form`` gives
+    the call the wide form."""
+    from lantern_tpu_torch.ops.quant import k1_form
+
+    return {"int8_matmul": calls,
+            "int8_matmul_wide": calls if k1_form(rows) == "wide" else 0}
+
+
+def launch_counts(*parts, times: int = 1) -> dict:
+    """``times`` the sum of launch counts by kernel, over every kernel that
+    ``_cuda.LAUNCHES`` counts (0 where no part names it)."""
+    from lantern_tpu_torch.ops import _cuda
+
+    out = dict.fromkeys(_cuda.LAUNCHES, 0)
+    for part in parts:
+        for k, n in part.items():
+            out[k] += times * n
+    return out
+
+
 def spec_launches(layers: int, prompt, steps: int, verify_rows: int,
                   path_rows: int, levels, deferred: bool, slots: int = 1,
                   stale: bool = False):
@@ -1761,7 +1811,7 @@ def spec_launches(layers: int, prompt, steps: int, verify_rows: int,
     commits the previous rows, one K3 either way; ``extend`` over the
     ``path_rows`` of a path; the next draft).  A draft is a root head, then
     per level of ``levels`` rows fc_w, a one-layer forward and the head.
-    K1 takes at most ``K1_MAX_ROWS`` rows a launch; every forward here is
+    K1 is one launch a matmul call (``k1_calls``); every forward here is
     CFG batch 2.  The batched engine (``slots`` > 1): ``prompt`` lists every
     request's prompt rows (one prefill each), a step's base forward and
     lm_head take the ``slots`` requests' rows together (one K2 a layer, one
@@ -1770,38 +1820,24 @@ def spec_launches(layers: int, prompt, steps: int, verify_rows: int,
     drafter launches: no ``extend``, and a draft is read off the verify
     forward's logits.  Every spec path here samples, so every slot's
     acceptance walk is one K5 launch a step."""
-    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
-
-    def k1(rows):
-        return -(-2 * rows // K1_MAX_ROWS)
+    add = launch_counts
 
     def forward(T, n_layers):            # 4 matmuls a layer, K2 a layer, K3
-        return {"int8_matmul": 4 * n_layers * k1(T),
-                "tree_attention": n_layers, "kv_write": 1}
-
-    def add(*parts, times=1):
-        out = {"int8_matmul": 0, "tree_attention": 0, "kv_write": 0,
-               "kv_gather": 0, "tree_walk": 0}
-        for part in parts:
-            for k, n in part.items():
-                out[k] += times * n
-        return out
+        return add(k1_calls(2 * T, 4 * n_layers),
+                   {"tree_attention": n_layers, "kv_write": 1})
 
     def extend(T):                       # fc_w + a one-layer forward
-        return add() if stale else add({"int8_matmul": k1(T)},
-                                       forward(T, 1))
+        return add() if stale else add(k1_calls(2 * T), forward(T, 1))
 
     draft = add() if stale else add(
-        {"int8_matmul": k1(1)},
-        *[add({"int8_matmul": 2 * k1(n)}, forward(n, 1)) for n in levels])
-    prefill = add(*[add(forward(p, layers), {"int8_matmul": k1(1)},
-                        extend(p), draft)
+        k1_calls(2),
+        *[add(k1_calls(2 * n, 2), forward(n, 1)) for n in levels])
+    prefill = add(*[add(forward(p, layers), k1_calls(2), extend(p), draft)
                     for p in (prompt if isinstance(prompt, list)
                               else [prompt])])
     rows = slots * verify_rows
-    step = add(forward(rows, layers),
-               {"int8_matmul": k1(rows), "kv_gather": 0 if deferred else 1,
-                "tree_walk": slots},
+    step = add(forward(rows, layers), k1_calls(2 * rows),
+               {"kv_gather": 0 if deferred else 1, "tree_walk": slots},
                add(extend(path_rows), draft, times=slots))
     return {k: prefill[k] + steps * step[k] for k in step}, step
 
@@ -1816,7 +1852,7 @@ def phase_main_path(torch, grid: int, card: str):
     from lantern_tpu_torch.models import transformer as tfm
     from lantern_tpu_torch.ops import _cuda
     from lantern_tpu_torch.ops.acceptance import LanternSpec
-    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS, quantize_params
+    from lantern_tpu_torch.ops.quant import quantize_params
     from lantern_tpu_torch.ops.sampling import LogitsWarp
     from lantern_tpu_torch.ops.vq_distance import nearest_latents
 
@@ -1920,7 +1956,8 @@ def phase_main_path(torch, grid: int, card: str):
     for name, launch, path in (
             ("spec", spec_launch, ("int8_matmul", "tree_attention", "kv_write")),
             ("ar", ar_launch, ("int8_matmul", "tree_attention", "kv_write")),
-            ("rollback spec", roll_launch, tuple(roll_launch))):
+            ("rollback spec", roll_launch,
+             tuple(k for k, _ in PORT_KERNELS))):
         missing = [k for k in path if launch[k] == 0]
         if missing:
             fail(f"{name} run launched no {missing} kernel: {launch}")
@@ -1955,7 +1992,8 @@ def phase_main_path(torch, grid: int, card: str):
     log(f"rollback path launches: {roll_launch} = the derived counts; per "
         f"verify step {per_step}")
     # the long-prompt path: 200 text tokens (203 prompt rows, one K2 launch
-    # a layer at T = 203, K1 in launches of 64 rows), then 8 AR tokens
+    # a layer at T = 203, K1's wide form over the 406 rows), then 8 AR
+    # tokens
     long_tp = cham.lumina_token_prompt(LONG_TEXT, grid=(grid, grid))
     long_fsm = fsm._replace(image_start_idx=len(LONG_TEXT))
     rows = long_tp.tokens.shape[1]
@@ -1968,15 +2006,15 @@ def phase_main_path(torch, grid: int, card: str):
 
     _, _, pre_launch = timed(lambda: run_long(0))
     lres, t_long, long_launch = timed(lambda: run_long(n_long))
-    k1_pre = 4 * cfg.num_layers * -(-2 * rows // K1_MAX_ROWS) + 1
-    want_pre = {"int8_matmul": k1_pre, "tree_attention": cfg.num_layers,
-                "kv_write": 1, "kv_gather": 0, "tree_walk": 0}
+    want_pre = launch_counts(k1_calls(2 * rows, 4 * cfg.num_layers),
+                             k1_calls(2), {"tree_attention": cfg.num_layers,
+                                           "kv_write": 1})
     if pre_launch != want_pre:
         fail(f"long-prompt prefill ({rows} rows) launched {pre_launch}, want "
              f"{want_pre}")
-    want_long = {"int8_matmul": k1_pre + n_long * (4 * cfg.num_layers + 1),
-                 "tree_attention": (1 + n_long) * cfg.num_layers,
-                 "kv_write": 1 + n_long, "kv_gather": 0, "tree_walk": 0}
+    want_long = launch_counts(
+        want_pre, k1_calls(2, n_long * (4 * cfg.num_layers + 1)),
+        {"tree_attention": n_long * cfg.num_layers, "kv_write": n_long})
     if long_launch != want_long:
         fail(f"long-prompt path launched {long_launch}, want {want_long}")
     toks = [int(t) for t in lres.tokens.tolist()]
@@ -2417,7 +2455,6 @@ def phase_xl(torch, card: str, xl: dict):
     from lantern_tpu_torch.engine import ar, spec
     from lantern_tpu_torch.ops import _cuda
     from lantern_tpu_torch.ops.acceptance import LanternSpec
-    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
     from lantern_tpu_torch.ops.sampling import LogitsWarp
 
     n_img = 256
@@ -2477,12 +2514,10 @@ def phase_xl(torch, card: str, xl: dict):
         if res.step_compression < 1.0:
             fail(f"{name}: step compression {res.step_compression} < 1")
     Tc, L = cfg.cls_token_num, cfg.num_layers
-
-    def k1(rows):
-        return -(-2 * rows // K1_MAX_ROWS)
-    want_ar = {"int8_matmul": 4 * L * k1(Tc) + 1 + n_img * (4 * L + 1),
-               "tree_attention": (1 + n_img) * L, "kv_write": 1 + n_img,
-               "kv_gather": 0, "tree_walk": 0}
+    want_ar = launch_counts(k1_calls(2 * Tc, 4 * L),
+                            k1_calls(2, 1 + n_img * (4 * L + 1)),
+                            {"tree_attention": (1 + n_img) * L,
+                             "kv_write": 1 + n_img})
     want_st, step_st = spec_launches(
         L, Tc, sres.steps, tree.num_nodes, tree.path_len,
         [len(lv.child_flat_idx) for lv in tree.levels], deferred=True)
@@ -2562,7 +2597,6 @@ def phase_batched(torch, card: str, xl: dict):
     from lantern_tpu_torch.engine.scheduler import Request, Scheduler
     from lantern_tpu_torch.ops import _cuda
     from lantern_tpu_torch.ops.acceptance import LanternSpec
-    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
     from lantern_tpu_torch.ops.sampling import LogitsWarp
 
     cfg, dcfg, params, dparams = (xl["cfg"], xl["dcfg"], xl["params"],
@@ -2626,9 +2660,9 @@ def phase_batched(torch, card: str, xl: dict):
     want, per_step = spec_launches(
         L, [cfg.cls_token_num] * len(reqs), eng.n_steps, tree.num_nodes,
         tree.path_len, levels, deferred=False, slots=R)
-    k1_base = -(-2 * R * tree.num_nodes // K1_MAX_ROWS)
-    base = {"tree_attention": L, "kv_write": 1, "kv_gather": 1,
-            "int8_matmul": (4 * L + 1) * k1_base}
+    verify = 2 * R * tree.num_nodes
+    base = launch_counts({"tree_attention": L, "kv_write": 1, "kv_gather": 1},
+                         k1_calls(verify, 4 * L + 1))
     drafter_step = {k: per_step[k] - base[k] for k in base}
     if launches != want:
         fail(f"batched XL launched {launches}, but its shapes give {want}")
@@ -2643,8 +2677,8 @@ def phase_batched(torch, card: str, xl: dict):
         f"{sum(r.accept_sum for r in done) / max(steps, 1):.3f}; peak "
         f"memory {peak:.2f} "
         f"GiB; launches {launches} = the derived counts; a batched step: "
-        f"base verify forward {base} (K1 {k1_base} launches a matmul over "
-        f"{2 * R * tree.num_nodes} rows), drafter per slot, {R} slots "
+        f"base verify forward {base} (K1 one launch a matmul over {verify} "
+        f"rows), drafter per slot, {R} slots "
         f"{drafter_step}")
     # the requests that refill a slot alone, one after the other: under
     # sampling too a request draws the same numbers batched as alone, so
@@ -2850,19 +2884,11 @@ def ar_launches(layers: int, prompt_rows: int, n_tokens: int, chunks):
     and the head over their last rows, then ``n_tokens`` one-row forwards of
     the ``r`` pairs and their heads (one K2 a layer and one K3 a forward
     for all rows)."""
-    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
-
-    def k1(rows):
-        return -(-2 * rows // K1_MAX_ROWS)
-
-    out = {"int8_matmul": 0, "tree_attention": 0, "kv_write": 0,
-           "kv_gather": 0, "tree_walk": 0}
-    for r in chunks:
-        out["int8_matmul"] += (4 * layers * k1(r * prompt_rows) + k1(r)
-                               + n_tokens * (4 * layers * k1(r) + k1(r)))
-        out["tree_attention"] += (1 + n_tokens) * layers
-        out["kv_write"] += 1 + n_tokens
-    return out
+    return launch_counts(*[launch_counts(
+        k1_calls(2 * r * prompt_rows, 4 * layers),
+        k1_calls(2 * r, 1 + n_tokens * (4 * layers + 1)),
+        {"tree_attention": (1 + n_tokens) * layers, "kv_write": 1 + n_tokens})
+        for r in chunks])
 
 
 def random_tree_masks(torch, R: int, T: int, seed: int):
@@ -3032,7 +3058,7 @@ def phase_session(torch, card: str, xl: dict, timer):
         return out, time.perf_counter() - t
 
     def all_four(name):
-        idle = [k for k, n in launches[name].items() if not n]
+        idle = [k for k, _ in PORT_KERNELS if not launches[name][k]]
         if idle:
             fail(f"{name}: kernels {idle} were not launched on the path")
 
@@ -3445,8 +3471,8 @@ def lumina_int8(torch, num_layers: int = 32):
 def phase_tools(torch, card: str, xl: dict, timer):
     """The tuning tools and the CLI on the card:
 
-    - K1 at the autotune verify's rows (M = 2L = 80-120: two launches a
-      matmul) for Lumina's and XL's weight shapes, and K2 at the autotune
+    - K1 at the autotune verify's rows (M = 2L = 80-120: the wide form)
+      for Lumina's and XL's weight shapes, and K2 at the autotune
       blocks (T = 40-60 at length 128; XL pk = 2, Lumina pk = 1, bf16
       cache) and the teacher-forcing blocks (XL T = 376 at length 0; the
       Lumina teacher's 512-row segment holding 19 prompt rows and 273
@@ -3491,15 +3517,12 @@ def phase_tools(torch, card: str, xl: dict, timer):
     from lantern_tpu_torch.models import chameleon as cham
     from lantern_tpu_torch.ops import _cuda
     from lantern_tpu_torch.ops.acceptance import LanternSpec
-    from lantern_tpu_torch.ops.quant import K1_MAX_ROWS
+    from lantern_tpu_torch.ops.quant import k1_form
     from lantern_tpu_torch.ops.sampling import LogitsWarp
 
     out_root = os.path.join("build", "tools")
     os.makedirs(out_root, exist_ok=True)
     launches, rec = {}, {}
-
-    def k1(rows):
-        return -(-2 * rows // K1_MAX_ROWS)
 
     def counted(fn):
         torch.cuda.synchronize()
@@ -3580,9 +3603,8 @@ def phase_tools(torch, card: str, xl: dict, timer):
         for c in at.CANDIDATES:
             fwd = at.verify_forward(params, cfg, c)
             logits, _, got = counted(fwd)
-            want = {"int8_matmul": 4 * L * k1(c) + k1(c),
-                    "tree_attention": L, "kv_write": 1, "kv_gather": 0,
-                    "tree_walk": 0}
+            want = launch_counts(k1_calls(2 * c, 4 * L + 1),
+                                 {"tree_attention": L, "kv_write": 1})
             if got != want:
                 fail(f"autotune {name} L={c}: the verify forward launched "
                      f"{got}, its shapes give {want}")
@@ -3595,7 +3617,7 @@ def phase_tools(torch, card: str, xl: dict, timer):
                 f"{score[c] * 1e3:.3f})" for c in at.CANDIDATES)
             + f"; picked total_tokens={best} = the weighted argmin; "
             f"{dt:.1f} s; launches a forward at L=60 {got} = the derived "
-            f"counts (K1 {k1(60)} launches a matmul)")
+            f"counts (K1 one launch a matmul, the {k1_form(120)} form)")
         return best
 
     cfg, params = xl["cfg"], xl["params"]
@@ -3646,11 +3668,11 @@ def phase_tools(torch, card: str, xl: dict, timer):
         params, dparams, cfg, dcfg, cond, uncond, g,
         num_tokens=CALIB_TOKENS, warp=warp))
     n, Dp = CALIB_TOKENS, Tc - 1 + CALIB_TOKENS
-    want = {"int8_matmul": (4 * L * k1(Tc) + 1 + n * (4 * L + 1)
-                            + 4 * L * k1(Tc + n) + k1(Dp) + 4 * k1(Dp)
-                            + k1(Dp)),
-            "tree_attention": (1 + n) * L + L + 1,
-            "kv_write": 1 + n + 1 + 1, "kv_gather": 0, "tree_walk": 0}
+    want = launch_counts(k1_calls(2 * Tc, 4 * L),
+                         k1_calls(2, 1 + n * (4 * L + 1)),
+                         k1_calls(2 * (Tc + n), 4 * L), k1_calls(2 * Dp, 6),
+                         {"tree_attention": (1 + n) * L + L + 1,
+                          "kv_write": 1 + n + 1 + 1})
     if got != want:
         fail(f"measure_rank_probs XL launched {got}, its shapes give {want}")
     if rank.shape != (10,) or not ((rank > 0) & (rank <= 1)).all():
@@ -4039,8 +4061,8 @@ def phase_train(torch, card: str, xl: dict):
     # per lockstep call a prefill and one forward a token; then one teacher
     # forward a sample; each forward K2 once a layer and K3 once
     forwards = -(-TRAIN_SAMPLES // TRAIN_SLOTS) * (1 + n_img) + TRAIN_SAMPLES
-    want = {"int8_matmul": 0, "tree_attention": L * forwards,
-            "kv_write": forwards, "kv_gather": 0, "tree_walk": 0}
+    want = launch_counts({"tree_attention": L * forwards,
+                          "kv_write": forwards})
     if gen_launch != want:
         fail(f"generate_train_data launched {gen_launch}, derived {want}")
     names = sorted(os.listdir(data))
@@ -6492,6 +6514,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
+                        **({"verify_512": r["verify_512"]}
+                           if "verify_512" in r else {}),
                         "selftest_max_abs_err": selftest[check],
                         "xl": {k: x[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -10,6 +10,9 @@ extern "C" {
 int lantern_int8_matmul(const void* x, const void* q, const void* s, void* out,
                         void* part, void* tickets, int M, int K, int N,
                         int nsplit, int out_f32, void* stream);
+int lantern_int8_matmul_wide(const void* x, const void* q, const void* s,
+                             void* out, int M, int K, int N, int nsplit,
+                             int out_f32, void* stream);
 int lantern_tree_attention(const void* q, const void* k_new, const void* v_new,
                            const void* k_cache, const void* v_cache,
                            const void* k_scale, const void* v_scale,
@@ -67,6 +70,18 @@ void int8_matmul(const at::Tensor& x, const at::Tensor& q, const at::Tensor& s,
                             x.size(1), q.size(1), nsplit,
                             out.scalar_type() == at::kFloat, stream_of(x)),
         "int8_matmul");
+}
+
+// the same product in one launch for any M (the wrapper sends M > 64 here):
+// the splits are added inside the block, so no partials and no tickets
+void int8_matmul_wide(const at::Tensor& x, const at::Tensor& q,
+                      const at::Tensor& s, at::Tensor& out, int64_t nsplit) {
+  check(lantern_int8_matmul_wide(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                                 out.data_ptr(), x.size(0), x.size(1),
+                                 q.size(1), nsplit,
+                                 out.scalar_type() == at::kFloat,
+                                 stream_of(x)),
+        "int8_matmul_wide");
 }
 
 // k_new/v_new [B, T, nkv, hd] with nkv * hd = G * 128 (one KV head of 128
@@ -188,6 +203,7 @@ void tree_walk(const at::Tensor& logits, const c10::optional<at::Tensor>& thr,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("int8_matmul", &int8_matmul);
+  m.def("int8_matmul_wide", &int8_matmul_wide);
   m.def("tree_attention", &tree_attention);
   m.def("kv_write", &kv_write);
   m.def("kv_gather", &kv_gather);

@@ -33,8 +33,10 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3",
               "-U__CUDA_NO_BFLOAT16_CONVERSIONS__",
               "-U__CUDA_NO_HALF2_OPERATORS__", "-Xptxas", "-v"]
 
-LAUNCHES = {"int8_matmul": 0, "tree_attention": 0, "kv_write": 0,
-            "kv_gather": 0, "tree_walk": 0}
+# "int8_matmul" counts every K1 launch, "int8_matmul_wide" those of its wide
+# form (calls of more than 64 rows) among them
+LAUNCHES = {"int8_matmul": 0, "int8_matmul_wide": 0, "tree_attention": 0,
+            "kv_write": 0, "kv_gather": 0, "tree_walk": 0}
 
 _lock = threading.Lock()
 _state: dict = {}

@@ -31,9 +31,9 @@ from ..parallel.mesh import tp_group
 LAYER_KERNELS = ("wqkv", "w_gu", "wq", "wk", "wv", "wo",
                  "w_gate", "w_up", "w_down")
 
-# rows per K1 launch: the widest its tensor-core instruction takes on the
-# activation side (wgmma n64)
-K1_MAX_ROWS = 64
+# the most rows K1's narrow form takes (its widest tensor-core instruction on
+# the activation side, wgmma n64); a call of more rows runs the wide form
+K1_NARROW_ROWS = 64
 # K1's geometry on the card: output columns a thread block owns, k rows of
 # a shared-memory stage, the thread blocks a launch should give every SM,
 # and the fewest k rows worth a split of their own (its f32 partials, up to
@@ -55,6 +55,14 @@ def k1_splits(K: int, N: int, sms: int) -> int:
     tiles = -(-N // K1_TILE_COLS)
     return max(1, min(K // K1_SPLIT_MIN_ROWS,
                       -(-K1_BLOCKS_PER_SM * sms // tiles)))
+
+
+def k1_form(M: int) -> str:
+    """K1's form for a call of ``M`` rows, one launch either way: the
+    narrow, bandwidth-bound kernel up to ``K1_NARROW_ROWS`` rows, the wide,
+    compute-bound one above (``csrc/int8_matmul.cu``; both give a row the
+    same bits)."""
+    return "narrow" if M <= K1_NARROW_ROWS else "wide"
 
 
 def k1_split_stages(K: int, nsplit: int) -> list:
@@ -123,10 +131,12 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 def int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                      out_dtype=None) -> torch.Tensor:
     """K1 on the card: ``x [..., K]`` bf16, ``q [K, N]`` int8, ``s`` [1, N]
-    f32 -> ``[..., N]`` bf16 (or f32).  Rows go in launches of at most
-    ``K1_MAX_ROWS``; a row's result does not depend on the row count.  Thin
-    shapes split the k range over ``k1_splits(K, N, sms)`` thread blocks,
-    whose f32 partials the last block to finish adds in split order."""
+    f32 -> ``[..., N]`` bf16 (or f32), in one launch of the form
+    ``k1_form`` picks; a row's result does not depend on the row count.
+    The k range is cut into ``k1_splits(K, N, sms)`` splits: the narrow
+    form spreads them over thread blocks, whose f32 partials the last block
+    to finish adds in split order; the wide form adds them in that order
+    inside the block."""
     return int8_matmul_launch(
         x, q, s, k1_splits(x.shape[-1], q.shape[-1], _cuda.sm_count(x.device)),
         out_dtype)
@@ -167,16 +177,18 @@ def int8_matmul_launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     M = x2.shape[0]
     out = torch.empty((M, Nk), dtype=out_dtype, device=x.device)
     ext = _cuda.library()
-    part = tickets = None
-    if nsplit > 1:
-        part = torch.empty((nsplit, min(M, K1_MAX_ROWS), Nk),
-                           dtype=torch.float32, device=x.device)
-        tickets = _cuda.tickets(x.device, "int8_matmul",
-                                -(-Nk // K1_TILE_COLS))
-    for m0 in range(0, M, K1_MAX_ROWS):
-        rows = slice(m0, m0 + K1_MAX_ROWS)
-        ext.int8_matmul(x2[rows], q, s, out[rows], part, tickets, nsplit)
-        _cuda.LAUNCHES["int8_matmul"] += 1
+    if k1_form(M) == "wide":
+        ext.int8_matmul_wide(x2, q, s, out, nsplit)
+        _cuda.LAUNCHES["int8_matmul_wide"] += 1
+    else:
+        part = tickets = None
+        if nsplit > 1:
+            part = torch.empty((nsplit, M, Nk), dtype=torch.float32,
+                               device=x.device)
+            tickets = _cuda.tickets(x.device, "int8_matmul",
+                                    -(-Nk // K1_TILE_COLS))
+        ext.int8_matmul(x2, q, s, out, part, tickets, nsplit)
+    _cuda.LAUNCHES["int8_matmul"] += 1
     return out[:, :N].reshape(*lead, N)
 
 

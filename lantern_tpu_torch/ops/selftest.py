@@ -25,6 +25,10 @@ divergence, so a bench can call it before it times anything:
   heads of 128 over 2 KV heads (G = 2, 4 query heads a KV head), T=16,
   S=512, length 137, within 3e-2 of dense attention over the KV heads
   repeated for their query heads, inputs from ``default_rng(1)``;
+- on a card only: K1's wide form (``int8_matmul_wide``), the same check at
+  130 rows (above the narrow form's 64: two row tiles, the second ragged),
+  inputs from ``default_rng(3)``, its first 8 rows equal bit for bit to
+  the 8-row call's (the narrow form);
 - on a card only: K5 (``stochastic_verify_tree``) on the benchmark's tree
   (``ckpts/bench_tree_lumina.json``, 32 nodes, 10 children a node, depth
   4) at V = 65,536, multi-draft with LANTERN (k = 10, delta = 5) and top-k
@@ -58,8 +62,9 @@ B, T, NH, HD, S, LENGTH = 2, 16, 4, 64, 512, 137
 # K3 / K4: layers, head groups, lanes, new rows, start, K4's path and block
 L, G, W, TN, START, BLK = 4, 2, 128, 24, 200, 32
 REL = [3, 0, 7, 7, 1]
-# K1: rows, contraction, columns
+# K1: rows, contraction, columns; the rows of its wide form's case
 M, K, N = 8, 256, 512
+WIDE_M = 130
 # the grouped-query K2 case: KV heads of 128 and query heads a KV head
 GQA_NKV, GQA_REP = 2, 4
 # K5: the benchmark's tree, vocabulary, warp and LANTERN operating point
@@ -68,7 +73,8 @@ WALK_TREE = (Path(__file__).resolve().parents[2] / "ckpts"
 WALK_V, WALK_TOP_K, WALK_LANTERN = 65536, 2000, (10, 5.0)
 TOL = {"tree_attention": 3e-2, "kv_write": 0.0, "kv_rollback": 0.0,
        "int8_matmul": 1e-1, "deferred_flash_tokens": 0,
-       "tree_attention_gqa": 3e-2, "tree_walk": 1e-5}
+       "tree_attention_gqa": 3e-2, "tree_walk": 1e-5,
+       "int8_matmul_wide": 1e-1}
 
 
 def draw_inputs(seed: int = 0) -> dict:
@@ -216,6 +222,22 @@ def walk_inputs(rng: np.random.Generator, device, V: int = WALK_V):
     return args, kw
 
 
+def wide_matmul_error(device) -> float:
+    """K1 at ``WIDE_M`` rows (the wide form on a card) against the
+    dequantized product, f32 out: the largest error (``inf`` where a row
+    of the 8-row call, the narrow form, differs from its row here)."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(WIDE_M, K)), dtype=torch.bfloat16,
+                        device=device)
+    wq, ws = quantize_weight(torch.as_tensor(
+        rng.normal(size=(K, N)).astype(np.float32), device=device))
+    got = w8a16_matmul(x, wq, ws, out_dtype=torch.float32)
+    if not torch.equal(got[:M], w8a16_matmul(x[:M], wq, ws,
+                                             out_dtype=torch.float32)):
+        return float("inf")
+    return _max_err(got, x.float() @ (wq.float() * ws))
+
+
 def walk_error(device) -> float:
     """K5 through ``stochastic_verify_tree`` against the plain walk on
     ``walk_inputs``, under drawn coins, then all 0, then all 1: the largest
@@ -284,6 +306,7 @@ def run_kernel_selftest(device=None, verbose: bool = False) -> dict:
         errs["deferred_flash_tokens"] = deferred_vs_rollback(dev)
         errs["tree_attention_gqa"] = gqa_attention_error(dev)
         errs["tree_walk"] = walk_error(dev)
+        errs["int8_matmul_wide"] = wide_matmul_error(dev)
 
     # --- K1: the W8A16 matmul against the dequantized product -------------
     x = t("x")

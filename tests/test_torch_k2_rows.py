@@ -31,6 +31,7 @@ from lantern_tpu_torch import kv as tkv
 from lantern_tpu_torch.convert import to_tensor
 from lantern_tpu_torch.engine import ar as tar
 from lantern_tpu_torch.models import chameleon as tcham
+from lantern_tpu_torch.ops import _cuda
 from lantern_tpu_torch.ops import quant as tq
 from lantern_tpu_torch.ops import tree_attention as tta
 from lantern_tpu_torch.ops.sampling import LogitsWarp as TWarp
@@ -248,6 +249,23 @@ def test_k1_splits_do_not_see_the_rows():
     assert tq.k1_split_stages(4096 + 8, 3)[-1][1] == 65   # a ragged last stage
 
 
+@pytest.mark.parametrize("M,form", [(1, "narrow"), (64, "narrow"),
+                                    (65, "wide"), (512, "wide")])
+def test_k1_form_from_the_row_count(M, form):
+    """K1's form is a function of the call's rows alone: the narrow kernel
+    up to ``K1_NARROW_ROWS``, the wide one above."""
+    assert tq.k1_form(M) == form
+
+
+def test_k1_wide_launches_are_counted_and_reset():
+    assert {"int8_matmul", "int8_matmul_wide"} <= set(_cuda.LAUNCHES)
+    _cuda.LAUNCHES["int8_matmul"] += 2
+    _cuda.LAUNCHES["int8_matmul_wide"] += 1
+    _cuda.reset_launches()
+    assert _cuda.LAUNCHES["int8_matmul"] == 0
+    assert _cuda.LAUNCHES["int8_matmul_wide"] == 0
+
+
 # ------------------------------------------------- CUDA kernels (card only)
 
 @pytest.mark.cuda
@@ -270,7 +288,7 @@ def test_int8_matmul_cuda_lane_shapes(cuda, name):
                 atol=1e-2 * ref.float().abs().max().item())
         # a row's result does not depend on how many rows share the launch
         assert torch.equal(got[0], one[0])
-    # nor on the rows before it: row 64 opens the second launch of 130
+    # nor on the rows before it: row 64 of the 130-row call (the wide form)
     assert torch.equal(tq.int8_matmul_cuda(x[64:65], q, s, torch.float32)[0],
                        got[64])
     # and every row of a narrower launch equals its row of the 64-row one

@@ -468,8 +468,31 @@ def test_accept_draws_the_walks_coins_then_the_bonus(multidraft):
 
 # ------------------------------------------------- CUDA kernels (card only)
 
+def k1_counted(x, q, s, out_dt):
+    """One K1 call, asserting its launches: one, of the wide form exactly
+    when the call has more than ``K1_NARROW_ROWS`` rows."""
+    n0, w0 = _cuda.LAUNCHES["int8_matmul"], _cuda.LAUNCHES["int8_matmul_wide"]
+    out = tq.int8_matmul_cuda(x, q, s, out_dt)
+    wide = x.shape[0] > tq.K1_NARROW_ROWS
+    assert _cuda.LAUNCHES["int8_matmul"] == n0 + 1
+    assert _cuda.LAUNCHES["int8_matmul_wide"] == w0 + wide
+    return out
+
+
+def assert_rows_alone(x, q, s, out_dt, got):
+    """Every row of ``got`` (one call over ``x``) equals, bit for bit, the
+    row computed alone and inside a call of ``K1_NARROW_ROWS`` rows."""
+    step = tq.K1_NARROW_ROWS
+    narrow = torch.cat([tq.int8_matmul_cuda(x[m:m + step], q, s, out_dt)
+                        for m in range(0, x.shape[0], step)])
+    assert torch.equal(narrow, got)
+    alone = torch.cat([tq.int8_matmul_cuda(x[m:m + 1], q, s, out_dt)
+                       for m in range(x.shape[0])])
+    assert torch.equal(alone, got)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [2, 22, 38, 64, 130])
+@pytest.mark.parametrize("M", [2, 22, 38, 64, 65, 130, 512, 513, 3840])
 def test_int8_matmul_cuda_matches_plain(cuda, M):
     g = torch.Generator(device=cuda).manual_seed(M)
     x = torch.randn((M, 4096), generator=g, device=cuda).bfloat16()
@@ -477,14 +500,48 @@ def test_int8_matmul_cuda_matches_plain(cuda, M):
                       dtype=torch.int8)
     s = torch.rand((1, 1536), generator=g, device=cuda) * 1e-3
     for out_dt in (torch.bfloat16, torch.float32):
-        got = tq.int8_matmul_cuda(x, q, s, out_dt)
+        got = k1_counted(x, q, s, out_dt)
         ref = tq.int8_matmul(x, q, s, out_dt)
         np.testing.assert_allclose(f32(got.cpu()), f32(ref.cpu()), rtol=2e-2,
                                    atol=2e-2 * ref.abs().max().item())
-    # a row's result does not depend on how many rows share the launch
-    one = tq.int8_matmul_cuda(x[:1], q, s, torch.float32)
-    np.testing.assert_array_equal(one.cpu().numpy(),
-                                  tq.int8_matmul_cuda(x, q, s, torch.float32)[:1].cpu().numpy())
+        # a row's result does not depend on how many rows share the call
+        assert_rows_alone(x, q, s, out_dt, got)
+
+
+# weight shapes the benchmark's cells run at their verify or prefill rows:
+# Lumina-7B's w_gu and w_down (9 k splits), Emu3-Gen's w_down and its head
+# (184,622 columns, stored padded, f32 out), LlamaGen-XL's w_down at its
+# 3,840-row caption prefill
+K1_CELL_SHAPES = {"lumina_w_gu": (513, 4096, 22016),
+                  "lumina_w_down": (512, 11008, 4096),
+                  "emu3_w_down": (513, 14336, 4096),
+                  "xl_w_down": (3840, 3584, 1280),
+                  "emu3_head": (512, 4096, 184622)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K1_CELL_SHAPES))
+def test_int8_matmul_cuda_cell_shapes(cuda, name):
+    M, K, N = K1_CELL_SHAPES[name]
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    q = torch.randint(-127, 128, (K, N), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = (torch.rand((1, N), generator=g, device=cuda) + 0.5) * 2e-4
+    q, s = tq.pad_columns(q, s)
+    x = torch.randn((M, K), generator=g, device=cuda).bfloat16()
+    for out_dt in (torch.bfloat16, torch.float32):
+        got = k1_counted(x, q, s, out_dt)
+        ref = tq.int8_matmul(x, q, s, out_dt)
+        assert got.shape == (M, N)
+        np.testing.assert_allclose(f32(got.cpu()), f32(ref.cpu()), rtol=0,
+                                   atol=1e-2 * ref.float().abs().max().item())
+        assert_rows_alone(x, q, s, out_dt, got)
+    if N % tq.K1_COL_MULTIPLE:
+        # junk and NaN in the pad columns of the stored head change nothing
+        qf, sf = tq._padded_storage(q, s)
+        qf[:, N:] = 127
+        sf[N:] = float("nan")
+        assert torch.equal(k1_counted(x, q, s, torch.float32), got)
 
 
 @pytest.mark.cuda
