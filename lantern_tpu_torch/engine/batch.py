@@ -11,8 +11,9 @@ the vmap form):
   its batch axis, ``B = 2R``: slot ``r`` owns rows ``2r`` (cond) and
   ``2r + 1`` (uncond), each row at its own length (``KVCache.length``
   ``[2R]``).  A step runs ``spec.verify_forward`` once over the 2R rows: per
-  layer one launch of the attention kernel (K2) and four of the matmul
-  (K1, ``ceil(2R * (N+1) / 64)`` launches each), then one block write (K3),
+  layer one launch of the attention kernel (K2) and one of the matmul (K1)
+  for each of its four weights, whatever the 2R (N+1) rows (up to 64 the
+  narrow form, above it the wide one), then one block write (K3),
   and after the acceptance one rollback gather (K4) with a start and an
   accepted path per row.  The JAX engine vmaps the whole step and stacks
   the caches slot-major instead; the port keeps every layer's planes one

@@ -3,15 +3,16 @@
 Counterpart of ``lantern_tpu/engine/scheduler.py``: drives a
 ``BatchedEngine``, keeps its R slots busy by refilling finished slots from a
 queue between steps, and collects per-request outputs and stats in the
-input order.  Two run loops:
+input order.  One run loop over either of two slot tables (the request
+queue, which request holds which slot, and each one's progress):
 
-- the native loop (the default): the request queue and slot table live in
-  the C++ runtime of ``native/scheduler.cc`` (``lantern_tpu_torch.native``;
-  a build failure raises);
-- the Python loop (``use_native=False``), the same lifecycle in plain
-  Python.
+- the native table (the default): the C++ runtime of
+  ``native/scheduler.cc`` (``lantern_tpu_torch.native``; a build failure
+  raises);
+- the Python table (``use_native=False``), ``SlotTable``, whose members
+  answer the loop's calls as the native table's do.
 
-Both fill EVERY free slot from the arrived queue at the top of every
+The loop fills EVERY free slot from the arrived queue at the top of every
 iteration, the idle one included.  (The JAX Python loop refills a slot only
 when another one completes, so after a drain two requests that arrive
 together run one after the other; that fault is not carried over.  A
@@ -79,9 +80,62 @@ class Request:
         return self.accept_sum / max(self.steps, 1)
 
 
+class SlotTable:
+    """The Python slot table: the members of ``native.NativeScheduler``
+    that the run loop calls.  Waiting uids take the free slots in slot
+    order; a request finishes when its slot reports ``max_new`` tokens."""
+
+    def __init__(self, num_slots: int):
+        self.queue: deque = deque()              # waiting uids
+        self.slots: List[Optional[int]] = [None] * num_slots
+        self.max_new = {}                        # live uid -> max_new
+        self.finished: deque = deque()           # (uid, steps, accept_sum)
+
+    def enqueue(self, uid: int, prompt_len: int, max_new: int) -> None:
+        if uid not in self.max_new:              # a live uid is dropped
+            self.max_new[uid] = max_new
+            self.queue.append(uid)
+
+    def fill_slots(self) -> List[tuple]:
+        free = [i for i, u in enumerate(self.slots) if u is None]
+        pairs = [(i, self.queue.popleft()) for i in free[:len(self.queue)]]
+        for i, uid in pairs:
+            self.slots[i] = uid
+        return pairs
+
+    def report_step(self, n_new, steps, accept_sum) -> int:
+        done = [i for i, u in enumerate(self.slots)
+                if u is not None and n_new[i] >= self.max_new[u]]
+        for i in done:
+            uid, self.slots[i] = self.slots[i], None
+            del self.max_new[uid]
+            self.finished.append((uid, int(steps[i]), int(accept_sum[i])))
+        return len(done)
+
+    def drain(self, cap: int = 64) -> List[tuple]:
+        return [self.finished.popleft()
+                for _ in range(min(cap, len(self.finished)))]
+
+    def fail(self, uid: int) -> bool:
+        if self.max_new.pop(uid, None) is None:
+            return False
+        self.slots = [None if u == uid else u for u in self.slots]
+        if uid in self.queue:
+            self.queue.remove(uid)
+        return True
+
+    @property
+    def num_active(self) -> int:
+        return sum(u is not None for u in self.slots)
+
+    @property
+    def num_waiting(self) -> int:
+        return len(self.queue)
+
+
 class Scheduler:
-    """Drives a ``BatchedEngine`` over a request list, on the native queue
-    (``use_native=True``, the default) or the Python loop."""
+    """Drives a ``BatchedEngine`` over a request list, on the native slot
+    table (``use_native=True``, the default) or ``SlotTable``."""
 
     def __init__(self, engine: BatchedEngine, use_native: bool = True):
         self.engine = engine
@@ -97,8 +151,7 @@ class Scheduler:
         self._tp = None if mesh is None or mesh.tp == 1 else mesh.tp_group
         self._tp_root = 0 if mesh is None else mesh.dp_rank * mesh.tp
         self._t_run0 = time.perf_counter()
-        done = (self._run_native(mine, progress) if self.use_native
-                else self._run_python(mine, progress))
+        done = self._run(mine, progress)
         if dp > 1:
             done = self._gather(requests, done, mesh)
         order = {id(r): i for i, r in enumerate(requests)}
@@ -199,14 +252,16 @@ class Scheduler:
             print(f"request {req.uid} FAILED: {req.error}")
 
     # ------------------------------------------------------------------
-    def _run_native(self, requests: List[Request],
-                    progress: bool) -> List[Request]:
-        from ..native import NativeScheduler
-
+    def _run(self, requests: List[Request],
+             progress: bool) -> List[Request]:
         eng = self.engine
-        sched = NativeScheduler(eng.slots)
+        if self.use_native:
+            from ..native import NativeScheduler
+            sched = NativeScheduler(eng.slots)
+        else:
+            sched = SlotTable(eng.slots)
         by_uid = {}
-        # requests enter the native queue once their arrival time passes
+        # requests enter the queue once their arrival time passes
         pending = deque(sorted(requests, key=lambda r: r.arrival_time or 0.0))
         batch = None
         slot_uid = [0] * eng.slots
@@ -254,51 +309,4 @@ class Scheduler:
                 self._complete(req, batch, before.index(uid), st, ac,
                                progress)
                 done.append(req)
-        return done
-
-    def _run_python(self, requests: List[Request],
-                    progress: bool) -> List[Request]:
-        eng = self.engine
-        queue = deque(sorted(requests, key=lambda r: r.arrival_time or 0.0))
-        done: List[Request] = []
-        slots: List[Optional[Request]] = [None] * eng.slots
-        batch = None
-
-        arrived = [0]       # requests at the queue's head that have arrived
-
-        def next_prefilled():
-            """Pop ARRIVED requests until one prefills cleanly; failed ones
-            are recorded and the batch keeps serving."""
-            while arrived[0]:
-                arrived[0] -= 1
-                req = queue.popleft()
-                pre = self._prefill(req)
-                if pre is not None:
-                    return req, pre
-                done.append(req)
-                self._failed(req, progress)
-            return None, None
-
-        while queue or any(r is not None for r in slots):
-            arrived[0] = self._arrivals(queue)
-            for s in range(eng.slots):
-                if slots[s] is None:
-                    req, pre = next_prefilled()
-                    if req is None:
-                        break
-                    if batch is None:
-                        batch = eng.empty_batch(pre)
-                    batch = eng.insert(batch, s, pre)
-                    slots[s] = req
-            if all(r is None for r in slots):
-                if queue:
-                    self._wait_for(queue[0])
-                continue
-            batch = eng.step(batch)
-            n_new, steps, acc = eng.slot_status(batch)
-            for s, req in enumerate(slots):
-                if req is not None and n_new[s] >= eng.ecfg.max_new:
-                    self._complete(req, batch, s, steps[s], acc[s], progress)
-                    done.append(req)
-                    slots[s] = None
         return done

@@ -29,12 +29,11 @@ The spans (attributes in brackets) and counters the engines record:
   request's in ``spec``) holds ``step.block``, ``step.verify``,
   ``step.accept``, ``step.commit``, ``step.advance``, ``step.draft`` and,
   batched, ``step.freeze`` ([slot] on the per-slot phases of a batch);
-- ``ar.prefill`` and, a token, ``ar.token``: lockstep AR
-  (``ar.generate_many``, ``generate_tokens_many``), each holding
-  ``sample``;
+- ``ar.prefill`` and, a token, ``ar.token``: the AR twin (all four
+  entry points of ``engine/ar.py``), each holding ``sample``;
 - ``forward`` (all of ``transformer.forward``, the drafter's too) and
   ``head`` (``transformer.logits_head``);
-- counters ``steps`` (a speculative step), ``ar_tokens`` (a lockstep
+- counters ``steps`` (a speculative step), ``ar_tokens`` (an AR
   token), ``syncs`` and ``spans_dropped`` (spans past the buffer's
   ``MAX_SPANS``).
 

@@ -1,8 +1,9 @@
 """The port's batched serving against ``lantern_tpu`` on the CPU, and the
 per-batch-row kernel forms it runs on.
 
-Batched serving: ``BatchedEngine`` + ``Scheduler`` (the native queue and
-the Python loop) against the JAX ``BatchedEngine`` + ``Scheduler`` on the
+Batched serving: ``BatchedEngine`` + ``Scheduler`` (its one run loop on
+the native slot table and on ``SlotTable``, which must answer every call
+alike) against the JAX ``BatchedEngine`` + ``Scheduler`` on the
 setups of ``tests/test_batching.py``, weights bridged by
 ``convert_params``: label requests with slot reuse (greedy, pinned, int8
 KV, stale drafting), Lumina token prompts, and ragged Lumina prompts on 3
@@ -49,7 +50,7 @@ from lantern_tpu_torch import trees as ttr
 from lantern_tpu_torch.convert import to_tensor
 from lantern_tpu_torch.engine import spec as tspec
 from lantern_tpu_torch.engine.batch import EMPTY, BatchedEngine
-from lantern_tpu_torch.engine.scheduler import Request, Scheduler
+from lantern_tpu_torch.engine.scheduler import Request, Scheduler, SlotTable
 from lantern_tpu_torch.models import chameleon as tcham
 from lantern_tpu_torch.models import transformer as ttfm
 from lantern_tpu_torch.ops import tree_attention as tta
@@ -412,6 +413,42 @@ def test_native_queue_guards():
     assert ns.report_step([4, 0], [3, 0], [4, 0]) == 1
     assert ns.drain() == [(7, 3, 4)] and ns.num_active == 0
     assert native.LIB_PATH.parent.name == "lantern_sched"
+
+
+@pytest.mark.parametrize("script", ["finish", "fail"])
+def test_slot_tables_agree(script):
+    """``SlotTable`` answers the run loop's calls as the native table does:
+    a duplicate live uid is dropped, free slots fill in slot order, a
+    failed request frees its slot or leaves the queue, and finished
+    requests drain with their stats."""
+    tables = (native.NativeScheduler(3), SlotTable(3))
+
+    def both(fn):
+        got = [fn(t) for t in tables]
+        assert got[0] == got[1], got
+        return got[0]
+
+    for uid in (5, 5, 6, 7, 8):
+        both(lambda t: t.enqueue(uid, prompt_len=0, max_new=4))
+    assert both(lambda t: (t.num_waiting, t.num_active)) == (4, 0)
+    assert both(lambda t: t.fill_slots()) == [(0, 5), (1, 6), (2, 7)]
+    if script == "fail":
+        assert both(lambda t: t.fail(8)) and not both(lambda t: t.fail(8))
+        assert both(lambda t: t.fail(6))
+        assert both(lambda t: t.fill_slots()) == []
+        assert both(lambda t: (t.num_waiting, t.num_active)) == (0, 2)
+        return
+    assert both(lambda t: t.fail(6)) and not both(lambda t: t.fail(6))
+    assert both(lambda t: t.fill_slots()) == [(1, 8)]
+    assert both(lambda t: t.report_step([4, 2, 4], [3, 1, 2],
+                                        [4, 2, 4])) == 2
+    assert both(lambda t: t.drain(cap=1)) == [(5, 3, 4)]
+    assert both(lambda t: t.drain()) == [(7, 2, 4)]
+    assert both(lambda t: (t.num_waiting, t.num_active)) == (0, 1)
+    assert both(lambda t: t.report_step([0, 4, 0], [0, 5, 0],
+                                        [0, 6, 0])) == 1
+    assert both(lambda t: t.drain()) == [(8, 5, 6)]
+    assert both(lambda t: (t.num_waiting, t.num_active)) == (0, 0)
 
 
 def test_native_build_failure_raises(tmp_path, monkeypatch):

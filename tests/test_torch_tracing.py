@@ -8,10 +8,10 @@ it on with the spans in ``trace()``'s Chrome trace, the buffer's bound and
 open spans, and the sync debug mode set only while the outermost recorded
 span is open and never over a mode set since.  Then the engines' spans on
 tiny configs: ``BatchedEngine``'s step phases in order, the
-single-request step's, ``Scheduler``'s on both run loops, and the
-lockstep AR loops' ``ar.prefill`` / ``ar.token`` with ``forward``, ``head``
-and ``sample`` inside; the same seed gives the same tokens with recording
-on and off.  CPU only: no JAX.
+single-request step's, ``Scheduler``'s on both slot tables, and the AR
+loops' ``ar.prefill`` / ``ar.token`` with ``forward``, ``head`` and
+``sample`` inside, lockstep and lone; the same seed gives the same tokens
+with recording on and off.  CPU only: no JAX.
 """
 
 import json
@@ -341,15 +341,20 @@ def ar_check(sp, max_new):
     assert prof.counters()[("ar_tokens", "ar.token")] == max_new
 
 
-def test_generate_many_spans_and_tokens(label):
+@pytest.mark.parametrize("lone", [False, True], ids=["lockstep", "lone"])
+def test_generate_many_spans_and_tokens(label, lone):
+    """The lockstep loop over 3 requests, or ``generate`` (the same loop at
+    R = 1): the same spans and counters, the same tokens recorded or not."""
     cfg, params = label
+    labels, seeds = ([3], [1]) if lone else ([3, 5, 8], [1, 2, 3])
 
     def run():
-        return tar.generate_many(
-            params, cfg, torch.tensor([3, 5, 8]),
-            torch.tensor([cfg.num_classes]), 5, 2.0, WARP,
-            [tspec.request_generator(s, "cpu") for s in (1, 2, 3)],
-            device="cpu")
+        gens = [tspec.request_generator(s, "cpu") for s in seeds]
+        args = (params, cfg, torch.tensor(labels),
+                torch.tensor([cfg.num_classes]), 5, 2.0, WARP)
+        if lone:
+            return tar.generate(*args, gens[0], device="cpu").tokens[None]
+        return tar.generate_many(*args, gens, device="cpu")
 
     off = run()
     with prof.recording():
@@ -358,9 +363,12 @@ def test_generate_many_spans_and_tokens(label):
     ar_check(prof.spans(), 5)
 
 
-def test_generate_tokens_many_spans_and_tokens(token):
+@pytest.mark.parametrize("lone", [False, True], ids=["lockstep", "lone"])
+def test_generate_tokens_many_spans_and_tokens(token, lone):
+    """The token-prompt loop over 2 requests, or ``generate_tokens`` at
+    R = 1 with ``stop_ids`` that never hit: the same spans and counters."""
     cfg, params = token
-    R, L = 2, 5
+    R, L = (1, 5) if lone else (2, 5)
     g = torch.Generator().manual_seed(3)
     tp = TokenPrompt(
         tokens=torch.randint(0, cfg.vocab_size, (R, 2, L), generator=g,
@@ -370,14 +378,21 @@ def test_generate_tokens_many_spans_and_tokens(token):
         pos_diff=torch.zeros((R,), dtype=torch.int32))
 
     def run():
-        return tar.generate_tokens_many(
-            params, cfg, tp, 4, 2.0, WARP,
-            [tspec.request_generator(s, "cpu") for s in (7, 8)],
-            device="cpu")
+        gens = [tspec.request_generator(s, "cpu") for s in (7, 8)[:R]]
+        if lone:
+            res = tar.generate_tokens(
+                params, cfg, TokenPrompt(tp.tokens[0], tp.positions[0],
+                                         tp.valid[0], tp.pos_diff[0]),
+                4, 2.0, WARP, gens[0], stop_ids=(cfg.vocab_size,),
+                device="cpu")
+            return res.tokens[None], torch.tensor([res.n_valid])
+        return tar.generate_tokens_many(params, cfg, tp, 4, 2.0, WARP, gens,
+                                        device="cpu")
 
     off = run()
     with prof.recording():
         on = run()
     np.testing.assert_array_equal(off[0].numpy(), on[0].numpy())
     np.testing.assert_array_equal(off[1].numpy(), on[1].numpy())
+    assert on[1].tolist() == [4] * R
     ar_check(prof.spans(), 4)
